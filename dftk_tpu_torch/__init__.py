@@ -1,0 +1,30 @@
+"""dftk_tpu_torch: the PyTorch and CUDA port of dftk_tpu.
+
+Plane-wave Kohn-Sham DFT with HGH pseudopotentials and LDA functionals,
+solved self-consistently with a batched LOBPCG eigensolver, on complex
+tensors on whatever device the caller names (`PlaneWaveBasis(...,
+device=..., dtype=...)`, complex128 by default).  The local-potential part
+of H psi runs through hand-written CUDA kernels on a CUDA device
+(`kernels/local_apply.py`).  The JAX package `dftk_tpu` is the reference
+this port is held against; this package never imports it or jax.
+
+This slice covers the symmetry-free LDA SCF; see ROADMAP.md for the rest.
+"""
+import torch
+
+# Full float32 matrix products and convolutions on the GPU: TF32 keeps only
+# ~3 decimal digits, far below what a plane-wave SCF needs.  Set explicitly
+# although PyTorch's matmul default already agrees; cuDNN's does not.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from .basis import PlaneWaveBasis  # noqa: E402
+from .bzmesh import ExplicitKpoints, MonkhorstPack  # noqa: E402
+from .models.elements import ElementPsp  # noqa: E402
+from .models.standard import LDA, model_DFT  # noqa: E402
+from .ops.density import guess_density  # noqa: E402
+from .scf.driver import SCFResult, self_consistent_field  # noqa: E402
+
+__all__ = ["model_DFT", "LDA", "ElementPsp", "PlaneWaveBasis", "MonkhorstPack",
+           "ExplicitKpoints", "self_consistent_field", "SCFResult",
+           "guess_density"]

@@ -1,0 +1,140 @@
+"""PlaneWaveBasis: discretization of a Model at a kinetic cutoff Ecut.
+
+Port of `dftk_tpu/basis.py` (reference PlaneWaveBasis.jl:25-369 and
+Kpoint.jl:6-74).  One dense, padded representation of all k-points:
+
+    psi[nk, n_bands, nG_max]   (complex)       - Bloch coefficients
+    Gidx[nk, nG_max]  (int64)                  - flat cube index per sphere pt
+    mask[nk, nG_max]  (real)                   - 1 real / 0 padding
+    kin [nk, nG_max]  (real)                   - |k+G|^2 / 2 (0 on padding)
+
+nG_max is padded to a multiple of 128, as in the JAX package, so that the
+two packages' arrays compare element by element.  Index and mask
+construction is host-side numpy; `basis.data` holds the tensors on
+`basis.device` in `basis.dtype` (complex) and its real counterpart.
+
+Not ported in this slice: symmetry-reduced k-points (the model must be
+symmetry-free) and the k-point device mesh.
+"""
+import dataclasses
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .bzmesh import as_kgrid
+from .models.model import Model
+from .ops import fft as fftops
+
+LANE = 128  # nG padding multiple, kept from the JAX package
+
+
+class BasisData(NamedTuple):
+    """Static tensors of the discretization."""
+    Gidx: torch.Tensor       # [nk, nG] int64 flat cube indices
+    mask: torch.Tensor       # [nk, nG] real validity
+    kin: torch.Tensor        # [nk, nG] kinetic energies |k+G|^2/2 (masked)
+    Gpk_cart: torch.Tensor   # [nk, nG, 3] Cartesian k+G
+    kweights: torch.Tensor   # [nk]
+    kspin: torch.Tensor      # [nk] int64 spin component index (0 or 1)
+
+
+def real_dtype(complex_dtype):
+    return {torch.complex128: torch.float64,
+            torch.complex64: torch.float32}[complex_dtype]
+
+
+@dataclasses.dataclass
+class PlaneWaveBasis:
+    model: Model
+    Ecut: float
+    kgrid: Any = None
+    fft_size: Optional[tuple] = None
+    device: Any = "cpu"
+    dtype: torch.dtype = torch.complex128
+
+    def __post_init__(self):
+        model = self.model
+        self.device = torch.device(self.device)
+        self.rdtype = real_dtype(self.dtype)
+        self.kgrid = as_kgrid(self.kgrid if self.kgrid is not None else (1, 1, 1))
+
+        kcoords, kweights = self.kgrid.irreducible_kcoords()
+        self.kcoords = np.asarray(kcoords, dtype=float)
+        self.kweights_irr = np.asarray(kweights, dtype=float)
+        if abs(self.kweights_irr.sum() - 1.0) > 1e-12:
+            raise ValueError("k-point weights must sum to 1")
+
+        if self.fft_size is None:
+            self.fft_size = fftops.compute_fft_size(model.lattice, self.Ecut)
+        self.fft_size = tuple(int(n) for n in self.fft_size)
+
+        nspin = model.n_spin_components
+        nk_irr = len(self.kcoords)
+        self.kcoords_spin = np.tile(self.kcoords, (nspin, 1))
+        self.kweights = np.tile(self.kweights_irr, nspin)
+        self.kspin = np.repeat(np.arange(nspin), nk_irr)
+        self.n_kpoints = nk_irr * nspin
+
+        self._build_spheres()
+
+        self.dvol = model.unit_cell_volume / np.prod(self.fft_size)
+        self.G_cube = fftops.G_vectors_cube(self.fft_size)     # integer [n1,n2,n3,3]
+        self.G_cube_cart = np.einsum("ab,xyzb->xyza", model.recip_lattice,
+                                     self.G_cube.astype(float))
+        self.G_cube_cart_norm = np.linalg.norm(self.G_cube_cart, axis=-1)
+
+        self.data = BasisData(
+            Gidx=self.tensor(self.Gidx_np, torch.int64),
+            mask=self.tensor(self.mask_np),
+            kin=self.tensor(self.kin_np),
+            Gpk_cart=self.tensor(self.Gpk_cart_np),
+            kweights=self.tensor(self.kweights),
+            kspin=self.tensor(self.kspin, torch.int64),
+        )
+
+        from .ops.pruned import build_pruned_fft
+        from .ops.terms import instantiate_terms
+        self.pruned = build_pruned_fft(self)
+        self.terms = instantiate_terms(self)
+
+    def tensor(self, arr, dtype=None):
+        """numpy -> contiguous tensor on this basis' device (real dtype by
+        default)."""
+        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype or self.rdtype,
+                               device=self.device)
+
+    def _build_spheres(self):
+        Gcube = fftops.G_vectors_cube(self.fft_size).reshape(-1, 3)
+        B = self.model.recip_lattice
+        sel_list = []
+        for k in self.kcoords_spin:
+            Gpk = (Gcube + k) @ B.T
+            ekin = 0.5 * np.einsum("na,na->n", Gpk, Gpk)
+            sel_list.append(np.nonzero(ekin <= self.Ecut)[0])
+
+        nG_max = max(len(s) for s in sel_list)
+        self.nG_max = ((nG_max + LANE - 1) // LANE) * LANE
+
+        nk = self.n_kpoints
+        Gidx = np.zeros((nk, self.nG_max), dtype=np.int64)
+        mask = np.zeros((nk, self.nG_max))
+        Gred = np.zeros((nk, self.nG_max, 3), dtype=np.int64)
+        Gpk_cart = np.zeros((nk, self.nG_max, 3))
+        for ik, sel in enumerate(sel_list):
+            n = len(sel)
+            Gidx[ik, :n] = sel
+            mask[ik, :n] = 1.0
+            Gred[ik, :n] = Gcube[sel]
+            Gpk_cart[ik, :n] = (Gcube[sel] + self.kcoords_spin[ik]) @ B.T
+
+        self.Gidx_np = Gidx
+        self.mask_np = mask
+        self.Gred_np = Gred
+        self.Gpk_cart_np = Gpk_cart
+        self.kin_np = 0.5 * np.einsum("kna,kna->kn", Gpk_cart, Gpk_cart) * mask
+
+    def __repr__(self):
+        return (f"PlaneWaveBasis(Ecut={self.Ecut}, fft_size={self.fft_size}, "
+                f"n_kpoints={self.n_kpoints}, nG_max={self.nG_max}, "
+                f"device={self.device}, dtype={self.dtype})")

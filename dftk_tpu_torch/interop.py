@@ -1,0 +1,45 @@
+"""Carry arrays of the JAX package (`dftk_tpu`) into the port's tensors.
+
+Takes numpy arrays only: it imports neither jax nor the JAX package.  The
+two packages draw random numbers from different generators, so comparisons
+between them share inputs rather than seeds: the JAX package's basis and
+terms arrays, its orbitals and its density go through these functions
+(as `np.asarray(...)` of the JAX arrays) onto the port's device and dtype.
+"""
+import numpy as np
+import torch
+
+from .basis import BasisData, real_dtype
+from .ops.terms import TermsData
+
+
+def _t(a, dtype, device):
+    return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def basis_arrays_from_numpy(*, Gidx, mask, kin, Gpk_cart, kweights, kspin,
+                            vloc_static, hartree_coeffs, P, D, Gsq_cart,
+                            kinetic_scale=1.0, device="cpu",
+                            dtype=torch.complex128):
+    """The JAX package's `basis.data` and `basis.terms.data` arrays as the
+    port's (BasisData, TermsData) on `device`, complex `dtype` and its real
+    counterpart."""
+    rdt = real_dtype(dtype)
+    bd = BasisData(Gidx=_t(Gidx, torch.int64, device), mask=_t(mask, rdt, device),
+                   kin=_t(kin, rdt, device), Gpk_cart=_t(Gpk_cart, rdt, device),
+                   kweights=_t(kweights, rdt, device),
+                   kspin=_t(kspin, torch.int64, device))
+    td = TermsData(vloc_static=_t(vloc_static, rdt, device),
+                   hartree_coeffs=_t(hartree_coeffs, rdt, device),
+                   P=_t(P, dtype, device), D=_t(D, rdt, device),
+                   Gsq_cart=_t(Gsq_cart, rdt, device),
+                   kinetic_scale=float(kinetic_scale))
+    return bd, td
+
+
+def state_from_numpy(psi=None, rho=None, device="cpu", dtype=torch.complex128):
+    """Orbitals psi [nk, nb, nG] (complex) and density rho [nspin, n1, n2, n3]
+    (real) as tensors; either may be None."""
+    out_psi = None if psi is None else _t(psi, dtype, device)
+    out_rho = None if rho is None else _t(rho, real_dtype(dtype), device)
+    return out_psi, out_rho

@@ -1,0 +1,211 @@
+"""Energy terms and their instantiation on a PlaneWaveBasis.
+
+Port of `dftk_tpu/ops/terms.py::instantiate_terms` for the terms of the LDA
+path: Kinetic, AtomicLocal, AtomicNonlocal, Hartree, Xc, Ewald and
+PspCorrection.  Density-independent data (the local pseudopotential, the
+Hartree kernel, the nonlocal projectors P and couplings D, the Ewald and psp
+correction energies) are built once on the host in numpy and held as
+tensors on the basis' device in `Terms.data`; the density-dependent
+potentials are assembled each SCF step by `ops/hamiltonian.py`.
+
+Any other term raises NotImplementedError naming its ROADMAP item.
+"""
+import dataclasses
+import math
+from typing import Any, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.elements import ElementPsp
+from ..utils.special import LM_INDEX, solid_harmonics_real
+from .ewald import default_eta, energy_ewald
+from .xc.functionals import resolve_functionals
+
+
+@dataclasses.dataclass(frozen=True)
+class Kinetic:
+    scaling_factor: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AtomicLocal:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class AtomicNonlocal:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Hartree:
+    scaling_factor: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Xc:
+    functionals: tuple = ()
+    scaling_factor: float = 1.0
+
+    def __init__(self, functionals=(), scaling_factor=1.0):
+        if isinstance(functionals, str):
+            functionals = (functionals,)
+        object.__setattr__(self, "functionals", tuple(functionals))
+        object.__setattr__(self, "scaling_factor", float(scaling_factor))
+
+
+@dataclasses.dataclass(frozen=True)
+class Ewald:
+    eta: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PspCorrection:
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class Entropy:
+    """Smearing entropy; declared so that models mirror the JAX package,
+    not instantiable yet (ROADMAP Queue 1, item 8: metals)."""
+
+
+class TermsData(NamedTuple):
+    """Tensors consumed by the Hamiltonian and the SCF step."""
+    vloc_static: torch.Tensor     # [n1,n2,n3] static local potential
+    hartree_coeffs: torch.Tensor  # [n1,n2,n3] 4 pi / |G|^2 (0 at DC), scaled
+    P: torch.Tensor               # [nk, nG, nproj] complex projectors
+    D: torch.Tensor               # [nproj, nproj] couplings
+    Gsq_cart: torch.Tensor        # [n1,n2,n3] |G|^2 Cartesian (Kerker mixing)
+    kinetic_scale: float
+
+
+@dataclasses.dataclass
+class Terms:
+    """Scalars of the terms, and their tensors in `data`."""
+    E_ewald: float
+    E_psp_correction: float
+    xc: Sequence[Any]
+    xc_scaling: float
+    data: TermsData
+
+
+def instantiate_terms(basis) -> Terms:
+    model = basis.model
+    fft_size = basis.fft_size
+    vloc = np.zeros(fft_size)
+    hartree_coeffs = np.zeros(fft_size)
+    P = np.zeros((basis.n_kpoints, basis.nG_max, 0), dtype=np.complex128)
+    D = np.zeros((0, 0))
+    E_ewald = 0.0
+    E_psp = 0.0
+    xc_functionals = []
+    xc_scaling = 1.0
+    kinetic_scale = 1.0
+    Gsq = basis.G_cube_cart_norm ** 2
+
+    for term in model.term_types:
+        if isinstance(term, Kinetic):
+            kinetic_scale = term.scaling_factor
+        elif isinstance(term, AtomicLocal):
+            vloc += _atomic_local_potential(basis)
+        elif isinstance(term, AtomicNonlocal):
+            PD = _build_nonlocal_projectors(basis)
+            if PD is not None:
+                P, D = PD
+        elif isinstance(term, Hartree):
+            coeffs = np.where(Gsq > 0, 4 * math.pi / np.where(Gsq > 0, Gsq, 1.0), 0.0)
+            hartree_coeffs = term.scaling_factor * coeffs
+        elif isinstance(term, Xc):
+            xc_functionals = resolve_functionals(term.functionals)
+            xc_scaling = term.scaling_factor
+        elif isinstance(term, Ewald):
+            charges = np.array([at.charge_ionic() for at in model.atoms], dtype=float)
+            if len(charges) > 0:
+                eta = term.eta or default_eta(model.lattice)
+                E_ewald = energy_ewald(model.lattice, charges,
+                                       np.stack(model.positions), eta=eta,
+                                       device=basis.device)
+        elif isinstance(term, PspCorrection):
+            E_psp = _energy_psp_correction(model)
+        else:
+            raise NotImplementedError(
+                f"Term {term} is not ported yet: this slice has Kinetic, "
+                f"AtomicLocal, AtomicNonlocal, Hartree, Xc, Ewald and "
+                f"PspCorrection (see ROADMAP Queue 1 for the rest)")
+
+    data = TermsData(
+        vloc_static=basis.tensor(vloc), hartree_coeffs=basis.tensor(hartree_coeffs),
+        P=basis.tensor(P, basis.dtype), D=basis.tensor(D),
+        Gsq_cart=basis.tensor(Gsq), kinetic_scale=float(kinetic_scale))
+    return Terms(E_ewald=E_ewald, E_psp_correction=E_psp, xc=xc_functionals,
+                 xc_scaling=xc_scaling, data=data)
+
+
+def _atomic_local_potential(basis):
+    """Form factors x structure factors, iFFT'd on the host
+    (reference terms/local.jl:108-140)."""
+    model = basis.model
+    Gnorm = basis.G_cube_cart_norm.reshape(-1)
+    Gred = basis.G_cube.reshape(-1, 3).astype(float)
+    pot = np.zeros(Gnorm.shape, dtype=np.complex128)
+    for group in model.atom_groups:
+        el = model.atoms[group[0]]
+        ff = np.asarray(el.local_potential_fourier(Gnorm))
+        sf = np.zeros(Gnorm.shape, dtype=np.complex128)
+        for idx in group:
+            sf += np.exp(1j * (-2 * math.pi * (Gred @ np.asarray(model.positions[idx]))))
+        pot += ff * sf
+    pot /= math.sqrt(model.unit_cell_volume)
+    N = np.prod(basis.fft_size)
+    return np.fft.ifftn(pot.reshape(basis.fft_size)).real \
+        * (N / math.sqrt(model.unit_cell_volume))
+
+
+def _build_nonlocal_projectors(basis):
+    """P[nk, nG, nproj] with P[:, :, a] = ff * sf / sqrt(Omega), D block
+    diagonal (reference terms/nonlocal.jl:166-244).
+
+    Projector order per atom: l ascending, then m, then radial index i."""
+    model = basis.model
+    psp_groups = [g for g in model.atom_groups
+                  if isinstance(model.atoms[g[0]], ElementPsp)]
+    if not psp_groups:
+        return None
+    n_proj = sum(model.atoms[g[0]].psp.n_proj() * len(g) for g in psp_groups)
+    P = np.zeros((basis.n_kpoints, basis.nG_max, n_proj), dtype=np.complex128)
+    D = np.zeros((n_proj, n_proj))
+    sqrt_vol = math.sqrt(model.unit_cell_volume)
+    Gpk = basis.Gpk_cart_np
+    Gpk_norm = np.linalg.norm(Gpk, axis=-1)
+    Gred_pk = basis.Gred_np + basis.kcoords_spin[:, None, :]
+
+    offset = 0
+    for group in psp_groups:
+        psp = model.atoms[group[0]].psp
+        Y = solid_harmonics_real(Gpk, psp.lmax)
+        radial = {(l, i): psp.projector_fourier(i, l, Gpk_norm)
+                  for l in range(psp.lmax + 1)
+                  for i in range(1, psp.n_proj_radial(l) + 1)}
+        for atom_idx in group:
+            sf = np.exp(-2j * math.pi * (Gred_pk @ np.asarray(model.positions[atom_idx])))
+            col = offset
+            for l in range(psp.lmax + 1):
+                nproj_l = psp.n_proj_radial(l)
+                for m in range(-l, l + 1):
+                    ylm = Y[..., LM_INDEX[(l, m)]]
+                    for i in range(1, nproj_l + 1):
+                        P[:, :, col] = sf * radial[(l, i)] * (-1j) ** l * ylm / sqrt_vol
+                        col += 1
+                    blk = slice(col - nproj_l, col)
+                    D[blk, blk] = np.array(psp.h[l])
+            offset = col
+    P *= basis.mask_np[:, :, None]
+    return P, D
+
+
+def _energy_psp_correction(model):
+    corr = sum(len(g) * model.atoms[g[0]].psp.energy_correction()
+               for g in model.atom_groups if isinstance(model.atoms[g[0]], ElementPsp))
+    return corr * model.n_electrons / model.unit_cell_volume

@@ -1,0 +1,187 @@
+"""Self-consistent field driver.
+
+Port of `dftk_tpu/scf/driver.py::self_consistent_field` (reference
+`src/scf/self_consistent_field.jl:80-289`): a Python fixed-point loop around
+one SCF step
+
+    rho_in -> V(rho_in) -> LOBPCG (warm-started) -> occupations / Fermi level
+           -> rho_out -> energies at rho_out
+
+with Anderson-accelerated, Simple/Kerker-preconditioned density updates and
+an adaptive eigensolver tolerance (AdaptiveDiagtol, scf_callbacks.jl:191-230).
+The JAX package jit-compiles the step; here it runs eagerly on the basis'
+device.
+
+Not ported in this slice, and refused when requested: exact exchange,
+Hubbard, meta-GGA (their terms do not instantiate), LDOS-based mixings and
+adaptive band growth (`nbandsalg`).
+"""
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..ops import hamiltonian as hamops
+from ..ops.density import compute_density, guess_density
+from ..ops.eigen.lobpcg import lobpcg, ortho_qr
+from ..ops.occupation import compute_occupation
+from .anderson import AndersonAcceleration
+from .mixing import KerkerMixing, SimpleMixing
+
+
+@dataclasses.dataclass
+class SCFResult:
+    basis: Any
+    energies: Dict[str, float]
+    eigenvalues: np.ndarray      # [nk, nb]
+    occupation: np.ndarray       # [nk, nb]
+    psi: Any                     # [nk, nb, nG] tensor
+    rho: Any                     # [nspin, n1, n2, n3] tensor
+    epsF: float
+    converged: bool
+    n_iter: int
+    n_bands_converge: int
+    history_Etot: list
+    history_Drho: list
+    n_matvec: int
+    runtime_s: float
+    V_local: Any = None          # total local potential at convergence
+    tau: Any = None              # kinetic-energy density (meta-GGA; not ported)
+
+    @property
+    def total_energy(self):
+        return self.energies["total"]
+
+
+def random_orbitals(basis, n_bands, seed=42, generator=None):
+    """Orthonormalised random orbitals [nk, n_bands, nG] on the basis' device,
+    drawn from `generator` (a torch.Generator on that device) or from a new
+    one seeded with `seed`."""
+    if generator is None:
+        generator = torch.Generator(device=basis.device).manual_seed(seed)
+    shape = (basis.n_kpoints, n_bands, basis.nG_max)
+    X = torch.randn(shape, dtype=basis.dtype, device=basis.device,
+                    generator=generator)
+    return ortho_qr(X * basis.data.mask[:, None, :])
+
+
+def default_mixing(model):
+    return KerkerMixing() if model.temperature > 0 else SimpleMixing()
+
+
+@torch.no_grad()
+def self_consistent_field(
+        basis,
+        tol: float = 1e-6,
+        maxiter: int = 100,
+        rho=None,
+        psi=None,
+        n_bands: Optional[int] = None,
+        n_extra_bands: Optional[int] = None,
+        nbandsalg=None,
+        mixing=None,
+        damping: float = 0.8,
+        anderson_depth: int = 10,
+        eigensolver_maxiter: int = 100,
+        diagtol_max: float = 5e-3,
+        diagtol_min: float = None,
+        diagtol_ratio: float = 0.2,
+        is_converged="density",   # "density" | "energy" | callable(info)->bool
+        callback: Optional[Callable] = None,
+        maxtime: Optional[float] = None,      # seconds; soft SCF timeout
+        seed: int = 42,
+        generator: Optional[torch.Generator] = None,
+) -> SCFResult:
+    t0 = time.time()
+    model = basis.model
+    terms = basis.terms
+    if nbandsalg is not None:
+        raise NotImplementedError("adaptive band growth (nbandsalg) is not "
+                                  "ported yet (ROADMAP Queue 1, item 6)")
+    if mixing is None:
+        mixing = default_mixing(model)
+    if getattr(mixing, "needs_ldos", False) or getattr(mixing, "needs_state", False):
+        raise NotImplementedError("LDOS- and chi0-based mixings are not ported "
+                                  "yet (ROADMAP Queue 1, item 8)")
+    if n_bands is None:
+        n_bands = model.default_n_bands()
+    if n_extra_bands is None:
+        n_extra_bands = max(3, n_bands // 10)
+    if rho is None:
+        rho = guess_density(basis)
+    if psi is None:
+        psi = random_orbitals(basis, n_bands + n_extra_bands, seed=seed,
+                              generator=generator)
+    if diagtol_min is None:
+        diagtol_min = max(tol / 100, 100 * torch.finfo(basis.rdtype).eps)
+
+    bd = basis.data
+    td = terms.data
+    nspin = model.n_spin_components
+    volume = model.unit_cell_volume
+    dvol = basis.dvol
+
+    def scf_step(rho_in, psi_in, diagtol):
+        V, _ = hamops.total_potential(terms, rho_in, volume)
+        ham = hamops.build_ham(bd, td, V, basis.pruned)
+        res = lobpcg(lambda p: hamops.apply_H(ham, p), psi_in, ham.kin, bd.mask,
+                     tol=diagtol, maxiter=eigensolver_maxiter, n_conv=n_bands)
+        occ, epsF = compute_occupation(res.eigenvalues, bd.kweights,
+                                       model.n_electrons, model.filled_occupation,
+                                       model.temperature, model.smearing)
+        rho_out = compute_density(bd, res.X, occ, basis.fft_size, volume, nspin)
+        # energies at rho_out (consistent at convergence); the kinetic and
+        # nonlocal parts of H do not depend on V, so `ham` serves for both
+        V_out, energies = hamops.total_potential(terms, rho_out, volume)
+        energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
+        return rho_out, res, occ, epsF, energies, V_out
+
+    anderson = AndersonAcceleration(m=anderson_depth)
+    history_E, history_drho = [], []
+    E_prev = None
+    converged = False
+    diagtol = diagtol_max
+    n_matvec_total = 0
+    E_const = {"Ewald": terms.E_ewald, "PspCorrection": terms.E_psp_correction}
+    for it in range(maxiter):
+        rho_out, res, occ, epsF, energies, V_out = scf_step(rho, psi, diagtol)
+        psi = res.X
+        n_matvec_total += res.n_matvec
+        delta_F = rho_out - rho
+        energies_h = {k: float(v) for k, v in energies.items()}
+        E_total = float(sum(energies_h.values()) + sum(E_const.values()))
+        drho = float(torch.linalg.vector_norm(delta_F)) * math.sqrt(dvol)
+        history_E.append(E_total)
+        history_drho.append(drho)
+        if callback is not None:
+            callback(dict(n_iter=it + 1, E=E_total, drho=drho, epsF=float(epsF),
+                          eig_iters=res.n_iter))
+
+        if callable(is_converged):
+            converged = bool(is_converged(dict(E=E_total, drho=drho, n_iter=it + 1)))
+        elif is_converged == "density":
+            converged = drho < tol
+        else:
+            converged = E_prev is not None and abs(E_total - E_prev) < tol
+        E_prev = E_total
+        if converged or (maxtime is not None and time.time() - t0 > maxtime):
+            break
+        # density update: precondition + Anderson + damping
+        rho = anderson(rho, mixing.mix_density(delta_F, td.Gsq_cart), damping)
+        # adaptive eigensolver tolerance, tightening with the density residual
+        diagtol = min(diagtol, max(diagtol_ratio * drho, diagtol_min))
+
+    energies_out = dict(energies_h)
+    energies_out.update(E_const)
+    energies_out["total"] = float(sum(energies_out.values()))
+    return SCFResult(
+        basis=basis, energies=energies_out,
+        eigenvalues=res.eigenvalues.cpu().numpy(),
+        occupation=occ.cpu().numpy(),
+        psi=psi, rho=rho_out, epsF=float(epsF), converged=bool(converged),
+        n_iter=it + 1, n_bands_converge=n_bands,
+        history_Etot=history_E, history_Drho=history_drho,
+        n_matvec=n_matvec_total, runtime_s=time.time() - t0, V_local=V_out)

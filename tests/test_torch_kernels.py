@@ -1,0 +1,145 @@
+"""The local-apply kernels of dftk_tpu_torch against the TPU kernels.
+
+The plain PyTorch versions in `dftk_tpu_torch/kernels/local_apply.py` are
+held against the JAX package's Pallas kernels, run on the CPU in interpret
+mode, on the same inputs made with numpy:
+  * local_apply_plain vs kernels/fused_local.py::fused_local_apply, f64,
+    1e-12 (the bar of tests/test_engine_split.py::
+    test_pallas_fused_local_matches_xla);
+  * local_plane_plain vs kernels/fused_filter.py::fused_filter_mid, f32 at
+    'highest' precision, 1e-5 of max|out| (the two sum in other orders).
+The CUDA kernels themselves run only on a GPU: tests/test_torch_cuda.py
+holds them against the plain versions there.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import dftk_tpu as dftk
+from dftk_tpu.ops.engine_split import build_pruned_fft as jax_build_pruned_fft
+
+import dftk_tpu_torch as dt
+from dftk_tpu_torch.kernels import local_apply as la
+
+A_SI = 5.131570667152971
+SI_LATTICE = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
+
+
+def _si2(pkg):
+    Si = pkg.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    model = pkg.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+                          functionals=["lda_x", "lda_c_vwn"], symmetries=False)
+    return pkg.PlaneWaveBasis(model, Ecut=7.0, kgrid=pkg.MonkhorstPack((2, 2, 2)),
+                              fft_size=(18, 18, 18))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    torch.set_num_threads(1)   # tier-1 runs 6 xdist workers on 8 cores
+
+
+@pytest.fixture(scope="module")
+def bases():
+    return _si2(dftk), _si2(dt)
+
+
+def _random_inputs(rng, nk, nb, m, n):
+    xc = rng.normal(size=(nk, nb) + m) + 1j * rng.normal(size=(nk, nb) + m)
+    V_zxy = rng.normal(size=(nk, n[2], n[0], n[1]))
+    return xc, V_zxy
+
+
+def test_pruned_factors_match_jax_block_factors(bases):
+    jb, tb = bases
+    pf = jax_build_pruned_fft(jb, dtype=jnp.float64)
+    fac = tb.pruned.factors
+    for a in range(3):
+        m, n = fac.fwd[a].shape
+        blk_f = np.asarray(pf.Fblk_f[a])      # [[C, S], [-S, C]]
+        blk_b = np.asarray(pf.Fblk_b[a])
+        np.testing.assert_allclose(fac.fwd[a].numpy(),
+                                   blk_f[:m, :n] + 1j * blk_f[:m, n:], atol=1e-15)
+        np.testing.assert_allclose(fac.bwd[a].numpy(),
+                                   blk_b[:n, :m] + 1j * blk_b[:n, m:], atol=1e-15)
+
+
+def test_local_apply_plain_matches_fused_local_interpret(bases):
+    from dftk_tpu.kernels.fused_local import fused_local_apply
+    jb, tb = bases
+    pf = jax_build_pruned_fft(jb, dtype=jnp.float64)
+    m, n = tb.pruned.m_shape, tb.fft_size
+    xc, V_zxy = _random_inputs(np.random.default_rng(0), tb.n_kpoints, 3, m, n)
+    V_rev = np.transpose(V_zxy, (0, 1, 3, 2))          # [nk, n3, n2, n1]
+    yr, yi = fused_local_apply(jnp.asarray(xc.real), jnp.asarray(xc.imag),
+                               jnp.asarray(V_rev), pf, interpret=True)
+    ref = np.asarray(yr) + 1j * np.asarray(yi)
+    out = la.local_apply_plain(torch.as_tensor(xc), torch.as_tensor(V_zxy),
+                               tb.pruned.factors).numpy()
+    assert np.max(np.abs(out - ref)) < 1e-12
+
+
+def test_local_plane_plain_matches_fused_filter_mid_interpret(bases, monkeypatch):
+    from jax.experimental import pallas as pl
+    from dftk_tpu.kernels.fused_filter import FusedFilterFactors, fused_filter_mid
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    jb, tb = bases
+    pf = jax_build_pruned_fft(jb, dtype=jnp.float32)
+    (m1, m2, _), (n1, n2, n3) = tb.pruned.m_shape, tb.fft_size
+    nb = 4
+    rng = np.random.default_rng(1)
+    t = (rng.normal(size=(nb, n3, m1, m2))
+         + 1j * rng.normal(size=(nb, n3, m1, m2))).astype(np.complex64)
+    V = rng.normal(size=(n3, n1, n2)).astype(np.float32)
+    # fused_filter_mid layout: [n3, 2 (re/im), m2, m1, nb]
+    t1 = np.stack([t.real, t.imag], axis=1).transpose(2, 1, 4, 3, 0)
+    ref5 = np.asarray(fused_filter_mid(jnp.asarray(np.ascontiguousarray(t1)),
+                                       jnp.asarray(V),
+                                       FusedFilterFactors(pf, precision="highest")))
+    ref = (ref5[:, 0] + 1j * ref5[:, 1]).transpose(3, 0, 2, 1)   # [nb, n3, m1, m2]
+
+    f64 = tb.pruned.factors
+    f32 = la.LocalFactors(fwd=tuple(f.to(torch.complex64) for f in f64.fwd),
+                          bwd=tuple(f.to(torch.complex64) for f in f64.bwd))
+    out = la.local_plane_plain(torch.as_tensor(t)[None], torch.as_tensor(V)[None],
+                               f32)[0].numpy()
+    assert np.max(np.abs(out - ref)) < 1e-5 * np.max(np.abs(ref))
+
+
+def test_wrappers_take_plain_path_on_cpu(bases):
+    """On CPU tensors the wrappers run the plain versions and never build or
+    launch a kernel (this machine needs no nvcc for that)."""
+    _, tb = bases
+    m, n = tb.pruned.m_shape, tb.fft_size
+    xc, V_zxy = _random_inputs(np.random.default_rng(2), 1, 2, m, n)
+    xc, V_zxy = torch.as_tensor(xc), torch.as_tensor(V_zxy)
+    la.counts.reset()
+    out = la.local_apply(xc, V_zxy, tb.pruned.factors)
+    assert la.counts.launches == {"pruned_axis_dft": 0, "local_plane": 0}
+    assert la.counts.plain == {"pruned_axis_dft": 2, "local_plane": 1}
+    assert la._library is None
+    torch.testing.assert_close(out, la.local_apply_plain(xc, V_zxy, tb.pruned.factors),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m, n, dtype, widest", [
+    ((32, 32), (64, 64), torch.complex128, 64),     # Si54: the whole plane fits
+    ((32, 32), (64, 64), torch.complex64, 64),
+    ((48, 48), (96, 96), torch.complex128, 79),     # strip-mined
+])
+def test_local_plane_strip_width(m, n, dtype, widest):
+    t = torch.empty((1, 1, 1) + m, dtype=dtype)
+    assert la.local_plane_strip(t, *n) == widest
+    assert la.local_plane_strip(t, *n, strip=16) == 16
+    with pytest.raises(ValueError):
+        la.local_plane_strip(t, *n, strip=widest + 1)
+
+
+def test_local_plane_refuses_oversized_planes():
+    t = torch.empty((1, 1, 1, 96, 96), dtype=torch.complex128)
+    with pytest.raises(ValueError, match="shared memory"):
+        la.local_plane_strip(t, 192, 192)
