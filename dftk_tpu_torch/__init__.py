@@ -1,14 +1,18 @@
 """dftk_tpu_torch: the PyTorch and CUDA port of dftk_tpu.
 
 Plane-wave Kohn-Sham DFT with HGH pseudopotentials and LDA functionals,
-solved self-consistently with a batched LOBPCG eigensolver, on complex
-tensors on whatever device the caller names (`PlaneWaveBasis(...,
-device=..., dtype=...)`, complex128 by default).  The local-potential part
-of H psi runs through hand-written CUDA kernels on a CUDA device
-(`kernels/local_apply.py`).  The JAX package `dftk_tpu` is the reference
-this port is held against; this package never imports it or jax.
+solved self-consistently on complex tensors on the CUDA card, or on the
+CPU when the caller asks (`PlaneWaveBasis(..., device="cpu")`), complex128
+by default.  Two SCF loops: `self_consistent_field` (batched LOBPCG) and
+`self_consistent_field_split` (the large-cell path: CheFSI with the
+compact-cube-resident Chebyshev filter, bf16 filter cycles then exact
+ones), with `refine_split_energy` to evaluate a result's energy.  The
+local-potential part of H psi runs through hand-written CUDA kernels on a
+CUDA device (`kernels/local_apply.py`).  The JAX package `dftk_tpu` is the
+reference this port is held against; this package never imports it or jax.
 
-This slice covers the symmetry-free LDA SCF; see ROADMAP.md for the rest.
+This slice covers the symmetry-free, zero-temperature LDA SCF; see
+ROADMAP.md for the rest.
 """
 import torch
 
@@ -23,8 +27,12 @@ from .bzmesh import ExplicitKpoints, MonkhorstPack  # noqa: E402
 from .models.elements import ElementPsp  # noqa: E402
 from .models.standard import LDA, model_DFT  # noqa: E402
 from .ops.density import guess_density  # noqa: E402
+from .ops.engine_split import self_consistent_field_split  # noqa: E402
 from .scf.driver import SCFResult, self_consistent_field  # noqa: E402
+from .scf.energy_eval import evaluate_total_energy, refine_split_energy  # noqa: E402
+from .supercell import create_supercell  # noqa: E402
 
 __all__ = ["model_DFT", "LDA", "ElementPsp", "PlaneWaveBasis", "MonkhorstPack",
            "ExplicitKpoints", "self_consistent_field", "SCFResult",
-           "guess_density"]
+           "guess_density", "self_consistent_field_split", "create_supercell",
+           "refine_split_energy", "evaluate_total_energy"]

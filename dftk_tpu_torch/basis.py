@@ -13,6 +13,9 @@ two packages' arrays compare element by element.  Index and mask
 construction is host-side numpy; `basis.data` holds the tensors on
 `basis.device` in `basis.dtype` (complex) and its real counterpart.
 
+The device defaults to the CUDA card; without one, building a basis raises
+unless the caller asks for the CPU (`device="cpu"`).
+
 Not ported in this slice: symmetry-reduced k-points (the model must be
 symmetry-free) and the k-point device mesh.
 """
@@ -50,12 +53,16 @@ class PlaneWaveBasis:
     Ecut: float
     kgrid: Any = None
     fft_size: Optional[tuple] = None
-    device: Any = "cpu"
+    device: Any = "cuda"
     dtype: torch.dtype = torch.complex128
 
     def __post_init__(self):
         model = self.model
         self.device = torch.device(self.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "PlaneWaveBasis: no CUDA device is available; pass "
+                "device='cpu' to run on the CPU")
         self.rdtype = real_dtype(self.dtype)
         self.kgrid = as_kgrid(self.kgrid if self.kgrid is not None else (1, 1, 1))
 

@@ -5,12 +5,29 @@
 // so a tensor's data_ptr() can be read as an array of cplx<T>.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 template <typename T>
 struct alignas(2 * sizeof(T)) cplx {
   T re, im;
 };
+
+// An operand of a complex product.  kBf16 (T = float only): real and
+// imaginary parts rounded to bf16, round-to-nearest-even, as
+// `x.astype(jnp.bfloat16)` does in the TPU kernels' 'default' precision.
+// The product of two such values is exact in f32, so the sums that use
+// them accumulate in f32 as the MXU's one-pass bf16 products do.
+template <typename T, bool kBf16>
+__device__ __forceinline__ cplx<T> operand(const cplx<T> v) {
+  if constexpr (kBf16) {
+    static_assert(sizeof(T) == sizeof(float), "the bf16 mode takes complex64 data");
+    return cplx<T>{__bfloat162float(__float2bfloat16_rn(v.re)),
+                   __bfloat162float(__float2bfloat16_rn(v.im))};
+  } else {
+    return v;
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ void cfma(cplx<T>& acc, const cplx<T> a, const cplx<T> b) {

@@ -15,6 +15,11 @@
 // The forward output puts one contiguous [m1, m2] plane per (k, band, z):
 // the layout kernel B (local_plane.cu) reads and writes.
 //
+// Three instantiations: complex128, complex64, and bf16 -- complex64 data
+// whose operands (input and factor) are rounded to bf16 before each
+// product, with f32 accumulation: the TPU kernels' 'default' precision
+// (fused_filter.py::_dot_left, dot_z), used by the Chebyshev filter.
+//
 // What bounds it on an H100: at the Si54 shapes (B = 128 bands, P = 32^2,
 // K, J = 32 and 64) it moves ~200 MB (complex128) for ~1 GFLOP, so device
 // memory bandwidth, and the strided access of a row-per-thread contraction,
@@ -24,7 +29,8 @@
 // reading neighbouring rows hit different banks; outputs are written with
 // neighbouring threads on neighbouring addresses.  Factors are read through
 // __ldg (a few KB, resident in L1).  One thread per output element; no
-// tensor cores yet.
+// tensor cores yet.  The bf16 mode rounds each input once, as it enters
+// shared memory, and each factor as it is read.
 #include "dftk_complex.cuh"
 
 namespace {
@@ -32,7 +38,7 @@ namespace {
 constexpr int kTileRows = 32;   // _AXIS_TILE_ROWS of kernels/local_apply.py
 constexpr int kThreads = 256;
 
-template <typename T, bool kForward>
+template <typename T, bool kForward, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 axis_dft_kernel(const cplx<T>* __restrict__ in, const cplx<T>* __restrict__ F,
                 cplx<T>* __restrict__ out, int P, int K, int J) {
@@ -48,13 +54,13 @@ axis_dft_kernel(const cplx<T>* __restrict__ in, const cplx<T>* __restrict__ F,
     const cplx<T>* src = in + (b * P + p0) * K;
     for (int e = threadIdx.x; e < tp * K; e += blockDim.x) {
       const int p = e / K, c = e - p * K;
-      tile[p * (K + 1) + c] = src[e];
+      tile[p * (K + 1) + c] = operand<T, kBf16>(src[e]);
     }
   } else {
     const cplx<T>* src = in + b * K * P + p0;
     for (int e = threadIdx.x; e < tp * K; e += blockDim.x) {
       const int c = e / tp, p = e - c * tp;
-      tile[c * kTileRows + p] = src[static_cast<size_t>(c) * P + p];
+      tile[c * kTileRows + p] = operand<T, kBf16>(src[static_cast<size_t>(c) * P + p]);
     }
   }
   __syncthreads();
@@ -65,7 +71,8 @@ axis_dft_kernel(const cplx<T>* __restrict__ in, const cplx<T>* __restrict__ F,
       const int j = e / tp, p = e - j * tp;
       cplx<T> acc{0, 0};
       const cplx<T>* row = tile + p * (K + 1);
-      for (int c = 0; c < K; ++c) cfma(acc, row[c], ldg(F + c * J + j));
+      for (int c = 0; c < K; ++c)
+        cfma(acc, row[c], operand<T, kBf16>(ldg(F + c * J + j)));
       dst[static_cast<size_t>(j) * P + p] = acc;
     }
   } else {
@@ -73,13 +80,14 @@ axis_dft_kernel(const cplx<T>* __restrict__ in, const cplx<T>* __restrict__ F,
     for (int e = threadIdx.x; e < tp * J; e += blockDim.x) {
       const int p = e / J, j = e - p * J;
       cplx<T> acc{0, 0};
-      for (int c = 0; c < K; ++c) cfma(acc, tile[c * kTileRows + p], ldg(F + c * J + j));
+      for (int c = 0; c < K; ++c)
+        cfma(acc, tile[c * kTileRows + p], operand<T, kBf16>(ldg(F + c * J + j)));
       dst[e] = acc;
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kBf16>
 int launch_axis_dft(const void* in, const void* F, void* out, int B, int P,
                     int K, int J, int forward, void* stream) {
   const dim3 grid((P + kTileRows - 1) / kTileRows, B);
@@ -90,14 +98,14 @@ int launch_axis_dft(const void* in, const void* F, void* out, int B, int P,
   cudaError_t err;
   if (forward) {
     const size_t smem = static_cast<size_t>(kTileRows) * (K + 1) * sizeof(cplx<T>);
-    err = allow_smem(axis_dft_kernel<T, true>, smem);
+    err = allow_smem(axis_dft_kernel<T, true, kBf16>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    axis_dft_kernel<T, true><<<grid, kThreads, smem, s>>>(x, f, y, P, K, J);
+    axis_dft_kernel<T, true, kBf16><<<grid, kThreads, smem, s>>>(x, f, y, P, K, J);
   } else {
     const size_t smem = static_cast<size_t>(kTileRows) * K * sizeof(cplx<T>);
-    err = allow_smem(axis_dft_kernel<T, false>, smem);
+    err = allow_smem(axis_dft_kernel<T, false, kBf16>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    axis_dft_kernel<T, false><<<grid, kThreads, smem, s>>>(x, f, y, P, K, J);
+    axis_dft_kernel<T, false, kBf16><<<grid, kThreads, smem, s>>>(x, f, y, P, K, J);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -108,12 +116,17 @@ extern "C" {
 
 int dftk_axis_dft_c128(const void* in, const void* F, void* out, int B, int P,
                        int K, int J, int forward, void* stream) {
-  return launch_axis_dft<double>(in, F, out, B, P, K, J, forward, stream);
+  return launch_axis_dft<double, false>(in, F, out, B, P, K, J, forward, stream);
 }
 
 int dftk_axis_dft_c64(const void* in, const void* F, void* out, int B, int P,
                       int K, int J, int forward, void* stream) {
-  return launch_axis_dft<float>(in, F, out, B, P, K, J, forward, stream);
+  return launch_axis_dft<float, false>(in, F, out, B, P, K, J, forward, stream);
+}
+
+int dftk_axis_dft_bf16(const void* in, const void* F, void* out, int B, int P,
+                       int K, int J, int forward, void* stream) {
+  return launch_axis_dft<float, true>(in, F, out, B, P, K, J, forward, stream);
 }
 
 }  // extern "C"

@@ -19,7 +19,7 @@ def _t(a, dtype, device):
 
 def basis_arrays_from_numpy(*, Gidx, mask, kin, Gpk_cart, kweights, kspin,
                             vloc_static, hartree_coeffs, P, D, Gsq_cart,
-                            kinetic_scale=1.0, device="cpu",
+                            kinetic_scale=1.0, device="cuda",
                             dtype=torch.complex128):
     """The JAX package's `basis.data` and `basis.terms.data` arrays as the
     port's (BasisData, TermsData) on `device`, complex `dtype` and its real
@@ -37,7 +37,7 @@ def basis_arrays_from_numpy(*, Gidx, mask, kin, Gpk_cart, kweights, kspin,
     return bd, td
 
 
-def state_from_numpy(psi=None, rho=None, device="cpu", dtype=torch.complex128):
+def state_from_numpy(psi=None, rho=None, device="cuda", dtype=torch.complex128):
     """Orbitals psi [nk, nb, nG] (complex) and density rho [nspin, n1, n2, n3]
     (real) as tensors; either may be None."""
     out_psi = None if psi is None else _t(psi, dtype, device)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of `dftk_tpu_torch/csrc`.
 
-The sources are compiled with nvcc for sm_90a into one shared library with
-a plain C interface, loaded with ctypes.  The build runs at first use on a
+The sources are compiled with nvcc for sm_90a, one nvcc process per source
+and all started together, and linked into one shared library with a plain
+C interface, loaded with ctypes.  The build runs at first use on a
 CUDA tensor, never at import, into `build/dftk_tpu_torch/` at the root of
 the checkout, keyed by a hash of the sources and flags, so a changed source
 rebuilds and an unchanged one loads the existing library.
@@ -19,15 +20,14 @@ import time
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = _CSRC.parent.parent / "build" / "dftk_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_MODES = ("c128", "c64", "bf16")
 _SIGNATURES = {
-    "dftk_axis_dft_c128": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "dftk_axis_dft_c64": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "dftk_local_plane_c128": [_P] * 7 + [_I] * 8 + [_P],
-    "dftk_local_plane_c64": [_P] * 7 + [_I] * 8 + [_P],
+    **{f"dftk_axis_dft_{m}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for m in _MODES},
+    **{f"dftk_local_plane_{m}": [_P] * 7 + [_I] * 8 + [_P] for m in _MODES},
 }
 
 
@@ -73,16 +73,36 @@ def build_library():
         return KernelLibrary(path, 0.0, log_path.read_text()
                              if log_path.is_file() else "")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources if s.suffix == ".cu"]]
+    nvcc = _find_nvcc()
+    tag = f"tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objects, procs = [], []
+    for src in (s for s in sources if s.suffix == ".cu"):
+        obj = _BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objects.append(obj)
+    tmp = path.with_suffix(f".{tag}.so")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                          f"{' '.join(link)}\n{logs[-1]}")
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    log = "".join(logs)
     log_path.write_text(log)
     os.replace(tmp, path)
     return KernelLibrary(path, seconds, log)

@@ -11,6 +11,13 @@ built with nvcc at first use on a CUDA tensor and bound through ctypes
 (`kernels/build.py`).  Each has a plain PyTorch version in this module
 (`*_plain`): a chain of `torch.einsum`s over the same complex factors.
 
+Precision: "highest" computes in the data's own type (complex64 or
+complex128).  "default" is the TPU kernels' one-pass bf16 mode, used by the
+Chebyshev filter: complex64 data and factors in memory, the real and
+imaginary parts of both operands of every complex product rounded to bf16
+(round to nearest even), f32 accumulation, the V multiply in f32.  Its
+launches and plain calls count under "<name>[bf16]".
+
 Dispatch is by device only.  A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  No failure of the build or of a
 launch falls back to the plain version.
@@ -45,7 +52,8 @@ class KernelCounts:
     A wrapper adds one to `launches[name]` where it launches its kernel and
     nowhere else; a plain version adds one to `plain[name]` per call."""
 
-    NAMES = ("pruned_axis_dft", "local_plane")
+    NAMES = ("pruned_axis_dft", "local_plane",
+             "pruned_axis_dft[bf16]", "local_plane[bf16]")
 
     def __init__(self):
         self.reset()
@@ -68,43 +76,67 @@ def library():
     return _library
 
 
+def _count_name(name, precision):
+    if precision == "highest":
+        return name
+    if precision == "default":
+        return f"{name}[bf16]"
+    raise ValueError(f"{name}: precision must be 'highest' or 'default', "
+                     f"got {precision!r}")
+
+
+def round_bf16(x):
+    """Real and imaginary parts of a complex64 tensor rounded to bf16 (round
+    to nearest even), returned as complex64: an operand of the 'default'
+    precision."""
+    if x.dtype != torch.complex64:
+        raise TypeError(f"the bf16 mode takes complex64 data, got {x.dtype}")
+    return torch.complex(x.real.to(torch.bfloat16).float(),
+                         x.imag.to(torch.bfloat16).float())
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def pruned_axis_dft_plain(x, F, forward):
-    counts.plain["pruned_axis_dft"] += 1
+def pruned_axis_dft_plain(x, F, forward, precision="highest"):
+    counts.plain[_count_name("pruned_axis_dft", precision)] += 1
+    if precision == "default":
+        x, F = round_bf16(x), round_bf16(F)
     if forward:
         return torch.einsum("kbxyc,cz->kbzxy", x, F)
     return torch.einsum("kbzxy,zc->kbxyc", x, F)
 
 
-def local_plane_plain(t, V, factors: LocalFactors):
-    counts.plain["local_plane"] += 1
+def local_plane_plain(t, V, factors: LocalFactors, precision="highest"):
+    counts.plain[_count_name("local_plane", precision)] += 1
     F1, F2 = factors.fwd[0], factors.fwd[1]
     B1, B2 = factors.bwd[0], factors.bwd[1]
-    u = torch.einsum("kbzxy,yj->kbzxj", t, F2)
-    u = torch.einsum("kbzxj,xi->kbzij", u, F1) * V[:, None]
-    u = torch.einsum("kbzij,ix->kbzxj", u, B1)
-    return torch.einsum("kbzxj,jy->kbzxy", u, B2)
+    r = round_bf16 if precision == "default" else (lambda a: a)
+    u = torch.einsum("kbzxy,yj->kbzxj", r(t), r(F2))
+    u = torch.einsum("kbzxj,xi->kbzij", r(u), r(F1)) * V[:, None]
+    u = torch.einsum("kbzij,ix->kbzxj", r(u), r(B1))
+    return torch.einsum("kbzxj,jy->kbzxy", r(u), r(B2))
 
 
-def local_apply_plain(xc, V, factors: LocalFactors):
-    t = pruned_axis_dft_plain(xc, factors.fwd[2], forward=True)
-    t = local_plane_plain(t, V, factors)
-    return pruned_axis_dft_plain(t, factors.bwd[2], forward=False)
+def local_apply_plain(xc, V, factors: LocalFactors, precision="highest"):
+    t = pruned_axis_dft_plain(xc, factors.fwd[2], True, precision)
+    t = local_plane_plain(t, V, factors, precision)
+    return pruned_axis_dft_plain(t, factors.bwd[2], False, precision)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name, x, *others, real=()):
+def _check(name, precision, x, *others, real=()):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on a CUDA device or the "
                          f"CPU, got {x.device}")
     if x.dtype not in (torch.complex64, torch.complex128):
         raise TypeError(f"{name}: complex64 or complex128 expected, got {x.dtype}")
+    if precision == "default" and x.dtype != torch.complex64:
+        raise TypeError(f"{name}: the bf16 mode takes complex64 data, got {x.dtype}")
     rdt = torch.float64 if x.dtype == torch.complex128 else torch.float32
     for t in (x,) + others + tuple(real):
         if t.device != x.device:
@@ -124,19 +156,22 @@ def _raise_on_error(name, err):
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
 
 
-def _suffix(x):
+def _suffix(x, precision):
+    if precision == "default":
+        return "bf16"
     return "c128" if x.dtype == torch.complex128 else "c64"
 
 
-def pruned_axis_dft(x, F, forward):
+def pruned_axis_dft(x, F, forward, precision="highest"):
     """Kernel A: contract the z axis with F and move it ahead of (x, y).
 
     forward:  x [nk, nb, m1, m2, m3], F [m3, n3] -> [nk, nb, n3, m1, m2]
     backward: x [nk, nb, n3, m1, m2], F [n3, m3] -> [nk, nb, m1, m2, m3]
     """
+    name = _count_name("pruned_axis_dft", precision)
     if x.device.type == "cpu":
-        return pruned_axis_dft_plain(x, F, forward)
-    _check("pruned_axis_dft", x, F)
+        return pruned_axis_dft_plain(x, F, forward, precision)
+    _check("pruned_axis_dft", precision, x, F)
     if x.dim() != 5 or F.dim() != 2:
         raise ValueError("pruned_axis_dft: x must be 5-D and F 2-D")
     nk, nb = x.shape[:2]
@@ -157,11 +192,11 @@ def pruned_axis_dft(x, F, forward):
         raise ValueError(f"pruned_axis_dft: shape {tuple(x.shape)} with "
                          f"factor {tuple(F.shape)} is beyond this kernel "
                          f"({smem} B shared memory, {nk * nb} batches)")
-    fn = getattr(library(), f"dftk_axis_dft_{_suffix(x)}")
+    fn = getattr(library(), f"dftk_axis_dft_{_suffix(x, precision)}")
     err = fn(x.data_ptr(), F.data_ptr(), out.data_ptr(), nk * nb, m1 * m2,
              K, J, int(bool(forward)), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error("pruned_axis_dft", err)
-    counts.launches["pruned_axis_dft"] += 1
+    counts.launches[name] += 1
     return out
 
 
@@ -184,14 +219,15 @@ def local_plane_strip(t, n1, n2, strip=None):
     return strip
 
 
-def local_plane(t, V, factors: LocalFactors, strip=None):
+def local_plane(t, V, factors: LocalFactors, strip=None, precision="highest"):
     """Kernel B: y forward, x forward, *V, x backward, y backward, per
     (k, band, z) plane.  t [nk, nb, n3, m1, m2], V [nk, n3, n1, n2]."""
+    name = _count_name("local_plane", precision)
     if t.device.type == "cpu":
-        return local_plane_plain(t, V, factors)
+        return local_plane_plain(t, V, factors, precision)
     F1, F2 = factors.fwd[0], factors.fwd[1]
     B1, B2 = factors.bwd[0], factors.bwd[1]
-    _check("local_plane", t, F1, F2, B1, B2, real=(V,))
+    _check("local_plane", precision, t, F1, F2, B1, B2, real=(V,))
     nk, nb, n3, m1, m2 = t.shape
     n1, n2 = V.shape[-2:]
     if (tuple(V.shape) != (nk, n3, n1, n2) or tuple(F1.shape) != (m1, n1)
@@ -204,21 +240,21 @@ def local_plane(t, V, factors: LocalFactors, strip=None):
         raise ValueError("local_plane: more than 2^31 - 1 planes")
     strip = local_plane_strip(t, n1, n2, strip)
     out = torch.empty_like(t)
-    fn = getattr(library(), f"dftk_local_plane_{_suffix(t)}")
+    fn = getattr(library(), f"dftk_local_plane_{_suffix(t, precision)}")
     err = fn(t.data_ptr(), V.data_ptr(), F2.data_ptr(), F1.data_ptr(),
              B1.data_ptr(), B2.data_ptr(), out.data_ptr(),
              nk, nb, n3, m1, m2, n1, n2, strip,
              torch.cuda.current_stream(t.device).cuda_stream)
     _raise_on_error("local_plane", err)
-    counts.launches["local_plane"] += 1
+    counts.launches[name] += 1
     return out
 
 
-def local_apply(xc, V, factors: LocalFactors):
+def local_apply(xc, V, factors: LocalFactors, precision="highest"):
     """V(r) applied to compact cubes xc [nk, nb, m1, m2, m3] (see module
     docstring); returns the same layout."""
     if xc.device.type == "cpu":
-        return local_apply_plain(xc, V, factors)
-    t = pruned_axis_dft(xc, factors.fwd[2], forward=True)
-    t = local_plane(t, V, factors)
-    return pruned_axis_dft(t, factors.bwd[2], forward=False)
+        return local_apply_plain(xc, V, factors, precision)
+    t = pruned_axis_dft(xc, factors.fwd[2], True, precision)
+    t = local_plane(t, V, factors, precision=precision)
+    return pruned_axis_dft(t, factors.bwd[2], False, precision)

@@ -16,13 +16,22 @@ import torch
 from . import fft as fftops
 
 
-def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin):
-    """rho [nspin, n1, n2, n3] from psi [nk, nb, nG], occupation [nk, nb]."""
+def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin,
+                    band_chunk=None):
+    """rho [nspin, n1, n2, n3] from psi [nk, nb, nG], occupation [nk, nb];
+    band_chunk bounds the bands transformed at once (the full-grid cubes of
+    a chunk are the largest temporaries)."""
     N = int(np.prod(fft_size))
-    cube = fftops.scatter_to_cube(psi, basis_data.Gidx, basis_data.mask, fft_size)
-    psir = torch.fft.ifftn(cube, dim=(-3, -2, -1)) * (N / math.sqrt(volume))
     w = basis_data.kweights[:, None] * occupation          # [nk, nb]
-    dens_k = torch.einsum("kn,knxyz->kxyz", w, psir.real ** 2 + psir.imag ** 2)
+    nb = psi.shape[1]
+    step = nb if band_chunk is None else band_chunk
+    dens_k = 0
+    for i in range(0, nb, step):
+        cube = fftops.scatter_to_cube(psi[:, i:i + step], basis_data.Gidx,
+                                      basis_data.mask, fft_size)
+        psir = torch.fft.ifftn(cube, dim=(-3, -2, -1)) * (N / math.sqrt(volume))
+        dens_k = dens_k + torch.einsum("kn,knxyz->kxyz", w[:, i:i + step],
+                                       psir.real ** 2 + psir.imag ** 2)
     if n_spin == 1:
         return dens_k.sum(0)[None]
     sel = torch.nn.functional.one_hot(basis_data.kspin, n_spin).to(dens_k.dtype)

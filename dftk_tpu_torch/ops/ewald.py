@@ -41,7 +41,7 @@ def ewald_sum_bounds(lattice, positions, eta):
     return _integer_box(Glims), _integer_box(Rlims)
 
 
-def energy_ewald(lattice, charges, positions, eta=None, device="cpu",
+def energy_ewald(lattice, charges, positions, eta=None, device="cuda",
                  chunk=64):
     """Ewald energy in float64 on `device`.
 

@@ -6,7 +6,12 @@ Imports only torch and the port, so that it runs on a machine without jax:
 
 (--noconftest: tests/conftest.py configures jax).  The kernels are held
 against their plain PyTorch versions, complex128 at 1e-11 and complex64 at
-1e-5 of max|out|, and the Si2 SCF on the GPU against the same SCF on the CPU.
+1e-5 of max|out|; the bf16 ('default') instantiations so that the
+kernel-vs-plain difference is at least 10x below the plain
+'default'-vs-'highest' difference (relative Frobenius norms: both round the
+same operands and sum in other orders).  The Si2 SCF and the Si2 split
+CheFSI SCF ("mixed" filter) on the GPU are held against the same SCFs on
+the CPU (1e-9 Ha).
 """
 import numpy as np
 import pytest
@@ -91,5 +96,56 @@ def test_cuda_scf_matches_cpu(gpu_basis):
     res_g = dt.self_consistent_field(gpu_basis, psi=psi0.to("cuda"), **kw)
     assert res_c.converged and res_g.converged
     assert abs(res_g.total_energy - res_c.total_energy) < 1e-9
+    assert la.counts.launches["pruned_axis_dft"] > 0 and la.counts.launches["local_plane"] > 0
+    assert all(v == 0 for v in la.counts.plain.values())
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernels_match_plain(gpu_basis):
+    b = gpu_basis
+    m, n = b.pruned.m_shape, b.fft_size
+    fac = la.LocalFactors(fwd=tuple(f.to(torch.complex64) for f in b.pruned.factors.fwd),
+                          bwd=tuple(f.to(torch.complex64) for f in b.pruned.factors.bwd))
+    rng = np.random.default_rng(4)
+    shape = (b.n_kpoints, 5) + m
+    xc = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape),
+                         device="cuda").to(torch.complex64)
+    V = torch.as_tensor(rng.normal(size=(b.n_kpoints, n[2], n[0], n[1])),
+                        device="cuda").to(torch.float32)
+    t = la.pruned_axis_dft_plain(xc, fac.fwd[2], True, "default").contiguous()
+
+    def rel(a, b):
+        torch.cuda.synchronize()
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    la.counts.reset()
+    for kern, plain, highest in (
+            (la.pruned_axis_dft(xc, fac.fwd[2], True, "default"),
+             la.pruned_axis_dft_plain(xc, fac.fwd[2], True, "default"),
+             la.pruned_axis_dft_plain(xc, fac.fwd[2], True)),
+            (la.local_plane(t, V, fac, strip=7, precision="default"),
+             la.local_plane_plain(t, V, fac, "default"), la.local_plane_plain(t, V, fac)),
+            (la.local_apply(xc, V, fac, "default"),
+             la.local_apply_plain(xc, V, fac, "default"), la.local_apply_plain(xc, V, fac))):
+        assert 10 * rel(kern, plain) <= rel(plain, highest)
+    assert la.counts.launches["pruned_axis_dft[bf16]"] == 3
+    assert la.counts.launches["local_plane[bf16]"] == 2
+    with pytest.raises(TypeError, match="complex64"):
+        la.local_plane(t.to(torch.complex128), V.double(), b.pruned.factors,
+                       precision="default")
+
+
+@pytest.mark.cuda
+def test_cuda_split_scf_matches_cpu(gpu_basis):
+    cpu = _si2("cpu")
+    kw = dict(tol=1e-10, maxiter=60, n_bands=4, n_extra_bands=4, eigensolver="chefsi",
+              chebyshev_degree=8, chefsi_cycles=2)
+    U0 = torch.cat([dt.scf.driver.random_orbitals(cpu, 8, seed=5).real,
+                    dt.scf.driver.random_orbitals(cpu, 8, seed=5).imag], dim=-1)
+    res_c = dt.self_consistent_field_split(cpu, U0=U0, **kw)
+    la.counts.reset()
+    res_g = dt.self_consistent_field_split(gpu_basis, U0=U0, **kw)
+    assert res_c["converged"] and res_g["converged"]
+    assert abs(res_g["energies"]["total"] - res_c["energies"]["total"]) < 1e-9
     assert all(v > 0 for v in la.counts.launches.values())
     assert all(v == 0 for v in la.counts.plain.values())

@@ -34,12 +34,12 @@ SI_LATTICE = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
 N_BANDS = 8
 
 
-def _si2(pkg):
+def _si2(pkg, **kw):
     Si = pkg.ElementPsp.from_symbol("Si", psp="lda/si-q4")
     model = pkg.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
                           functionals=["lda_x", "lda_c_vwn"], symmetries=False)
     return pkg.PlaneWaveBasis(model, Ecut=7.0, kgrid=pkg.MonkhorstPack((2, 2, 2)),
-                              fft_size=(18, 18, 18))
+                              fft_size=(18, 18, 18), **kw)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,7 +49,7 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def setup():
-    jb, tb = _si2(dftk), _si2(dt)
+    jb, tb = _si2(dftk), _si2(dt, device="cpu")
     psi0 = jax_random_orbitals(jb, N_BANDS + 3)
     rho0 = jax_guess_density(jb)
     return jb, tb, psi0, rho0
@@ -63,7 +63,8 @@ def test_lobpcg_matches(setup):
     res_j = jax_lobpcg(lambda p: jax_ham.apply_H(ham_j, p, jb.fft_size, volume),
                        psi0, ham_j.kin, jb.data.mask, tol=1e-7, n_conv=N_BANDS)
 
-    psi_t, rho_t = state_from_numpy(psi=np.asarray(psi0), rho=np.asarray(rho0))
+    psi_t, rho_t = state_from_numpy(psi=np.asarray(psi0), rho=np.asarray(rho0),
+                                    device="cpu")
     V_t, _ = ham_ops.total_potential(tb.terms, rho_t, volume)
     ham_t = ham_ops.build_ham(tb.data, tb.terms.data, V_t, tb.pruned)
     res_t = lobpcg(lambda p: ham_ops.apply_H(ham_t, p), psi_t, ham_t.kin,
@@ -77,7 +78,8 @@ def test_scf_matches(setup):
     jb, tb, psi0, rho0 = setup
     kw = dict(tol=1e-8, is_converged="energy", n_bands=N_BANDS)
     res_j = dftk.self_consistent_field(jb, psi=psi0, rho=rho0, **kw)
-    psi_t, rho_t = state_from_numpy(psi=np.asarray(psi0), rho=np.asarray(rho0))
+    psi_t, rho_t = state_from_numpy(psi=np.asarray(psi0), rho=np.asarray(rho0),
+                                    device="cpu")
     la.counts.reset()
     res_t = dt.self_consistent_field(tb, psi=psi_t, rho=rho_t, **kw)
     assert res_t.converged and res_j.converged
@@ -86,7 +88,7 @@ def test_scf_matches(setup):
     assert res_t.rho.shape == (1, 18, 18, 18)
     # on CPU tensors the local apply ran its plain version
     assert la.counts.plain["local_plane"] > 0
-    assert la.counts.launches == {"pruned_axis_dft": 0, "local_plane": 0}
+    assert set(la.counts.launches.values()) == {0}
 
 
 def test_random_orbitals_are_orthonormal(setup):
@@ -100,7 +102,10 @@ def test_random_orbitals_are_orthonormal(setup):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, dftk_tpu_torch, dftk_tpu_torch.interop; "
+    code = ("import sys, dftk_tpu_torch, dftk_tpu_torch.interop, "
+            "dftk_tpu_torch.ops.engine_split, dftk_tpu_torch.ops.eigen.chefsi, "
+            "dftk_tpu_torch.scf.energy_eval, dftk_tpu_torch.supercell, "
+            "dftk_tpu_torch.tools.run_si_big; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'dftk_tpu' or m.startswith('dftk_tpu.')]; "
             "assert not bad, bad")

@@ -35,7 +35,7 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def bases():
-    return _si2(dftk), _si2(dt)
+    return _si2(dftk), _si2(dt, device="cpu")
 
 
 def test_basis_arrays_equal(bases):
@@ -49,7 +49,8 @@ def test_basis_arrays_equal(bases):
     bd, td = basis_arrays_from_numpy(
         Gidx=jd.Gidx, mask=jd.mask, kin=jd.kin, Gpk_cart=jd.Gpk_cart,
         kweights=jd.kweights, kspin=jd.kspin, vloc_static=jt.vloc_static,
-        hartree_coeffs=jt.hartree_coeffs, P=jt.P, D=jt.D, Gsq_cart=jt.Gsq_cart)
+        hartree_coeffs=jt.hartree_coeffs, P=jt.P, D=jt.D, Gsq_cart=jt.Gsq_cart,
+        device="cpu")
     for name in ("Gidx", "mask", "kin", "Gpk_cart", "kweights", "kspin"):
         torch.testing.assert_close(getattr(tb.data, name), getattr(bd, name),
                                    rtol=0, atol=0, msg=name)
@@ -83,7 +84,7 @@ def test_guess_density_agrees(bases):
 
 def test_basis_dtype_and_device(bases):
     _, tb = bases
-    b32 = _si2(dt, dtype=torch.complex64)
+    b32 = _si2(dt, dtype=torch.complex64, device="cpu")
     assert b32.data.kin.dtype == torch.float32
     assert b32.terms.data.P.dtype == torch.complex64
     assert b32.pruned.factors.fwd[0].dtype == torch.complex64
@@ -117,10 +118,10 @@ def test_unported_features_raise(what):
             from dftk_tpu_torch.ops.terms import Entropy
             model = dt.model_DFT(*args, functionals=["lda_x"], symmetries=False,
                                  extra_terms=[Entropy()])
-            dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9))
+            dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
         else:
             model = dt.model_DFT(*args, functionals=["gga_x_pbe"], symmetries=False)
-            dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9))
+            dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["NoSmearing", "FermiDirac", "Gaussian",
