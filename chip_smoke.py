@@ -35,8 +35,18 @@ Phases (any failure raises and exits non-zero):
      and backward) and B on one 256-band chunk at the Si256 shapes, each
      instantiation against its plain version with the bars of phases 3
      and a, and kernel B's strip width and ms per launch
-  5. print the kernels' JSON line (launches from phase c, times from phases
-     3 and a, bounds from the shapes), then the result line.
+  e. the filter-stage probe kernels (csrc/filter_stages.cu) at the JAX
+     probes' shapes (t [64, 32, 2, 32, 128] f32, V 64^3, realified factors
+     128 x 64): the copy and every stage set (f2, f2_rep, f2_rep_f1, full at
+     1, 4 and 8 planes per block, full bf16, rep, dots) against its plain
+     version (f32 bar 1e-5 of max|out|, bf16 by the margin rule of phase
+     a); then, with the counts set to 0, the four probe tools' main() (the
+     path: dftk_tpu_torch.tools.probe_{pallas_fixed,kernel_pipe,
+     kernel_variants,kernel_incr}), every instantiation launched; kernel,
+     plain and bound times, the copy against torch.mul, and the per-launch
+     cost from the slope between chains of 10 and 100 copies
+  5. print the kernels' JSON line (launches from phases c and e, times from
+     phases 3, a and e, bounds from the shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -57,7 +67,8 @@ BF16_MARGIN = 10        # kernel-vs-plain at least 10x below default-vs-highest
 # arithmetic each instantiation stands for (f64 tensor cores, f32 outside
 # them, bf16 tensor cores)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"complex128": 67e12, "complex64": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"complex128": 67e12, "complex64": 67e12, "float32": 67e12,
+              "bf16": 989e12}
 SOURCES = {
     "pruned_axis_dft": ("dftk_tpu_torch/csrc/pruned_axis_dft.cu",
                         "dftk_tpu/kernels/fused_local.py:138"),
@@ -67,6 +78,19 @@ SOURCES = {
                               "dftk_tpu/kernels/fused_local.py:138"),
     "local_plane[bf16]": ("dftk_tpu_torch/csrc/local_plane.cu",
                           "dftk_tpu/kernels/fused_filter.py:190"),
+}
+PROBE_SOURCE = "dftk_tpu_torch/csrc/filter_stages.cu"
+PROBE_DIMS = (64, 32, 32, 64, 64, 128)        # n3, m1, m2, n1, n2, nbt of the probes
+# the JAX probe body each instantiation replaces (PERF.md lists every one)
+PROBE_REPLACES = {
+    "probe_copy": "tools/probe_pallas_fixed.py:24",
+    "probe_stages[f2]": "tools/probe_kernel_incr.py:71",
+    "probe_stages[f2_rep]": "tools/probe_kernel_incr.py:83",
+    "probe_stages[f2_rep_f1]": "tools/probe_kernel_incr.py:93",
+    "probe_stages[full]": "tools/probe_kernel_incr.py:105",
+    "probe_stages[rep]": "tools/probe_kernel_variants.py:96",
+    "probe_stages[dots]": "tools/probe_kernel_variants.py:84",
+    "probe_stages[full][bf16]": "tools/probe_kernel_variants.py:138",
 }
 
 
@@ -420,6 +444,104 @@ def si256_phase(dt, la, device, n_iter=3):
             print(line, flush=True)
 
 
+def stage_work(stages, n3, m1, m2, n1, n2, nbt):
+    """(bytes, flops) of one probe call on t [n3, m2, 2, m1, nbt] f32
+    (stages None: the copy): t read and written once, each factor and the
+    part of V that the stage set reads, once."""
+    t_elems = n3 * 2 * m2 * m1 * nbt
+    if stages is None:
+        return 8 * t_elems, t_elems
+    if stages == "rep":
+        return 8 * t_elems + 4 * n3 * m1 * m2, t_elems
+    f1 = stages in ("f2_rep_f1", "full", "dots")
+    flops = 2 * n3 * nbt * 8 * m1 * m2 * n2                    # F2f, F2b
+    nbytes = 8 * t_elems + 2 * 4 * 4 * n2 * m2
+    if f1:
+        flops += 2 * n3 * nbt * 8 * n1 * m1 * n2                # F1f, F1b
+        nbytes += 2 * 4 * 4 * n1 * m1
+    if stages == "full":
+        flops += n3 * 2 * n1 * n2 * nbt
+        nbytes += 4 * n3 * n1 * n2
+    elif stages == "dots":
+        flops += n3 * 2 * n1 * n2 * nbt
+        nbytes += 4 * n3 * n1
+    return nbytes, flops
+
+
+def probe_phase(device):
+    """Phase e: the filter-stage probe kernels at the JAX probes' shapes."""
+    import torch
+    from dftk_tpu_torch.kernels import filter_stages as fs
+    from dftk_tpu_torch.tools import (probe_harness, probe_kernel_incr, probe_kernel_pipe,
+                                      probe_kernel_variants, probe_pallas_fixed)
+    check(not torch.backends.cuda.matmul.allow_tf32, "plain f32 matmuls without TF32")
+    dims = PROBE_DIMS
+    t, V, F = probe_harness.make_inputs(2, *dims, 1.0, 8, device)
+    print(f"[e] t {tuple(t.shape)} f32 ({t.numel() * 4 / 1e6:.1f} MB), V "
+          f"{tuple(V.shape)}, factors {[tuple(f.shape) for f in F]}", flush=True)
+    cases = {"probe_copy": ("probe_copy", lambda: fs.probe_copy(t),
+                            lambda: fs.probe_copy_plain(t), None, "float32")}
+    for label, stages, prec, zblk in (
+            ("f2", "f2", "highest", 1), ("f2_rep", "f2_rep", "highest", 1),
+            ("f2_rep_f1", "f2_rep_f1", "highest", 1), ("full", "full", "highest", 1),
+            ("full zblk=4", "full", "highest", 4), ("full zblk=8", "full", "highest", 8),
+            ("full bf16", "full", "default", 1), ("rep", "rep", "highest", 1),
+            ("dots", "dots", "highest", 1)):
+        f = None if stages == "rep" else F
+        cases[label] = (
+            fs.count_name(stages, prec),
+            lambda s=stages, p=prec, z=zblk, f=f: fs.probe_stages(t, V, f, s, p, z),
+            lambda s=stages, p=prec, f=f: fs.probe_stages_plain(t, V, f, s, p),
+            stages, "bf16" if prec == "default" else "float32")
+    results = {}
+    for label, (name, kern, plain, stages, kind) in cases.items():
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        line = f"[e] {label}: kernel vs plain max_abs_err={err:.3e} max|out|={scale:.3e}"
+        if kind == "bf16":
+            hi = fs.probe_stages_plain(t, V, F, "full")
+            rel, rounding = rel_frobenius(out, ref), rel_frobenius(ref, hi)
+            print(f"{line}; rel Frobenius {rel:.3e} against plain default vs highest "
+                  f"{rounding:.3e}", flush=True)
+            check(rel * BF16_MARGIN <= rounding, f"probe {label}: kernel-vs-plain "
+                  f"{BF16_MARGIN}x below default-vs-highest")
+        else:
+            print(f"{line} rel={err / scale:.3e} bar=1e-05", flush=True)
+            check(err <= 1e-5 * scale, f"probe {label} within 1e-5")
+        del out, ref
+        results[label] = dict(name=name, max_abs_err=err)
+
+    # the path: the four probe tools, counts from 0
+    fs.counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fixed = probe_pallas_fixed.main(device)
+    for tool in (probe_kernel_pipe, probe_kernel_variants, probe_kernel_incr):
+        tool.main(device)
+    torch.cuda.synchronize()
+    launches = dict(fs.counts.launches)
+    print(f"[e] the four probe tools ran in {time.time() - t0:.1f} s, launches={launches}",
+          flush=True)
+    check(all(v > 0 for v in launches.values()), "every probe kernel launched by the tools")
+
+    for label, (name, kern, plain, stages, kind) in cases.items():
+        r = results[label]
+        r["ms"], r["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
+        r["bound_ms"], r["bound_by"] = bound(stage_work(stages, *dims), kind)
+        if label == "probe_copy":
+            r["library_ms"] = cuda_ms(lambda: torch.mul(t, fs.COPY_SCALE))
+        print(f"[e] time {label}: " + ", ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items() if k not in ("name", "max_abs_err")), flush=True)
+    print(f"[e] copy chain slope 10->100 launches: {fixed['slope_ms']:.4f} ms per launch, "
+          f"intercept {fixed['intercept_ms']:.4f} ms per chain; torch.mul per call in "
+          f"chains of 10/100: {fixed['mult_per_iter'][10]:.4f}/"
+          f"{fixed['mult_per_iter'][100]:.4f} ms", flush=True)
+    return {r["name"]: r for label, r in results.items()
+            if label not in ("full zblk=4", "full zblk=8")}, launches
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -495,6 +617,10 @@ def main():
 
     # ---- d. Si256 ---------------------------------------------------------------
     si256_phase(dt, la, device)
+    torch.cuda.empty_cache()
+
+    # ---- e. the filter-stage probes -----------------------------------------------
+    probe_timings, probe_launches = probe_phase(device)
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -511,6 +637,12 @@ def main():
                             ms=timings[name]["ms"], plain_ms=timings[name]["plain_ms"],
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=timings[name].get("library_ms")))
+    for name, rep in PROBE_REPLACES.items():
+        r = probe_timings[name]
+        kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,
+                            launches=probe_launches[name], max_abs_err=r["max_abs_err"],
+                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -55,12 +55,13 @@ class KernelCounts:
     NAMES = ("pruned_axis_dft", "local_plane",
              "pruned_axis_dft[bf16]", "local_plane[bf16]")
 
-    def __init__(self):
+    def __init__(self, names=NAMES):
+        self.names = tuple(names)
         self.reset()
 
     def reset(self):
-        self.launches = dict.fromkeys(self.NAMES, 0)
-        self.plain = dict.fromkeys(self.NAMES, 0)
+        self.launches = dict.fromkeys(self.names, 0)
+        self.plain = dict.fromkeys(self.names, 0)
 
 
 counts = KernelCounts()

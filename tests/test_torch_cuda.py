@@ -11,7 +11,10 @@ kernel-vs-plain difference is at least 10x below the plain
 'default'-vs-'highest' difference (relative Frobenius norms: both round the
 same operands and sum in other orders).  The Si2 SCF and the Si2 split
 CheFSI SCF ("mixed" filter) on the GPU are held against the same SCFs on
-the CPU (1e-9 Ha).
+the CPU (1e-9 Ha).  The filter-stage probe kernels (`kernels/filter_stages.py`)
+are held against their plain versions at small, unequal sizes, with 1 and 4
+planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
+the margin rule above, the copy at 1e-6.
 """
 import numpy as np
 import pytest
@@ -133,6 +136,61 @@ def test_cuda_bf16_kernels_match_plain(gpu_basis):
     with pytest.raises(TypeError, match="complex64"):
         la.local_plane(t.to(torch.complex128), V.double(), b.pruned.factors,
                        precision="default")
+
+
+@pytest.fixture(scope="module")
+def probe_inputs():
+    """Filter-stage probe inputs at small, unequal sizes: t [n3=8, m2=4, 2,
+    m1=6, nbt=12], V [8, n1=10, n2=8], the four realified factors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(11)
+    n3, m1, m2, n1, n2, nbt = 8, 6, 4, 10, 8, 12
+    conv = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    t = conv(rng.normal(size=(n3, m2, 2, m1, nbt)))
+    V = conv(rng.normal(size=(n3, n1, n2)))
+    F = tuple(conv(rng.normal(size=s) / 4) for s in
+              ((2 * n2, 2 * m2), (2 * n1, 2 * m1), (2 * m1, 2 * n1), (2 * m2, 2 * n2)))
+    return t, V, F
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zblk", [1, 4])
+@pytest.mark.parametrize("stages, strip", [("f2", None), ("f2_rep", None),
+                                           ("f2_rep_f1", None), ("full", None),
+                                           ("full", 3), ("rep", None), ("dots", None)])
+def test_cuda_probe_stages_match_plain(probe_inputs, stages, strip, zblk):
+    from dftk_tpu_torch.kernels import filter_stages as fs
+    t, V, F = probe_inputs
+    F = None if stages == "rep" else F
+    fs.counts.reset()
+    out = fs.probe_stages(t, V, F, stages, zblk=zblk, strip=strip)
+    ref = fs.probe_stages_plain(t, V, F, stages, zblk=zblk)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert fs.counts.launches[f"probe_stages[{stages}]"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zblk", [1, 4])
+def test_cuda_probe_bf16_and_copy_match_plain(probe_inputs, zblk):
+    from dftk_tpu_torch.kernels import filter_stages as fs
+    t, V, F = probe_inputs
+
+    def rel(a, b):
+        torch.cuda.synchronize()
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    plain = fs.probe_stages_plain(t, V, F, "full", "default")
+    assert 10 * rel(fs.probe_stages(t, V, F, "full", "default", zblk), plain) \
+        <= rel(plain, fs.probe_stages_plain(t, V, F, "full"))
+    out, ref = fs.probe_copy(t, zblk), fs.probe_copy_plain(t)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    with pytest.raises(ValueError, match="zblk"):
+        fs.probe_copy(t, 3)
+    with pytest.raises(TypeError):
+        fs.probe_stages(t.double(), V.double(), tuple(f.double() for f in F))
 
 
 @pytest.mark.cuda
