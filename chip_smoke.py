@@ -37,14 +37,16 @@ Phases (any failure raises and exits non-zero):
      and a, and kernel B's strip width and ms per launch
   e. the filter-stage probe kernels (csrc/filter_stages.cu) at the JAX
      probes' shapes (t [64, 32, 2, 32, 128] f32, V 64^3, realified factors
-     128 x 64): the copy and every stage set (f2, f2_rep, f2_rep_f1, full at
-     1, 4 and 8 planes per block, full bf16, rep, dots) against its plain
-     version (f32 bar 1e-5 of max|out|, bf16 by the margin rule of phase
-     a); then, with the counts set to 0, the four probe tools' main() (the
-     path: dftk_tpu_torch.tools.probe_{pallas_fixed,kernel_pipe,
-     kernel_variants,kernel_incr}), every instantiation launched; kernel,
-     plain and bound times, the copy against torch.mul, and the per-launch
-     cost from the slope between chains of 10 and 100 copies
+     128 x 64): the copy at 1 and 8 planes per block and every stage set
+     (f2, f2_rep, f2_rep_f1, full at 1, 4 and 8 planes per block, full
+     bf16, rep, dots) against its plain version (f32 bar 1e-5 of max|out|,
+     bf16 by the margin rule of phase a), and the one-call library version
+     of the copy and of each f32 stage set (torch.mul; one torch.einsum
+     over the factors) at the same bar; then, with the counts set to 0, the
+     four probe tools' main() (the path: dftk_tpu_torch.tools.probe_{
+     pallas_fixed,kernel_pipe,kernel_variants,kernel_incr}), every
+     instantiation launched; kernel, plain, library and bound times, and
+     the per-launch cost from the slope between chains of 10 and 100 copies
   5. print the kernels' JSON line (launches from phases c and e, times from
      phases 3, a and e, bounds from the shapes), then the result line.
 This script imports neither jax nor the JAX package.
@@ -131,6 +133,16 @@ def fft_local_apply(xc, V_full, live, grid_idx, fft_size):
     return out.reshape(xc.shape)
 
 
+def local_plane_library(t, V, fac):
+    """Kernel B's function as one torch.einsum (a closure): t [nk, nb, n3,
+    m1, m2] through F2, F1, V [nk, n3, n1, n2], B1 and B2.  V is made
+    complex once, outside the call: on the card einsum refuses to mix
+    complex and real operands."""
+    import torch
+    (F1, F2), (B1, B2), Vc = fac.fwd[:2], fac.bwd[:2], V.to(t.dtype)
+    return lambda: torch.einsum("kbzxy,yj,xi,kzij,iX,jY->kbzXY", t, F2, F1, Vc, B1, B2)
+
+
 def kernel_phase(la, basis, device):
     """Phase 3: kernels vs plain versions at the main path's shapes."""
     import torch
@@ -184,9 +196,16 @@ def kernel_phase(la, basis, device):
                 results[name] = dict(max_abs_err=err, ms=cuda_ms(kern),
                                      plain_ms=cuda_ms(plain))
         if tag == "complex128":
-            # the one PyTorch call that computes kernel A's function
+            # the one PyTorch call that computes each kernel's function
             results["pruned_axis_dft"]["library_ms"] = cuda_ms(
                 lambda: torch.einsum("kbxyc,cz->kbzxy", xc, fac.fwd[2]))
+            lib = local_plane_library(t_ref, V, fac)
+            ref = la.local_plane_plain(t_ref, V, fac)
+            err = float((lib() - ref).abs().max())
+            print(f"[3] local_plane one-call library vs plain: max_abs_err={err:.3e}",
+                  flush=True)
+            check(err <= BARS[tag] * float(ref.abs().max()), "local_plane library call")
+            results["local_plane"]["library_ms"] = cuda_ms(lib)
         # the same operator through torch.fft, as a comparison
         V_full = V.permute(0, 2, 3, 1).contiguous()
         ffted = fft_local_apply(xc, V_full, live, grid_idx, n)
@@ -468,6 +487,37 @@ def stage_work(stages, n3, m1, m2, n1, n2, nbt):
     return nbytes, flops
 
 
+def stage_library(stages, t, V, F):
+    """The one PyTorch call that computes the f32 stage set `stages` on
+    (t, V, F), as a closure, or None where there is none.  The repairs are
+    index relabelings, so each chain is one einsum over the factors viewed as
+    [n, 2, m, 2]; 'rep' is one torch.mul."""
+    import torch
+    n3, m2, _, m1, nbt = t.shape
+    n1, n2 = V.shape[1:]
+    if stages == "rep":                 # out[z, p, c, q, b] = t[...] V[z, q, p]
+        Vt = V[:, :m1, :m2].transpose(1, 2)[:, :, None, :, None]
+        return lambda: torch.mul(t, Vt)
+    F2f, F1f, F1b, F2b = F
+    f2f, f1f = F2f.view(n2, 2, m2, 2), F1f.view(n1, 2, m1, 2)     # [j,d,p,c], [i,e,q,d]
+    f1b, f2b = F1b.view(m1, 2, n1, 2), F2b.view(m2, 2, n2, 2)     # [Q,f,i,e], [P,C,j,f]
+    if stages in ("f2", "f2_rep"):      # the two repairs of f2_rep cancel
+        return lambda: torch.einsum("zpcqb,jdpc,PCjd->zPCqb", t, f2f, f2b)
+    if stages == "f2_rep_f1":
+        return lambda: torch.einsum("zpcqb,jdpc,ieqd,Qfie,PCjf->zPCQb",
+                                    t, f2f, f1f, f1b, f2b)
+    if stages == "full":
+        return lambda: torch.einsum("zpcqb,jdpc,ieqd,zij,Qfie,PCjf->zPCQb",
+                                    t, f2f, f1f, V, f1b, f2b)
+    if stages == "dots" and n2 == 2 * m1:
+        # B [2n2, m1] read as [2m1, n2] and D [2m1, n2] as [2n2, m1] are
+        # relabelings of (j, d, q) and (Q, f, d, q) where n2 = 2 m1
+        return lambda: torch.einsum("zpcqb,jdpc,iej,zi,Qfie,PCQfd->zPCqb", t, f2f,
+                                    F1f.view(n1, 2, n2), V[:, :, 0], f1b,
+                                    F2b.view(m2, 2, m1, 2, 2))
+    return None
+
+
 def probe_phase(device):
     """Phase e: the filter-stage probe kernels at the JAX probes' shapes."""
     import torch
@@ -479,8 +529,12 @@ def probe_phase(device):
     t, V, F = probe_harness.make_inputs(2, *dims, 1.0, 8, device)
     print(f"[e] t {tuple(t.shape)} f32 ({t.numel() * 4 / 1e6:.1f} MB), V "
           f"{tuple(V.shape)}, factors {[tuple(f.shape) for f in F]}", flush=True)
+    # label: (count name, kernel, plain, stages, kind, one-call library or None)
     cases = {"probe_copy": ("probe_copy", lambda: fs.probe_copy(t),
-                            lambda: fs.probe_copy_plain(t), None, "float32")}
+                            lambda: fs.probe_copy_plain(t), None, "float32",
+                            lambda: torch.mul(t, fs.COPY_SCALE)),
+             "copy zblk=8": ("probe_copy", lambda: fs.probe_copy(t, 8),
+                             lambda: fs.probe_copy_plain(t), None, "float32", None)}
     for label, stages, prec, zblk in (
             ("f2", "f2", "highest", 1), ("f2_rep", "f2_rep", "highest", 1),
             ("f2_rep_f1", "f2_rep_f1", "highest", 1), ("full", "full", "highest", 1),
@@ -488,13 +542,17 @@ def probe_phase(device):
             ("full bf16", "full", "default", 1), ("rep", "rep", "highest", 1),
             ("dots", "dots", "highest", 1)):
         f = None if stages == "rep" else F
+        # bf16 has none: a bf16 einsum rounds the V product and the output too
+        lib = stage_library(stages, t, V, F) if prec == "highest" and zblk == 1 else None
         cases[label] = (
             fs.count_name(stages, prec),
             lambda s=stages, p=prec, z=zblk, f=f: fs.probe_stages(t, V, f, s, p, z),
             lambda s=stages, p=prec, f=f: fs.probe_stages_plain(t, V, f, s, p),
-            stages, "bf16" if prec == "default" else "float32")
+            stages, "bf16" if prec == "default" else "float32", lib)
+    print(f"[e] torch.einsum contraction path from opt_einsum: "
+          f"{torch.backends.opt_einsum.enabled}", flush=True)
     results = {}
-    for label, (name, kern, plain, stages, kind) in cases.items():
+    for label, (name, kern, plain, stages, kind, lib) in cases.items():
         out, ref = kern(), plain()
         torch.cuda.synchronize()
         err, scale = float((out - ref).abs().max()), float(ref.abs().max())
@@ -509,6 +567,11 @@ def probe_phase(device):
         else:
             print(f"{line} rel={err / scale:.3e} bar=1e-05", flush=True)
             check(err <= 1e-5 * scale, f"probe {label} within 1e-5")
+        if lib is not None:
+            lib_err = float((lib() - ref).abs().max())
+            print(f"[e] {label}: one-call library vs plain max_abs_err={lib_err:.3e} "
+                  f"bar=1e-05", flush=True)
+            check(lib_err <= 1e-5 * scale, f"probe {label}: library call within 1e-5")
         del out, ref
         results[label] = dict(name=name, max_abs_err=err)
 
@@ -525,12 +588,11 @@ def probe_phase(device):
           flush=True)
     check(all(v > 0 for v in launches.values()), "every probe kernel launched by the tools")
 
-    for label, (name, kern, plain, stages, kind) in cases.items():
+    for label, (name, kern, plain, stages, kind, lib) in cases.items():
         r = results[label]
         r["ms"], r["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
         r["bound_ms"], r["bound_by"] = bound(stage_work(stages, *dims), kind)
-        if label == "probe_copy":
-            r["library_ms"] = cuda_ms(lambda: torch.mul(t, fs.COPY_SCALE))
+        r["library_ms"] = None if lib is None else cuda_ms(lib)
         print(f"[e] time {label}: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in r.items() if k not in ("name", "max_abs_err")), flush=True)
@@ -539,7 +601,7 @@ def probe_phase(device):
           f"chains of 10/100: {fixed['mult_per_iter'][10]:.4f}/"
           f"{fixed['mult_per_iter'][100]:.4f} ms", flush=True)
     return {r["name"]: r for label, r in results.items()
-            if label not in ("full zblk=4", "full zblk=8")}, launches
+            if label not in ("copy zblk=8", "full zblk=4", "full zblk=8")}, launches
 
 
 def main():

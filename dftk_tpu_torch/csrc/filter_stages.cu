@@ -110,7 +110,9 @@ __device__ void swap_pairs(const float* in, const int R, const int S, float* out
 
 // F1f, the V multiply and F1b on Z [2m1, P, kBands] in place, strip by
 // strip of the P columns, through Cs [2n1, strip, kBands].  kV: multiply
-// row j1*2+c, column j by V[j1, j] (kDots: by V[j1, 0]).
+// row j1*2+c, column j by V[j1, j] (kDots: by V[j1, 0]).  The wrapper picks
+// a strip that divides P; the width is still taken per strip, as that form
+// compiles to the faster code (40 registers for kFull, not 32; PERF.md).
 template <bool kBf16, bool kV, bool kDotsScale>
 __device__ void f1_stage(float* Z, float* Cs, const int P, const int m1, const int n1,
                          const int n2, const int strip, const float* __restrict__ F1f,

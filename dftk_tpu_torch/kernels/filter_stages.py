@@ -184,22 +184,18 @@ def probe_stages_smem(stages, m1, m2, n1, n2, strip):
     return per_band * BANDS_PER_BLOCK * 4
 
 
-def probe_stages_strip(m1, m2, n1, n2, strip=None):
+def probe_stages_strip(m1, m2, n1, n2):
     """Columns of j2 per F1 strip: the widest divisor of n2 whose strip
-    buffer fits beside the two ping-pong buffers, or `strip` if it fits."""
+    buffer fits beside the two ping-pong buffers."""
     fixed = probe_stages_smem("full", m1, m2, n1, n2, 0)
     widest = min(n2, (SMEM_MAX - fixed) // (2 * n1 * BANDS_PER_BLOCK * 4))
     if widest < 1:
         raise ValueError(f"probe_stages: planes m=({m1},{m2}), n=({n1},{n2}) need "
                          f"more than the {SMEM_MAX} B of shared memory a block may use")
-    if strip is None:
-        return max(w for w in range(1, widest + 1) if n2 % w == 0)
-    if not 1 <= strip <= widest:
-        raise ValueError(f"probe_stages: strip {strip} outside [1, {widest}]")
-    return strip
+    return max(w for w in range(1, widest + 1) if n2 % w == 0)
 
 
-def probe_stages(t, V, factors, stages="full", precision="highest", zblk=1, strip=None):
+def probe_stages(t, V, factors, stages="full", precision="highest", zblk=1):
     """The stage set `stages` on every z-plane of t [n3, m2, 2, m1, nbt]
     (module docstring), one block per 4 bands of zblk planes; `factors`
     (F2f, F1f, F1b, F2b) may be None for 'rep'."""
@@ -210,7 +206,7 @@ def probe_stages(t, V, factors, stages="full", precision="highest", zblk=1, stri
     _check_cuda("probe_stages", t, V, *factors)
     _plane_checks("probe_stages", t, zblk)
     n3, m1, m2, n1, n2, nbt = _shapes(t, V, factors, stages, zblk)
-    strip = 1 if stages == "rep" else probe_stages_strip(m1, m2, n1, n2, strip)
+    strip = 1 if stages == "rep" else probe_stages_strip(m1, m2, n1, n2)
     f_ptrs = [f.data_ptr() for f in factors] or [None] * 4
     out = torch.empty_like(t)
     err = library().dftk_probe_stages(

@@ -138,14 +138,12 @@ def test_cuda_bf16_kernels_match_plain(gpu_basis):
                        precision="default")
 
 
-@pytest.fixture(scope="module")
-def probe_inputs():
-    """Filter-stage probe inputs at small, unequal sizes: t [n3=8, m2=4, 2,
-    m1=6, nbt=12], V [8, n1=10, n2=8], the four realified factors."""
+def _probe_inputs(n3, m1, m2, n1, n2, nbt):
+    """Filter-stage probe inputs t [n3, m2, 2, m1, nbt], V [n3, n1, n2] and
+    the four realified factors, on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     rng = np.random.default_rng(11)
-    n3, m1, m2, n1, n2, nbt = 8, 6, 4, 10, 8, 12
     conv = lambda a: torch.as_tensor(a, dtype=torch.float32, device="cuda")
     t = conv(rng.normal(size=(n3, m2, 2, m1, nbt)))
     V = conv(rng.normal(size=(n3, n1, n2)))
@@ -154,17 +152,27 @@ def probe_inputs():
     return t, V, F
 
 
+@pytest.fixture(scope="module")
+def probe_inputs():
+    """Small, unequal sizes: t [n3=8, m2=4, 2, m1=6, nbt=12], V [8, n1=10, n2=8]."""
+    return _probe_inputs(8, 6, 4, 10, 8, 12)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("zblk", [1, 4])
-@pytest.mark.parametrize("stages, strip", [("f2", None), ("f2_rep", None),
-                                           ("f2_rep_f1", None), ("full", None),
-                                           ("full", 3), ("rep", None), ("dots", None)])
-def test_cuda_probe_stages_match_plain(probe_inputs, stages, strip, zblk):
+@pytest.mark.parametrize("stages, wide", [("f2", False), ("f2_rep", False),
+                                          ("f2_rep_f1", False), ("full", False),
+                                          ("full", True), ("rep", False), ("dots", False)])
+def test_cuda_probe_stages_match_plain(probe_inputs, stages, wide, zblk):
+    """wide: the probes' plane sizes (m = 32, n = 64), where the F1 stages
+    run on two strips of 32 columns."""
     from dftk_tpu_torch.kernels import filter_stages as fs
-    t, V, F = probe_inputs
+    t, V, F = _probe_inputs(4, 32, 32, 64, 64, 4) if wide else probe_inputs
+    if wide:
+        assert fs.probe_stages_strip(32, 32, 64, 64) == 32
     F = None if stages == "rep" else F
     fs.counts.reset()
-    out = fs.probe_stages(t, V, F, stages, zblk=zblk, strip=strip)
+    out = fs.probe_stages(t, V, F, stages, zblk=zblk)
     ref = fs.probe_stages_plain(t, V, F, stages, zblk=zblk)
     torch.cuda.synchronize()
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

@@ -230,3 +230,19 @@ def test_local_plane_refuses_oversized_planes():
     t = torch.empty((1, 1, 1, 96, 96), dtype=torch.complex128)
     with pytest.raises(ValueError, match="shared memory"):
         la.local_plane_strip(t, 192, 192)
+
+
+def test_chip_smoke_local_plane_library_matches_plain(bases):
+    """chip_smoke.py times one torch.einsum as kernel B's library version:
+    it must compute the plain version's function."""
+    import chip_smoke
+    tb = bases[1]
+    (m1, m2, _), (n1, n2, n3) = tb.pruned.m_shape, tb.fft_size
+    rng = np.random.default_rng(2)
+    shape = (tb.n_kpoints, 2, n3, m1, m2)
+    t = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape))
+    V = torch.as_tensor(rng.normal(size=(tb.n_kpoints, n3, n1, n2)))
+    ref = la.local_plane_plain(t, V, tb.pruned.factors)
+    out = chip_smoke.local_plane_library(t, V, tb.pruned.factors)()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert float((out - ref).abs().max()) < 1e-12 * float(ref.abs().max())

@@ -37,6 +37,7 @@ from jax.experimental import pallas as pl
 
 from dftk_tpu_torch.kernels import filter_stages as fs
 from dftk_tpu_torch.kernels import local_apply as la
+from dftk_tpu_torch.tools import probe_harness
 
 TOOLS = pathlib.Path(__file__).resolve().parent.parent / "tools"
 SMALL = dict(m1=4, m2=4, n1=8, n2=8, n3=8, nbt=8)
@@ -221,6 +222,23 @@ def test_tool_main_on_cpu(tool, monkeypatch, capsys):
         assert "max_abs_err 0.00e+00" in printed
 
 
+@pytest.mark.parametrize("stages", ["f2", "f2_rep", "f2_rep_f1", "full", "rep", "dots"])
+def test_chip_smoke_library_call_matches_plain(stages):
+    """chip_smoke.py times one PyTorch call per f32 stage set as its library
+    version: it must compute the plain version's function."""
+    import chip_smoke
+    dims = [SMALL[k] for k in ("n3", "m1", "m2", "n1", "n2", "nbt")]
+    t, V, F = probe_harness.make_inputs(3, *dims, 1.0, 4, "cpu")
+    lib = chip_smoke.stage_library(stages, t, V, F)
+    ref = fs.probe_stages_plain(t, V, None if stages == "rep" else F, stages)
+    assert lib().shape == ref.shape
+    assert float((lib() - ref).abs().max()) <= BAR * float(ref.abs().max())
+    if stages == "dots":       # the relabeling needs n2 = 2 m1
+        dims[1] += 1
+        t, V, F = probe_harness.make_inputs(3, *dims, 1.0, 4, "cpu")
+        assert chip_smoke.stage_library(stages, t, V, F) is None
+
+
 def test_tool_main_needs_a_card_unless_asked(monkeypatch):
     from dftk_tpu_torch.tools import probe_kernel_incr
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -257,26 +275,5 @@ def test_stages_shared_memory(stages, m, n, strip, smem):
         assert fs.probe_stages_strip(*m, *n) == strip
     assert fs.probe_stages_smem(stages, *m, *n, strip or 0) == smem
     assert smem <= la.SMEM_MAX
-    with pytest.raises(ValueError, match="strip"):
-        fs.probe_stages_strip(*m, *n, strip=n[1] + 1)
-
-
-def test_sass_stats_counts_opcodes():
-    from dftk_tpu_torch.tools.sass_stats import parse
-    sass = """
-	code for sm_90a
-		Function : _Z6kernelPf
-	.headerflags	@"EF_CUDA_SM90"
-        /*0000*/                   LDC R1, c[0x0][0x28] ;
-        /*0010*/              @!P0 EXIT ;
-        /*0020*/                   LDG.E.CONSTANT R2, desc[UR4][R2.64] ;
-        /*0030*/                   LDS R3, [R4] ;
-        /*0040*/               @P0 FFMA R5, R2, R3, R5 ;
-        /*0050*/                   FFMA R5, R2, R3, R5 ;
-		Function : _Z5otherv
-        /*0000*/                   EXIT ;
-"""
-    k = parse(sass)
-    assert list(k) == ["_Z6kernelPf", "_Z5otherv"]
-    assert k["_Z6kernelPf"] == {"LDC": 1, "EXIT": 1, "LDG": 1, "LDS": 1, "FFMA": 2}
-    assert k["_Z5otherv"] == {"EXIT": 1}
+    with pytest.raises(ValueError, match="shared memory"):
+        fs.probe_stages_strip(128, 128, 256, 256)
