@@ -47,8 +47,19 @@ Phases (any failure raises and exits non-zero):
      pallas_fixed,kernel_pipe,kernel_variants,kernel_incr}), every
      instantiation launched; kernel, plain, library and bound times, and
      the per-launch cost from the slope between chains of 10 and 100 copies
-  5. print the kernels' JSON line (launches from phases c and e, times from
-     phases 3, a and e, bounds from the shapes), then the result line.
+  f. the planar filter chain (csrc/filter_stages.cu, probe_planar: t [64, 2,
+     32, 32, 128] f32, V 64^3, eight factors) in f32 and with bf16 operands,
+     and the band-major fully fused chain and its swap-only ablation
+     (csrc/fused_micro.cu: 256 bands of [32^3] re/im, V 64^3, F 64 x 128,
+     G 128 x 64), at the JAX probes' shapes, against their plain versions
+     (f32 1e-5 of max|out| on one application, bf16 by the margin rule of
+     phase a, swap-only exactly) and their one-call library versions (one
+     torch.einsum, or one torch.add per part) at the same bars; then, with
+     the counts set to 0, the two tools' main() (the path:
+     dftk_tpu_torch.tools.{probe_kernel_planar,bench_fused_micro}), every
+     instantiation launched; kernel, plain, library and bound times
+  5. print the kernels' JSON line (launches from phases c, e and f, times
+     from phases 3, a, e and f, bounds from the shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -93,6 +104,14 @@ PROBE_REPLACES = {
     "probe_stages[rep]": "tools/probe_kernel_variants.py:96",
     "probe_stages[dots]": "tools/probe_kernel_variants.py:84",
     "probe_stages[full][bf16]": "tools/probe_kernel_variants.py:138",
+}
+
+# phase f: source and the JAX probe body of each instantiation
+FUSED_SOURCES = {
+    "probe_planar": (PROBE_SOURCE, "tools/probe_kernel_planar.py:75"),
+    "probe_planar[bf16]": (PROBE_SOURCE, "tools/probe_kernel_planar.py:88"),
+    "micro_full": ("dftk_tpu_torch/csrc/fused_micro.cu", "tools/bench_fused_micro.py:50"),
+    "micro_swaponly": ("dftk_tpu_torch/csrc/fused_micro.cu", "tools/bench_fused_micro.py:71"),
 }
 
 
@@ -518,6 +537,159 @@ def stage_library(stages, t, V, F):
     return None
 
 
+def planar_library(t, V, P):
+    """The planar chain as one complex64 torch.einsum (a closure) over
+    G = C + iS; A and V are made complex outside the call (on the card
+    einsum refuses a real V).  The operands are ordered so that a
+    left-to-right contraction keeps the intermediates small."""
+    import torch
+    c2f, s2f, c1f, s1f, c1b, s1b, c2b, s2b = P
+    G2f, G1f, G1b, G2b = (torch.complex(c, s) for c, s in
+                          ((c2f, s2f), (c1f, s1f), (c1b, s1b), (c2b, s2b)))
+    A, Vc = torch.complex(t[:, 0], t[:, 1]), V.to(torch.complex64)
+    return lambda: torch.einsum("zpqb,jp,iq,zij,Qi,Pj->zPQb", A, G2f, G1f, Vc, G1b, G2b)
+
+
+def planar_as_real(out):
+    """A complex [n3, m2, m1, nbt] as the planar layout [n3, 2, m2, m1, nbt]."""
+    import torch
+    return torch.stack((out.real, out.imag), dim=1)
+
+
+def micro_full_library(xr, xi, V, F, G):
+    """kernel_full as one torch.einsum (a closure) over (re, im) stacked
+    outside the call and F, G viewed as [2, M, 2, N] and [2, N, 2, M]; its
+    result is [2, K, NB, M, M, M], (re, im) stacked.  The einsum contracts
+    left to right, in the chain's own order: the path opt_einsum picks sums
+    in another order, 1.25e-5 of max|out| from the plain version on the
+    card, which is over the 1e-5 bar."""
+    import torch
+    M, N = xr.shape[-1], F.shape[1] // 2
+    x2, f4, g4 = torch.stack((xr, xi)), F.view(2, M, 2, N), G.view(2, N, 2, M)
+
+    def call():
+        with torch.backends.opt_einsum.flags(enabled=False):
+            return torch.einsum("eztabc,ecfj,fbgk,gahl,zjkl,hlmA,mknB,njoC->oztABC",
+                                x2, f4, f4, f4, V, g4, g4, g4)
+    return call
+
+
+def swaponly_library(xr, xi):
+    """kernel_swaponly as one torch.add per part: x[..., :1] broadcast (the
+    twelve swaps only permute it back) plus x."""
+    import torch
+    return lambda: (torch.add(xr[..., :1].expand_as(xr), xr),
+                    torch.add(xi[..., :1].expand_as(xi), xi))
+
+
+def micro_work(name, K, NB, M, N):
+    """(bytes, flops) of one fused-micro call: xr, xi read and written once;
+    micro_full also V, F and G once, and 16 M N (M^2 + M N + N^2) + 2 N^3
+    flops per band; swaponly one add per output value."""
+    bands, cube = K * NB, M ** 3
+    if name == "micro_swaponly":
+        return 16 * bands * cube, 2 * bands * cube
+    nbytes = 16 * bands * cube + 4 * (K * N ** 3 + 8 * M * N)
+    return nbytes, bands * (16 * M * N * (M * M + M * N + N * N) + 2 * N ** 3)
+
+
+def planar_work(n3, m1, m2, n1, n2, nbt):
+    """(bytes, flops) of one planar call: the realified full chain's flops
+    (the same real dots), t read and written once, the eight real factors
+    and V once."""
+    return (8 * n3 * 2 * m2 * m1 * nbt + 16 * (n2 * m2 + n1 * m1) + 4 * n3 * n1 * n2,
+            stage_work("full", n3, m1, m2, n1, n2, nbt)[1])
+
+
+def fused_probe_phase(device):
+    """Phase f: the planar chain and the fused-micro kernels at the JAX
+    probes' shapes."""
+    import torch
+    from dftk_tpu_torch.kernels import filter_stages as fs
+    from dftk_tpu_torch.kernels import fused_micro as fm
+    from dftk_tpu_torch.tools import bench_fused_micro, probe_harness, probe_kernel_planar
+    t_phase = time.time()
+    t, V, P = probe_harness.make_planar_inputs(4, *PROBE_DIMS, device)
+    K, NB, M, N = 1, bench_fused_micro.NB, bench_fused_micro.M, bench_fused_micro.N
+    rng = np.random.default_rng(0)
+    conv = lambda s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device=device)
+    xr, xi, Vm = conv((K, NB, M, M, M)), conv((K, NB, M, M, M)), conv((K, N, N, N))
+    F, G = conv((2 * M, 2 * N)), conv((2 * N, 2 * M))
+    print(f"[f] planar t {tuple(t.shape)} f32, V {tuple(V.shape)}, factors "
+          f"{[tuple(f.shape) for f in P]}; micro xr, xi {tuple(xr.shape)}, V "
+          f"{tuple(Vm.shape)}, F {tuple(F.shape)}, G {tuple(G.shape)}", flush=True)
+    ident = lambda x: x
+    lib_planar = planar_library(t, V, P)
+    # name: (kernel, plain, as one tensor, kind, library closure and its
+    # conversion or None, work)
+    cases = {
+        "probe_planar": (lambda: fs.probe_planar(t, V, P), lambda: fs.probe_planar_plain(t, V, P),
+                         ident, "float32", (lib_planar, planar_as_real),
+                         planar_work(*PROBE_DIMS)),
+        "probe_planar[bf16]": (lambda: fs.probe_planar(t, V, P, "default"),
+                               lambda: fs.probe_planar_plain(t, V, P, "default"), ident,
+                               "bf16", None, planar_work(*PROBE_DIMS)),
+        "micro_full": (lambda: fm.micro_full(xr, xi, Vm, F, G),
+                       lambda: fm.micro_full_plain(xr, xi, Vm, F, G), torch.stack, "float32",
+                       (micro_full_library(xr, xi, Vm, F, G), ident),
+                       micro_work("micro_full", K, NB, M, N)),
+        "micro_swaponly": (lambda: fm.micro_swaponly(xr, xi, N),
+                           lambda: fm.micro_swaponly_plain(xr, xi, N), torch.stack,
+                           "float32", (swaponly_library(xr, xi), torch.stack),
+                           micro_work("micro_swaponly", K, NB, M, N)),
+    }
+    results = {}
+    for name, (kern, plain, one, kind, lib, _) in cases.items():
+        out, ref = one(kern()), one(plain())
+        torch.cuda.synchronize()
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        line = f"[f] {name}: kernel vs plain max_abs_err={err:.3e} max|out|={scale:.3e}"
+        bar = 0.0 if name == "micro_swaponly" else 1e-5
+        if kind == "bf16":
+            hi = fs.probe_planar_plain(t, V, P)
+            rel, rounding = rel_frobenius(out, ref), rel_frobenius(ref, hi)
+            print(f"{line}; rel Frobenius {rel:.3e} against plain default vs highest "
+                  f"{rounding:.3e}", flush=True)
+            check(rel * BF16_MARGIN <= rounding, f"{name}: kernel-vs-plain "
+                  f"{BF16_MARGIN}x below default-vs-highest")
+        else:
+            print(f"{line} rel={err / scale:.3e} bar={bar:g}", flush=True)
+            check(bool(torch.isfinite(out).all()) and err <= bar * scale,
+                  f"{name} within {bar:g} of max|out|")
+        if lib is not None:
+            lib_err = float((lib[1](lib[0]()) - ref).abs().max())
+            print(f"[f] {name}: one-call library vs plain max_abs_err={lib_err:.3e} "
+                  f"bar={bar:g}", flush=True)
+            check(lib_err <= bar * scale, f"{name}: library call within {bar:g}")
+        del out, ref
+        results[name] = dict(max_abs_err=err)
+
+    # the path: the two tools, counts from 0
+    fs.counts.reset()
+    fm.counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    probe_kernel_planar.main(device)
+    bench_fused_micro.main(device)
+    torch.cuda.synchronize()
+    launches = {n: fs.counts.launches[n] for n in ("probe_planar", "probe_planar[bf16]")}
+    launches.update(fm.counts.launches)
+    print(f"[f] the two tools ran in {time.time() - t0:.1f} s, launches={launches}",
+          flush=True)
+    check(all(v > 0 for v in launches.values()), "every phase-f kernel launched by the tools")
+
+    for name, (kern, plain, _, kind, lib, work) in cases.items():
+        r = results[name]
+        r["ms"], r["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
+        r["bound_ms"], r["bound_by"] = bound(work, kind)
+        r["library_ms"] = None if lib is None else cuda_ms(lib[0])
+        print(f"[f] time {name}: " + ", ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items() if k != "max_abs_err"), flush=True)
+    print(f"[f] phase f took {time.time() - t_phase:.1f} s", flush=True)
+    return results, launches
+
+
 def probe_phase(device):
     """Phase e: the filter-stage probe kernels at the JAX probes' shapes."""
     import torch
@@ -586,7 +758,8 @@ def probe_phase(device):
     launches = dict(fs.counts.launches)
     print(f"[e] the four probe tools ran in {time.time() - t0:.1f} s, launches={launches}",
           flush=True)
-    check(all(v > 0 for v in launches.values()), "every probe kernel launched by the tools")
+    check(all(launches[n] > 0 for n in PROBE_REPLACES),
+          "every probe kernel launched by the tools")
 
     for label, (name, kern, plain, stages, kind, lib) in cases.items():
         r = results[label]
@@ -684,6 +857,9 @@ def main():
     # ---- e. the filter-stage probes -----------------------------------------------
     probe_timings, probe_launches = probe_phase(device)
 
+    # ---- f. the planar chain and the band-major fused chain ------------------
+    fused_timings, fused_launches = fused_probe_phase(device)
+
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
     work = {"pruned_axis_dft": (axis_dft_work(x_shape, m[2], n[2], 16), "complex128"),
@@ -705,6 +881,12 @@ def main():
                             launches=probe_launches[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r.get("library_ms")))
+    for name, (src, rep) in FUSED_SOURCES.items():
+        r = fused_timings[name]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                            launches=fused_launches[name], max_abs_err=r["max_abs_err"],
+                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

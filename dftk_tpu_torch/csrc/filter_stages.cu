@@ -60,6 +60,31 @@
 // bf16 (kFull only): both operands of every dot rounded to bf16, round to
 // nearest even, as it is read; f32 sums; the V multiply in f32 on the f32
 // sums, as k_full_bf does with `astype(jnp.bfloat16)`.
+//
+// The planar chain, a second template (probe_planar_kernel), replaces
+//   tools/probe_kernel_planar.py  k_planar     -> probe_planar, f32
+//                                 k_planar_bf  -> probe_planar, bf16 operands
+// Layout (f32): t, out [n3, 2, m2, m1, nbt] (re and im planes of each
+// z-plane); V [n3, n1, n2]; eight factors, each complex factor G = C + iS
+// kept as its two real parts: G2f [n2, m2], G1f [n1, m1], G1b [m1, n1],
+// G2b [m2, n2].  Per z-plane and band, with A = t[z, 0] + i t[z, 1] [m2, m1]:
+//   B[j2, q] = sum_p G2f[j2, p] A[p, q]     [n2, m1]   (contracts axis 0)
+//   C[i, j2] = sum_q G1f[i, q] B[j2, q]     [n1, n2]   (contracts axis 1)
+//   C[i, j2] *= V[z, i, j2]
+//   D[r, j2] = sum_i G1b[r, i] C[i, j2]     [m1, n2]   (axis 0)
+//   E[P, r]  = sum_j G2b[P, j] D[r, j]      [m2, m1]   (axis 1)
+//   out[z, 0] = Re E, out[z, 1] = Im E
+// each complex contraction four real dots, yr = C.xr - S.xi and
+// yi = S.xr + C.xi, each summed on its own, as the JAX body's dot_generals.
+// The same block plan as the realified chain: 4 bands per block, one
+// z-plane per block as the TPU grid has, A then D in one buffer and B in
+// the other, the C and D stages on strips of j2 columns through a
+// [2, n1, strip] buffer.  The rows of B and D, which the axis-1
+// contractions read across, are padded by kBands floats, so that the 8
+// rows a warp reads fall in distinct banks.  The work is the realified
+// full chain's (25.8 GFLOP at the probes' shapes, bound by operations); a
+// thread loads two factor values (broadcast) and two shared values per four
+// FMAs, where the realified template loads one of each per FMA.
 #include "dftk_complex.cuh"
 
 namespace {
@@ -221,6 +246,112 @@ int launch_stages(const void* t, const void* V, const void* F2f, const void* F1f
   return static_cast<int>(cudaGetLastError());
 }
 
+// The eight real factors of the planar chain (C, S of G2f, G1f, G1b, G2b).
+struct PlanarFactors {
+  const float* c2f; const float* s2f; const float* c1f; const float* s1f;
+  const float* c1b; const float* s1b; const float* c2b; const float* s2b;
+};
+
+// One complex contraction of the planar chain:
+//   y(p, c, b) = sum_q G[p, q] x(q, c, b),  G = Cm + i Sm [P, Q] (device),
+// x's re/im parts at xr/xi + q * xq + c * xc + b (shared memory), y's at
+// yr/yi + p * yp + c * yc + b (shared or device memory), for c < cols and
+// the kBands bands.  Vp, if not null: y(p, c, .) *= Vp[p * vs + c].
+template <bool kBf16>
+__device__ void planar_dot(const float* __restrict__ Cm, const float* __restrict__ Sm,
+                           const int P, const int Q, const int cols, const float* xr,
+                           const float* xi, const int xq, const int xc, float* yr,
+                           float* yi, const size_t yp, const int yc,
+                           const float* __restrict__ Vp, const int vs) {
+  const int per_row = cols * kBands;
+  for (int e = threadIdx.x; e < P * per_row; e += blockDim.x) {
+    const int p = e / per_row, cb = e - p * per_row, c = cb / kBands, b = cb % kBands;
+    const float* Cp = Cm + static_cast<size_t>(p) * Q;
+    const float* Sp = Sm + static_cast<size_t>(p) * Q;
+    const int x0 = c * xc + b;
+    float cr = 0.f, si = 0.f, sr = 0.f, ci = 0.f;    // C.xr, S.xi, S.xr, C.xi
+    for (int q = 0; q < Q; ++q) {
+      const float cv = op<kBf16>(__ldg(Cp + q)), sv = op<kBf16>(__ldg(Sp + q));
+      const float a = op<kBf16>(xr[q * xq + x0]), d = op<kBf16>(xi[q * xq + x0]);
+      cr = fmaf(cv, a, cr);
+      si = fmaf(sv, d, si);
+      sr = fmaf(sv, a, sr);
+      ci = fmaf(cv, d, ci);
+    }
+    float re = cr - si, im = sr + ci;
+    if (Vp != nullptr) {
+      const float v = __ldg(Vp + p * vs + c);
+      re *= v;
+      im *= v;
+    }
+    const size_t o = p * yp + static_cast<size_t>(c) * yc + b;
+    yr[o] = re;
+    yi[o] = im;
+  }
+}
+
+// One block: bands [b0, b0 + kBands) of plane z = blockIdx.y.  X holds A
+// [2][m2][m1][kBands], then D [2][m1][dr] (dr = n2 kBands + kBands); Y holds
+// B [2][n2][br] (br = m1 kBands + kBands); Cs [2][n1][strip][kBands].
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+probe_planar_kernel(const float* __restrict__ t, const float* __restrict__ V,
+                    const PlanarFactors f, float* __restrict__ out, const int m1,
+                    const int m2, const int n1, const int n2, const int nbt,
+                    const int strip, const int X) {
+  extern __shared__ __align__(16) float smem[];
+  const int br = (m1 + 1) * kBands, dr = (n2 + 1) * kBands;
+  float* Xs = smem;
+  float* Ys = smem + X;
+  float* Cs = Ys + 2 * n2 * br;
+  const int z = blockIdx.y, b0 = blockIdx.x * kBands;
+  const size_t half = static_cast<size_t>(m2) * m1 * nbt;     // floats of a re/im plane
+  const float* tz = t + 2 * half * z + b0;
+  float* oz = out + 2 * half * z + b0;
+  const float* Vz = V + static_cast<size_t>(z) * n1 * n2;
+  const int a_half = m2 * m1 * kBands;
+  for (int e = threadIdx.x; e < 2 * a_half; e += blockDim.x)
+    Xs[e] = tz[static_cast<size_t>(e / kBands) * nbt + e % kBands];
+  __syncthreads();
+  // B = G2f A: x(q = p, c = q1) = A[p][q1]
+  planar_dot<kBf16>(f.c2f, f.s2f, n2, m2, m1, Xs, Xs + a_half, m1 * kBands, kBands,
+                    Ys, Ys + n2 * br, br, kBands, nullptr, 0);
+  __syncthreads();
+  float* Dr = Xs;
+  float* Di = Xs + m1 * dr;
+  for (int s0 = 0; s0 < n2; s0 += strip) {
+    const int w = min(strip, n2 - s0);
+    // C = G1f B on columns [s0, s0 + w): x(q, c = jj) = B[s0 + jj][q]; times V
+    planar_dot<kBf16>(f.c1f, f.s1f, n1, m1, w, Ys + s0 * br, Ys + n2 * br + s0 * br,
+                      kBands, br, Cs, Cs + n1 * w * kBands, w * kBands, kBands,
+                      Vz + s0, n2);
+    __syncthreads();
+    // D = G1b C into columns [s0, s0 + w) of D
+    planar_dot<kBf16>(f.c1b, f.s1b, m1, n1, w, Cs, Cs + n1 * w * kBands, w * kBands,
+                      kBands, Dr + s0 * kBands, Di + s0 * kBands, dr, kBands, nullptr, 0);
+    __syncthreads();
+  }
+  // E = G2b D along axis 1: x(q = j2, c = r) = D[r][j2], straight to device memory
+  planar_dot<kBf16>(f.c2b, f.s2b, m2, n2, m1, Dr, Di, kBands, dr, oz, oz + half,
+                    static_cast<size_t>(m1) * nbt, nbt, nullptr, 0);
+}
+
+template <bool kBf16>
+int launch_planar(const void* t, const void* V, const PlanarFactors& f, void* out, int n3,
+                  int m1, int m2, int n1, int n2, int nbt, int strip, void* stream) {
+  const int a = 2 * m2 * m1 * kBands, d = 2 * m1 * (n2 + 1) * kBands;
+  const int X = a > d ? a : d;
+  const size_t smem = (static_cast<size_t>(X) + 2 * n2 * (m1 + 1) * kBands
+                       + 2 * n1 * strip * kBands) * sizeof(float);
+  cudaError_t err = allow_smem(probe_planar_kernel<kBf16>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  probe_planar_kernel<kBf16><<<dim3(nbt / kBands, n3), kThreads, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(t), static_cast<const float*>(V), f,
+      static_cast<float*>(out), m1, m2, n1, n2, nbt, strip, X);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out = 0.999 t, one block per `zblk` planes of `plane` floats (a multiple
 // of 4), as the TPU grid holds one block per step.  Bound by bytes.
 __global__ void __launch_bounds__(kCopyThreads)
@@ -267,6 +398,22 @@ int dftk_probe_stages(const void* t, const void* V, const void* F2f, const void*
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef DFTK_STAGES_CASE
+}
+
+// The planar chain; factors in the order C2f, S2f, C1f, S1f, C1b, S1b, C2b,
+// S2b; bf16: 0 or 1.
+int dftk_probe_planar(const void* t, const void* V, const void* c2f, const void* s2f,
+                      const void* c1f, const void* s1f, const void* c1b, const void* s1b,
+                      const void* c2b, const void* s2b, void* out, int n3, int m1, int m2,
+                      int n1, int n2, int nbt, int strip, int bf16, void* stream) {
+  const PlanarFactors f{
+      static_cast<const float*>(c2f), static_cast<const float*>(s2f),
+      static_cast<const float*>(c1f), static_cast<const float*>(s1f),
+      static_cast<const float*>(c1b), static_cast<const float*>(s1b),
+      static_cast<const float*>(c2b), static_cast<const float*>(s2b)};
+  if (bf16)
+    return launch_planar<true>(t, V, f, out, n3, m1, m2, n1, n2, nbt, strip, stream);
+  return launch_planar<false>(t, V, f, out, n3, m1, m2, n1, n2, nbt, strip, stream);
 }
 
 }  // extern "C"

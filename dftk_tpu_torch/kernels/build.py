@@ -30,6 +30,9 @@ _SIGNATURES = {
     **{f"dftk_local_plane_{m}": [_P] * 7 + [_I] * 8 + [_P] for m in _MODES},
     "dftk_probe_copy": [_P, _P, _I, _I, _I, _P],
     "dftk_probe_stages": [_P] * 7 + [_I] * 10 + [_P],
+    "dftk_probe_planar": [_P] * 11 + [_I] * 8 + [_P],
+    "dftk_micro_full": [_P] * 8 + [_I] * 5 + [_P],
+    "dftk_micro_swaponly": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 

@@ -28,6 +28,17 @@ operands of every dot to bf16 (round to nearest even) and sums in f32, the
 V multiply in f32, as k_full_bf does.  The plain versions run their dots
 through torch.matmul in f32 (TF32 is off by default for matmul on CUDA).
 
+The planar chain (`probe_planar`, a second kernel template in the same
+source) is the counterpart of `tools/probe_kernel_planar.py` (k_planar,
+k_planar_bf): the same chain on t [n3, 2, m2, m1, nbt] (the re and im
+planes of each z-plane), V [n3, n1, n2] and eight real factors, the cosine
+and sine parts of G2f [n2, m2], G1f [n1, m1], G1b [m1, n1], G2b [m2, n2]
+(PLANAR_FACTORS), each complex contraction four real dots
+(yr = C.xr - S.xi, yi = S.xr + C.xi) along axes 0, 1, 0, 1 of the plane:
+  out[z, P, Q, b] = sum G2b[P, j] G1b[Q, i] V[z, i, j] G1f[i, q] G2f[j, p]
+                    A[z, p, q, b],  A = t[:, 0] + i t[:, 1].
+"default" rounds both operands of each real dot to bf16.
+
 Dispatch is by device only: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
 """
@@ -39,8 +50,10 @@ STAGES = ("f2", "f2_rep", "f2_rep_f1", "full", "rep", "dots")
 BANDS_PER_BLOCK = 4                 # kBands of csrc/filter_stages.cu
 COPY_SCALE = 0.999
 
+PLANAR_FACTORS = ("C2f", "S2f", "C1f", "S1f", "C1b", "S1b", "C2b", "S2b")
+
 counts = KernelCounts(("probe_copy",) + tuple(f"probe_stages[{s}]" for s in STAGES)
-                      + ("probe_stages[full][bf16]",))
+                      + ("probe_stages[full][bf16]", "probe_planar", "probe_planar[bf16]"))
 
 
 def count_name(stages, precision="highest"):
@@ -130,6 +143,55 @@ def probe_stages_plain(t, V, factors, stages="full", precision="highest", zblk=1
     return dot(F2b, B).reshape(t.shape)
 
 
+def planar_count_name(precision):
+    """The counts' name of one planar instantiation; raises on an unknown one."""
+    if precision not in ("highest", "default"):
+        raise ValueError(f"probe_planar: precision 'highest' or 'default', got "
+                         f"{precision!r}")
+    return "probe_planar" if precision == "highest" else "probe_planar[bf16]"
+
+
+def _planar_shapes(t, V, factors):
+    if t.dim() != 5 or t.shape[1] != 2 or V.dim() != 3:
+        raise ValueError(f"probe_planar: t must be [n3, 2, m2, m1, nbt] and V "
+                         f"[n3, n1, n2], got {tuple(t.shape)} and {tuple(V.shape)}")
+    n3, _, m2, m1, nbt = t.shape
+    _, n1, n2 = V.shape
+    if V.shape[0] != n3:
+        raise ValueError(f"probe_planar: V has {V.shape[0]} planes, t has {n3}")
+    want = tuple(s for s in ((n2, m2), (n1, m1), (m1, n1), (m2, n2)) for _ in range(2))
+    got = tuple(tuple(f.shape) for f in factors)
+    if got != want:
+        raise ValueError(f"probe_planar: factors {PLANAR_FACTORS} {got}, expected {want}")
+    return n3, m1, m2, n1, n2, nbt
+
+
+def probe_planar_plain(t, V, factors, precision="highest"):
+    """The planar chain on every z-plane of t (module docstring), each real
+    dot one torch.matmul in f32."""
+    counts.plain[planar_count_name(precision)] += 1
+    n3, m1, m2, n1, n2, nbt = _planar_shapes(t, V, factors)
+    r = (lambda x: x.to(torch.bfloat16).float()) if precision == "default" else (lambda x: x)
+
+    def dot(F, x, axis):      # F [P, Q] contracts axis 0 or 1 of x [n3, R0, R1, nbt]
+        if axis == 0:
+            return torch.matmul(r(F), r(x).reshape(n3, x.shape[1], -1)).reshape(
+                n3, F.shape[0], x.shape[2], nbt)
+        return torch.matmul(r(F), r(x)).transpose(1, 2)
+
+    def cplx(Cm, Sm, xr, xi, axis):
+        return (dot(Cm, xr, axis) - dot(Sm, xi, axis),
+                dot(Sm, xr, axis) + dot(Cm, xi, axis))
+
+    c2f, s2f, c1f, s1f, c1b, s1b, c2b, s2b = factors
+    Br, Bi = cplx(c2f, s2f, t[:, 0], t[:, 1], 0)                   # [n2, m1]
+    Cr, Ci = cplx(c1f, s1f, Br, Bi, 1)                             # [n1, n2]
+    Vz = V[:, :, :, None]
+    Dr, Di = cplx(c1b, s1b, Cr * Vz, Ci * Vz, 0)                   # [m1, n2]
+    Er, Ei = cplx(c2b, s2b, Dr, Di, 1)                             # [m2, m1]
+    return torch.stack((Er, Ei), dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -184,15 +246,21 @@ def probe_stages_smem(stages, m1, m2, n1, n2, strip):
     return per_band * BANDS_PER_BLOCK * 4
 
 
+def _widest_strip(name, fixed, m1, m2, n1, n2):
+    """The widest divisor of n2 whose [2n1, strip] buffer of BANDS_PER_BLOCK
+    bands fits in shared memory beside `fixed` bytes."""
+    widest = min(n2, (SMEM_MAX - fixed) // (2 * n1 * BANDS_PER_BLOCK * 4))
+    if widest < 1:
+        raise ValueError(f"{name}: planes m=({m1},{m2}), n=({n1},{n2}) need "
+                         f"more than the {SMEM_MAX} B of shared memory a block may use")
+    return max(w for w in range(1, widest + 1) if n2 % w == 0)
+
+
 def probe_stages_strip(m1, m2, n1, n2):
     """Columns of j2 per F1 strip: the widest divisor of n2 whose strip
     buffer fits beside the two ping-pong buffers."""
-    fixed = probe_stages_smem("full", m1, m2, n1, n2, 0)
-    widest = min(n2, (SMEM_MAX - fixed) // (2 * n1 * BANDS_PER_BLOCK * 4))
-    if widest < 1:
-        raise ValueError(f"probe_stages: planes m=({m1},{m2}), n=({n1},{n2}) need "
-                         f"more than the {SMEM_MAX} B of shared memory a block may use")
-    return max(w for w in range(1, widest + 1) if n2 % w == 0)
+    return _widest_strip("probe_stages", probe_stages_smem("full", m1, m2, n1, n2, 0),
+                         m1, m2, n1, n2)
 
 
 def probe_stages(t, V, factors, stages="full", precision="highest", zblk=1):
@@ -215,5 +283,42 @@ def probe_stages(t, V, factors, stages="full", precision="highest", zblk=1):
         STAGES.index(stages), int(precision == "default"),
         torch.cuda.current_stream(t.device).cuda_stream)
     _raise_on_error("probe_stages", err)
+    counts.launches[name] += 1
+    return out
+
+
+def probe_planar_smem(m1, m2, n1, n2, strip):
+    """Bytes of dynamic shared memory one block of the planar kernel uses:
+    A/D (D's rows padded by one band group), B (rows padded), the strip."""
+    b = BANDS_PER_BLOCK
+    x = max(2 * m2 * m1 * b, 2 * m1 * (n2 + 1) * b)
+    return (x + 2 * n2 * (m1 + 1) * b + 2 * n1 * strip * b) * 4
+
+
+def probe_planar_strip(m1, m2, n1, n2):
+    """Columns of j2 per C/D strip of the planar kernel: the widest divisor
+    of n2 that fits."""
+    return _widest_strip("probe_planar", probe_planar_smem(m1, m2, n1, n2, 0),
+                         m1, m2, n1, n2)
+
+
+def probe_planar(t, V, factors, precision="highest"):
+    """The planar chain on every z-plane of t [n3, 2, m2, m1, nbt] (module
+    docstring), one block per 4 bands of one plane; `factors` are the eight
+    real factors in the order PLANAR_FACTORS."""
+    name = planar_count_name(precision)
+    factors = tuple(factors)
+    if t.device.type == "cpu":
+        return probe_planar_plain(t, V, factors, precision)
+    _check_cuda("probe_planar", t, V, *factors)
+    _plane_checks("probe_planar", t, 1)
+    n3, m1, m2, n1, n2, nbt = _planar_shapes(t, V, factors)
+    strip = probe_planar_strip(m1, m2, n1, n2)
+    out = torch.empty_like(t)
+    err = library().dftk_probe_planar(
+        t.data_ptr(), V.data_ptr(), *(f.data_ptr() for f in factors), out.data_ptr(),
+        n3, m1, m2, n1, n2, nbt, strip, int(precision == "default"),
+        torch.cuda.current_stream(t.device).cuda_stream)
+    _raise_on_error("probe_planar", err)
     counts.launches[name] += 1
     return out

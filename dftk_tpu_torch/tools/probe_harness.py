@@ -50,6 +50,39 @@ def make_inputs(seed, n3, m1, m2, n1, n2, nbt, t_scale, f_div, device):
     return conv(t), conv(V), tuple(map(conv, F))
 
 
+def make_planar_inputs(seed, n3, m1, m2, n1, n2, nbt, device):
+    """The planar probe's inputs, as `tools/probe_kernel_planar.py` scales
+    them: t [n3, 2, m2, m1, nbt] / 8, V [n3, n1, n2] and the eight real
+    factors / 8 in the order `fs.PLANAR_FACTORS`, normal from `seed`, f32."""
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((n3, 2, m2, m1, nbt)) / 8
+    V = rng.standard_normal((n3, n1, n2))
+    F = [rng.standard_normal(s) / 8
+         for s in ((n2, m2), (n1, m1), (m1, n1), (m2, n2)) for _ in range(2)]
+    conv = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return conv(t), conv(V), tuple(map(conv, F))
+
+
+def mean_ms(fn, device, iters=1):
+    """Mean milliseconds of `iters` calls of fn() after one warm-up call:
+    CUDA events on the card, the host clock on the CPU."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def chain_total_ms(fn, x, loop):
     """Milliseconds of `loop` chained calls y = fn(y) from y = x, after one
     warm-up chain."""
@@ -59,19 +92,7 @@ def chain_total_ms(fn, x, loop):
             y = fn(y)
         return y
 
-    chain()
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        chain()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-    t0 = time.perf_counter()
-    chain()
-    return (time.perf_counter() - t0) * 1e3
+    return mean_ms(chain, x.device)
 
 
 def vs_plain(out, ref):
@@ -103,3 +124,10 @@ def copy_line(results, name, t, loop, zblk=1, note=""):
     """run_line for `fs.probe_copy`."""
     run_line(results, name, lambda a: fs.probe_copy(a, zblk), t, loop,
              lambda: fs.probe_copy(t, zblk), lambda: fs.probe_copy_plain(t), note)
+
+
+def planar_line(results, name, t, V, factors, loop, precision="highest"):
+    """run_line for `fs.probe_planar`."""
+    run_line(results, name, lambda a: fs.probe_planar(a, V, factors, precision), t, loop,
+             lambda: fs.probe_planar(t, V, factors, precision),
+             lambda: fs.probe_planar_plain(t, V, factors, precision))

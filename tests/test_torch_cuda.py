@@ -14,7 +14,10 @@ CheFSI SCF ("mixed" filter) on the GPU are held against the same SCFs on
 the CPU (1e-9 Ha).  The filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
 planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
-the margin rule above, the copy at 1e-6.
+the margin rule above, the copy at 1e-6.  The planar chain (`probe_planar`,
+f32 and bf16 operands) and the band-major fused chain (`micro_full`, one
+application) are held to the same bars, and `micro_swaponly` to exact
+equality, at small sizes and at the probes' plane sizes (m 32, n 64).
 """
 import numpy as np
 import pytest
@@ -215,3 +218,85 @@ def test_cuda_split_scf_matches_cpu(gpu_basis):
     assert abs(res_g["energies"]["total"] - res_c["energies"]["total"]) < 1e-9
     assert all(v > 0 for v in la.counts.launches.values())
     assert all(v == 0 for v in la.counts.plain.values())
+
+
+def _rel(a, b):
+    torch.cuda.synchronize()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("dims", [(8, 6, 4, 10, 8, 12), (4, 32, 32, 64, 64, 4)])
+def test_cuda_probe_planar_matches_plain(dims, precision):
+    """Small, unequal sizes (one strip), and the probe's plane sizes (two
+    strips of 32 columns)."""
+    from dftk_tpu_torch.kernels import filter_stages as fs
+    from dftk_tpu_torch.tools.probe_harness import make_planar_inputs
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, V, P = make_planar_inputs(12, *dims, "cuda")
+    fs.counts.reset()
+    out = fs.probe_planar(t, V, P, precision)
+    ref = fs.probe_planar_plain(t, V, P, precision)
+    torch.cuda.synchronize()
+    if precision == "highest":
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        assert fs.counts.launches["probe_planar"] == 1
+    else:
+        assert 10 * _rel(out, ref) <= _rel(ref, fs.probe_planar_plain(t, V, P))
+        assert fs.counts.launches["probe_planar[bf16]"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, NB, M, N", [(2, 3, 4, 8), (1, 5, 16, 16), (1, 6, 32, 64)])
+def test_cuda_micro_match_plain(K, NB, M, N):
+    """One application of micro_full within 1e-5 of max|out|, micro_swaponly
+    exactly; the last case at the probe's band sizes."""
+    from dftk_tpu_torch.kernels import fused_micro as fm
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(13)
+    conv = lambda s: torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device="cuda")
+    xr, xi, V = conv((K, NB, M, M, M)), conv((K, NB, M, M, M)), conv((K, N, N, N))
+    F, G = conv((2 * M, 2 * N)), conv((2 * N, 2 * M))
+    fm.counts.reset()
+    out, ref = torch.stack(fm.micro_full(xr, xi, V, F, G)), torch.stack(
+        fm.micro_full_plain(xr, xi, V, F, G))
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    out, ref = fm.micro_swaponly(xr, xi, N), fm.micro_swaponly_plain(xr, xi, N)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert fm.counts.launches == {"micro_full": 1, "micro_swaponly": 1}
+
+
+@pytest.mark.cuda
+def test_cuda_planar_and_micro_refuse_bad_inputs():
+    from dftk_tpu_torch.kernels import filter_stages as fs
+    from dftk_tpu_torch.kernels import fused_micro as fm
+    from dftk_tpu_torch.tools.probe_harness import make_planar_inputs
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, V, P = make_planar_inputs(1, 4, 4, 4, 8, 8, 8, "cuda")
+    strided = torch.zeros(t.shape[:-1] + (2 * t.shape[-1],), device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.probe_planar(strided, V, P)
+    with pytest.raises(TypeError):
+        fs.probe_planar(t.double(), V.double(), tuple(f.double() for f in P))
+    with pytest.raises(ValueError, match="all tensors"):
+        fs.probe_planar(t, V.cpu(), P)
+    x = torch.zeros((1, 2, 4, 4, 4), device="cuda")
+    V, F, G = (torch.zeros(s, device="cuda") for s in ((1, 8, 8, 8), (8, 16), (16, 8)))
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.micro_full(x.transpose(-1, -2), x, V, F, G)
+    with pytest.raises(TypeError):
+        fm.micro_swaponly(x.double(), x.double(), 8)
+    with pytest.raises(ValueError, match="all tensors"):
+        fm.micro_full(x, x.cpu(), V, F, G)
+    x3 = torch.zeros((1, 2, 3, 3, 3), device="cuda")
+    with pytest.raises(ValueError, match="divide 128"):
+        fm.micro_full(x3, x3, torch.zeros((1, 8, 8, 8), device="cuda"),
+                      torch.zeros((6, 16), device="cuda"), torch.zeros((16, 6), device="cuda"))
+    with pytest.raises(ValueError, match="below M"):
+        fm.micro_swaponly(x, x, 2)

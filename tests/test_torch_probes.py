@@ -48,9 +48,10 @@ class _Stop(Exception):
     pass
 
 
-def _capture(name, stop_after_first=False, loop1_run=False):
-    """Run tools/<name>.py's main() at the SMALL shapes with every Pallas
-    call recorded in interpret mode; returns (module, records, printed)."""
+def _capture(name, stop_after_first=False, loop1_run=False, small=SMALL):
+    """Run tools/<name>.py's main() at the `small` shape globals with every
+    Pallas call recorded in interpret mode; returns (module, records,
+    printed).  stop_after_first: each call raises _Stop once recorded."""
     records = []
     real = pl.pallas_call
 
@@ -63,8 +64,8 @@ def _capture(name, stop_after_first=False, loop1_run=False):
             records.append(rec)
             out = f(*args)
             rec["out"] = np.asarray(out)
-            if stop_after_first:
-                raise _Stop
+            if stop_after_first:        # a message: the tools print its first line
+                raise _Stop("stopped after the first recorded call")
             return out
         return call
 
@@ -75,7 +76,7 @@ def _capture(name, stop_after_first=False, loop1_run=False):
         spec = importlib.util.spec_from_file_location(f"_jax_{name}", TOOLS / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        for k, v in SMALL.items():
+        for k, v in small.items():
             setattr(mod, k, v)
         if hasattr(mod, "LOOP"):
             mod.LOOP = 1
