@@ -58,8 +58,21 @@ Phases (any failure raises and exits non-zero):
      the counts set to 0, the two tools' main() (the path:
      dftk_tpu_torch.tools.{probe_kernel_planar,bench_fused_micro}), every
      instantiation launched; kernel, plain, library and bound times
-  5. print the kernels' JSON line (launches from phases c, e and f, times
-     from phases 3, a, e and f, bounds from the shapes), then the result line.
+  g. the fused-local-apply op probes (csrc/op_probes.cu) at the JAX tools'
+     shapes: the transposes t2d [32, 8192], swap [2048, 64, 2], k_a [2, 32,
+     32, 64] and k_b [2, 32, 64, 64] exactly, gemm [4096, 64] @ [64, 128],
+     k_c (ar, ai [2, 32, 32, 32], F 64 x 128) and the fused axis chain (xb
+     [8, 32, 8192], F 64 x 64, V [4096, 1, 32]) within 1e-5 of max|out|,
+     against their plain versions and their one-call library versions (the
+     .contiguous() copy of the transposed view, torch.matmul, one
+     torch.einsum); then, with the counts set to 0, the two tools' main()
+     (the path: dftk_tpu_torch.tools.{probe_pallas_fused,
+     probe_pallas_fused2}), every instantiation launched; kernel, plain,
+     library and bound times, ms per launch in runs of 100 launches, and
+     device time per call from torch.profiler
+  5. print the kernels' JSON line (launches from phases c, e, f and g, times
+     from phases 3, a, e, f and g, bounds from the shapes), then the result
+     line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -112,6 +125,18 @@ FUSED_SOURCES = {
     "probe_planar[bf16]": (PROBE_SOURCE, "tools/probe_kernel_planar.py:88"),
     "micro_full": ("dftk_tpu_torch/csrc/fused_micro.cu", "tools/bench_fused_micro.py:50"),
     "micro_swaponly": ("dftk_tpu_torch/csrc/fused_micro.cu", "tools/bench_fused_micro.py:71"),
+}
+
+# phase g: the JAX probe body of each op-probe instantiation
+OP_SOURCE = "dftk_tpu_torch/csrc/op_probes.cu"
+OP_REPLACES = {
+    "op_transpose[t2d]": "tools/probe_pallas_fused.py:41",
+    "op_transpose[swap]": "tools/probe_pallas_fused.py:61",
+    "op_gemm[gemm]": "tools/probe_pallas_fused.py:83",
+    "op_fused_axis[fused]": "tools/probe_pallas_fused.py:110",
+    "op_transpose[k_a]": "tools/probe_pallas_fused2.py:42",
+    "op_transpose[k_b]": "tools/probe_pallas_fused2.py:57",
+    "op_gemm[k_c]": "tools/probe_pallas_fused2.py:76",
 }
 
 
@@ -690,6 +715,156 @@ def fused_probe_phase(device):
     return results, launches
 
 
+def k_c_library(ar, ai, F):
+    """k_c as one torch.einsum over (re, im) stacked outside the call and
+    F viewed as [2, m, 2n]: (closure, conversion of its [..., 2n] result to
+    (re, im) stacked, as the plain version's)."""
+    import torch
+    m, n = ar.shape[-1], F.shape[1] // 2
+    x2, f3 = torch.stack((ar, ai)), F.view(2, m, 2 * n)
+    return (lambda: torch.einsum("e...k,ekN->...N", x2, f3),
+            lambda y: torch.stack((y[..., :n], y[..., n:])))
+
+
+def fused_library(xb, F, V):
+    """f_kernel as one torch.einsum over xb viewed as [nb, m1, R/2, 2], F as
+    [2, m1, 2, m1] (once as F, once as F^T) and V as [R/2, m1]:
+    (closure, conversion of its [nb, m1, R/2, 2] result to [nb, m1, R]).
+    opt_einsum is off so that it contracts left to right, in the chain's own
+    order (as in micro_full_library: opt_einsum's path sums a chain einsum
+    in another order, which can miss the 1e-5 bar)."""
+    import torch
+    nb, m1, R = xb.shape
+    x4, f4, v2 = xb.view(nb, m1, R // 2, 2), F.view(2, m1, 2, m1), V.view(R // 2, m1)
+
+    def call():
+        with torch.backends.opt_einsum.flags(enabled=False):
+            return torch.einsum("bmpc,cmek,pk,dnek->bnpd", x4, f4, v2, f4)
+    return call, lambda y: y.reshape(nb, m1, R)
+
+
+def per_launch_ms(fn, n=100):
+    """Milliseconds per call of n back-to-back calls of fn() between two
+    CUDA events, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n=20):
+    """Device time per call of fn() (every kernel it launches, summed), from
+    torch.profiler over n calls; None where the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / n if us > 0 else None
+
+
+def op_probe_phase(device):
+    """Phase g: the fused-local-apply op probes at the JAX tools' shapes."""
+    import torch
+    from dftk_tpu_torch.kernels import op_probes as op
+    from dftk_tpu_torch.tools import probe_pallas_fused, probe_pallas_fused2
+    t_phase = time.time()
+    check(not torch.backends.cuda.matmul.allow_tf32, "plain f32 matmuls without TF32")
+    d1, d2 = probe_pallas_fused.make_inputs(device), probe_pallas_fused2.make_inputs(device)
+    x, y, A, B, xb, F, V = (d1[k] for k in ("x", "y", "A", "B", "xb", "F", "V"))
+    x4, xv, ar, ai, Fc = (d2[k] for k in ("x4", "xb", "ar", "ai", "F"))
+    for tool, d in (("probe_pallas_fused", d1), ("probe_pallas_fused2", d2)):
+        print(f"[g] {tool}: " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in d.items())
+              + " f32", flush=True)
+    TB, m, n1, n2 = xv.shape
+    ident = lambda a: a
+    nb, m1, R = xb.shape
+    # name: (kernel, plain, library closure, its conversion, inputs, outputs as
+    # one tensor, flops)
+    kc_lib, kc_conv = k_c_library(ar, ai, Fc)
+    fu_lib, fu_conv = fused_library(xb, F, V)
+    cases = {
+        "op_transpose[t2d]": (lambda: op.t2d(x), lambda: op.t2d_plain(x),
+                              lambda: x.T.contiguous(), ident, (x,), 0),
+        "op_transpose[swap]": (lambda: op.swap(y), lambda: op.swap_plain(y),
+                               lambda: y.transpose(1, 2).contiguous(), ident, (y,), 0),
+        "op_gemm[gemm]": (lambda: op.gemm(A, B), lambda: op.gemm_plain(A, B),
+                          lambda: torch.matmul(A, B), ident, (A, B),
+                          2 * A.shape[0] * A.shape[1] * B.shape[1]),
+        "op_fused_axis[fused]": (lambda: op.fused(xb, F, V), lambda: op.fused_plain(xb, F, V),
+                                 fu_lib, fu_conv, (xb, F, V),
+                                 nb * (R // 2) * (2 * 2 * (2 * m1) ** 2 + 2 * m1)),
+        "op_transpose[k_a]": (lambda: op.k_a(x4), lambda: op.k_a_plain(x4),
+                              lambda: x4.transpose(2, 3).contiguous(), ident, (x4,), 0),
+        "op_transpose[k_b]": (lambda: op.k_b(xv), lambda: op.k_b_plain(xv),
+                              lambda: xv.view(TB, m, n1 * n2).transpose(1, 2).contiguous(),
+                              lambda a: a.view(TB, n1, n2, m), (xv,), 0),
+        "op_gemm[k_c]": (lambda: op.k_c(ar, ai, Fc), lambda: op.k_c_plain(ar, ai, Fc),
+                         kc_lib, kc_conv, (ar, ai, Fc),
+                         2 * (ar.numel() // ar.shape[-1]) * Fc.shape[0] * Fc.shape[1]),
+    }
+    one = lambda r: torch.stack(r) if isinstance(r, tuple) else r
+    results = {}
+    for name, (kern, plain, lib, conv, _, flops) in cases.items():
+        out, ref = one(kern()), one(plain())
+        torch.cuda.synchronize()
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        bar = 0.0 if name.startswith("op_transpose") else 1e-5
+        print(f"[g] {name}: {tuple(out.shape)} kernel vs plain max_abs_err={err:.3e} "
+              f"max|out|={scale:.3e} rel={err / scale:.3e} bar={bar:g}", flush=True)
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all())
+              and err <= bar * scale, f"{name} within {bar:g} of max|out|")
+        lib_out = conv(lib())
+        lib_err = float((lib_out - ref).abs().max())
+        print(f"[g] {name}: one-call library vs plain max_abs_err={lib_err:.3e} "
+              f"bar={bar:g}", flush=True)
+        check(lib_out.shape == ref.shape and lib_err <= bar * scale,
+              f"{name}: library call within {bar:g}")
+        results[name] = dict(max_abs_err=err, out_bytes=out.numel() * out.element_size())
+        del out, ref, lib_out
+
+    # the path: the two tools, counts from 0
+    op.counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    probe_pallas_fused.main(device)
+    probe_pallas_fused2.main(device)
+    torch.cuda.synchronize()
+    launches = dict(op.counts.launches)
+    print(f"[g] the two tools ran in {time.time() - t0:.1f} s, launches={launches}",
+          flush=True)
+    check(all(launches[n] > 0 for n in OP_REPLACES), "every phase-g kernel launched by the tools")
+
+    for name, (kern, plain, lib, _, inputs, flops) in cases.items():
+        r = results[name]
+        in_bytes = sum(a.numel() * a.element_size() for a in inputs)
+        r["ms"], r["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
+        r["bound_ms"], r["bound_by"] = bound((in_bytes + r.pop("out_bytes"), flops), "float32")
+        r["library_ms"] = cuda_ms(lib)
+        r["per_launch_ms"] = per_launch_ms(kern)
+        r["plain_per_launch_ms"] = per_launch_ms(plain)
+        for key, fn in (("device_ms", kern), ("plain_device_ms", plain),
+                        ("library_device_ms", lib)):
+            r[key] = device_ms(fn)
+        print(f"[g] time {name}: " + ", ".join(
+            f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items() if k != "max_abs_err"), flush=True)
+    print(f"[g] phase g took {time.time() - t_phase:.1f} s", flush=True)
+    return results, launches
+
+
 def probe_phase(device):
     """Phase e: the filter-stage probe kernels at the JAX probes' shapes."""
     import torch
@@ -860,6 +1035,9 @@ def main():
     # ---- f. the planar chain and the band-major fused chain ------------------
     fused_timings, fused_launches = fused_probe_phase(device)
 
+    # ---- g. the fused-local-apply op probes -------------------------------------
+    op_timings, op_launches = op_probe_phase(device)
+
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
     work = {"pruned_axis_dft": (axis_dft_work(x_shape, m[2], n[2], 16), "complex128"),
@@ -887,6 +1065,13 @@ def main():
                             launches=fused_launches[name], max_abs_err=r["max_abs_err"],
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    for name, rep in OP_REPLACES.items():
+        r = op_timings[name]
+        kernels.append(dict(name=name, route="cuda", source=OP_SOURCE, replaces=rep,
+                            launches=op_launches[name], max_abs_err=r["max_abs_err"],
+                            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"], library_ms=r["library_ms"],
+                            per_launch_ms=r["per_launch_ms"], device_ms=r["device_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

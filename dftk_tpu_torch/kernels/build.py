@@ -33,6 +33,9 @@ _SIGNATURES = {
     "dftk_probe_planar": [_P] * 11 + [_I] * 8 + [_P],
     "dftk_micro_full": [_P] * 8 + [_I] * 5 + [_P],
     "dftk_micro_swaponly": [_P] * 5 + [_I] * 4 + [_P],
+    "dftk_op_transpose": [_P] * 2 + [_I] * 6 + [_P],
+    "dftk_op_gemm": [_P] * 5 + [_I] * 12 + [_P],
+    "dftk_op_fused_axis": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

@@ -101,6 +101,20 @@ def vs_plain(out, ref):
     return err, err / max(float(ref.abs().max()), 1e-300)
 
 
+def op_line(results, name, label, kernel, plain, device, iters):
+    """Print one op probe's line: mean ms of `iters` back-to-back calls of
+    kernel() and the kernel-vs-plain error (a tuple result compared
+    stacked); results[name] = ms."""
+    ms = mean_ms(kernel, device, iters)
+    out, ref = kernel(), plain()
+    if isinstance(out, tuple):
+        out, ref = torch.stack(out), torch.stack(ref)
+    err, rel = vs_plain(out, ref)
+    results[name] = ms
+    print(f"[ok]   {label}: {tuple(out.shape)} {ms:8.4f} ms  vs plain max_abs_err "
+          f"{err:.2e} rel {rel:.2e}", flush=True)
+
+
 def run_line(results, name, fn, x, loop, kernel_once, plain_once, note=""):
     """Time a chain of `loop` calls of fn from x and print the probe's line:
     ms per call and the kernel-vs-plain error of one application."""

@@ -17,7 +17,11 @@ planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
 the margin rule above, the copy at 1e-6.  The planar chain (`probe_planar`,
 f32 and bf16 operands) and the band-major fused chain (`micro_full`, one
 application) are held to the same bars, and `micro_swaponly` to exact
-equality, at small sizes and at the probes' plane sizes (m 32, n 64).
+equality, at small sizes and at the probes' plane sizes (m 32, n 64).  The
+op probes (`kernels/op_probes.py`) are held against their plain versions
+at the JAX tools' shapes and at ragged ones that divide no tile: the
+transposes exactly, `gemm` (also batched), `k_c` and `fused` at 1e-5 of
+max|out|.
 """
 import numpy as np
 import pytest
@@ -300,3 +304,88 @@ def test_cuda_planar_and_micro_refuse_bad_inputs():
                       torch.zeros((6, 16), device="cuda"), torch.zeros((16, 6), device="cuda"))
     with pytest.raises(ValueError, match="below M"):
         fm.micro_swaponly(x, x, 2)
+
+
+def _op_tensors(seed, *shapes):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=s), dtype=torch.float32, device="cuda")
+            for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body, shape", [
+    ("t2d", (32, 8192)), ("swap", (2048, 64, 2)), ("k_a", (2, 32, 32, 64)),
+    ("k_b", (2, 32, 64, 64)),                        # the probes' shapes
+    ("swap", (3, 37, 5)), ("swap", (5, 2, 67)), ("t2d", (1, 1000)), ("swap", (4, 100, 1)),
+    ("k_a", (2, 3, 33, 65)), ("k_b", (3, 5, 7, 9))])   # ragged: no tile divides them
+def test_cuda_op_transpose_equals_plain(body, shape):
+    from dftk_tpu_torch.kernels import op_probes as op
+    x, = _op_tensors(17, shape)
+    op.counts.reset()
+    out, ref = getattr(op, body)(x), getattr(op, f"{body}_plain")(x)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    assert op.counts.launches[f"op_transpose[{body}]"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_shape, b_shape", [
+    ((4096, 64), (64, 128)),                         # the probe's shapes
+    ((100, 14), (14, 22)), ((37, 5), (5, 3)),        # ragged tiles
+    ((3, 70, 20), (3, 20, 65)), ((3, 70, 20), (20, 65))])    # batched
+def test_cuda_op_gemm_matches_plain(a_shape, b_shape):
+    from dftk_tpu_torch.kernels import op_probes as op
+    a, b = _op_tensors(18, a_shape, b_shape)
+    op.counts.reset()
+    out, ref = op.gemm(a, b), op.gemm_plain(a, b)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert op.counts.launches["op_gemm[gemm]"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, n", [((2, 32, 32, 32), 64),    # the probe's shapes
+                                      ((100, 7), 11), ((2, 5, 10, 3), 4)])
+def test_cuda_op_k_c_matches_plain(shape, n):
+    """P = Q = 2: the two halves of A and of C through their own pointers."""
+    from dftk_tpu_torch.kernels import op_probes as op
+    ar, ai, F = _op_tensors(19, shape, shape, (2 * shape[-1], 2 * n))
+    op.counts.reset()
+    out, ref = torch.stack(op.k_c(ar, ai, F)), torch.stack(op.k_c_plain(ar, ai, F))
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (2,) + shape[:-1] + (n,)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert op.counts.launches["op_gemm[k_c]"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb, m1, R", [(8, 32, 8192), (3, 5, 74), (2, 32, 140), (1, 1, 2)])
+def test_cuda_op_fused_axis_matches_plain(nb, m1, R):
+    """The probe's shapes, a small m1 and R, and a last tile of 6 of 64 pairs."""
+    from dftk_tpu_torch.kernels import op_probes as op
+    xb, F, V = _op_tensors(20, (nb, m1, R), (2 * m1, 2 * m1), (R // 2, 1, m1))
+    op.counts.reset()
+    out, ref = op.fused(xb, F / m1, V), op.fused_plain(xb, F / m1, V)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert op.counts.launches["op_fused_axis[fused]"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_op_probes_refuse_bad_inputs():
+    from dftk_tpu_torch.kernels import op_probes as op
+    x, F, V = _op_tensors(21, (2, 40, 8), (80, 80), (4, 1, 40))
+    with pytest.raises(ValueError, match="contiguous"):
+        op.swap(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        op.k_a(x[None].transpose(2, 3))
+    with pytest.raises(ValueError, match="float32"):
+        op.gemm(x[0].double(), F[:8].double())
+    with pytest.raises(ValueError, match="all tensors"):
+        op.gemm(x[0], F[:8].cpu())
+    with pytest.raises(ValueError, match="above 32"):
+        op.fused(x, F, V)
