@@ -70,9 +70,29 @@ Phases (any failure raises and exits non-zero):
      probe_pallas_fused2}), every instantiation launched; kernel, plain,
      library and bound times, ms per launch in runs of 100 launches, and
      device time per call from torch.profiler
-  5. print the kernels' JSON line (launches from phases c, e, f and g, times
-     from phases 3, a, e, f and g, bounds from the shapes), then the result
-     line.
+  h. the Mosaic op probes at the JAX tools' shapes: the eight bodies of
+     tools/probe_mosaic_ops.py (three reshape copies and a permute on the
+     extended op_transpose, f32, 'default' and bf16-operand dots on op_gemm;
+     csrc/op_probes.cu) on the tool's inputs of ones (all exactly) and on
+     seeded normal inputs (copies and permute exactly, f32 and bf16-operand
+     dots within 1e-5 of max|out|, 'default' by the margin rule of phase a),
+     and the eleven R-step bodies of tools/probe_mosaic_speed.py
+     (csrc/op_speed.cu: six rep_dots and kern_d1 on op_rep_gemm, kern_tp,
+     kern_tp2, kern_tp3 on op_rep_swap, kern_vm on op_rep_vmul) at R = 1, 3
+     and 100 (swaps and kern_vm exactly; the dots by the margin rule, the
+     'highest' ones against the plain 'default' as the 'default' ones are
+     against the plain 'highest'), each against its plain version, and
+     their one-call
+     library versions where one exists (a copy, torch.matmul, torch.mm with
+     f32 output; per step torch.addmm, torch.baddbmm or torch.mul) at the
+     same bars (the R-step ones at R = 3, 1e-5); then, with the counts set
+     to 0, the two tools' main() (the path:
+     dftk_tpu_torch.tools.probe_mosaic_{ops,speed}), every instantiation
+     launched; kernel, plain, library and bound times as in phase g, and
+     the swaps' shared-memory traffic
+  5. print the kernels' JSON line (launches from phases c, e, f, g and h,
+     times from phases 3, a, e, f, g and h, bounds from the shapes), then
+     the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -138,6 +158,15 @@ OP_REPLACES = {
     "op_transpose[k_b]": "tools/probe_pallas_fused2.py:57",
     "op_gemm[k_c]": "tools/probe_pallas_fused2.py:76",
 }
+
+
+# phase h: the Mosaic op probes; each instantiation's JAX body (row 5: the
+# try_kernel call of the body, whose pallas_call is at probe_mosaic_ops.py:18;
+# row 6: the kernel body run by run(), pallas_call at probe_mosaic_speed.py:27)
+SPEED_SOURCE = "dftk_tpu_torch/csrc/op_speed.cu"
+MOSAIC_OPS_LINES = (38, 45, 53, 63, 72, 80, 89, 97)
+MOSAIC_SPEED_LINES = (48,) * 6 + (76, 89, 96, 104, 114)
+MOSAIC_R = (1, 3, 100)          # the R-step kernels are checked at each
 
 
 def check(ok, what):
@@ -842,7 +871,7 @@ def op_probe_phase(device):
     probe_pallas_fused.main(device)
     probe_pallas_fused2.main(device)
     torch.cuda.synchronize()
-    launches = dict(op.counts.launches)
+    launches = {n: op.counts.launches[n] for n in OP_REPLACES}
     print(f"[g] the two tools ran in {time.time() - t0:.1f} s, launches={launches}",
           flush=True)
     check(all(launches[n] > 0 for n in OP_REPLACES), "every phase-g kernel launched by the tools")
@@ -862,6 +891,269 @@ def op_probe_phase(device):
             f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in r.items() if k != "max_abs_err"), flush=True)
     print(f"[g] phase g took {time.time() - t_phase:.1f} s", flush=True)
+    return results, launches
+
+
+def dot_highest(a, b):
+    """a against b as `op_probes.mosaic_dot` contracts them, in f32 with
+    unrounded operands: the 'highest' reference of a 'default' dot."""
+    a, b = a.float(), b.float()
+    if a.dim() == 3:
+        return a @ b
+    return (a @ b.reshape(b.shape[0], -1)).reshape((a.shape[0],) + tuple(b.shape[1:]))
+
+
+def bf16_mm_library(a, b):
+    """torch.mm of bf16 operands with f32 output (out_dtype), a closure, or
+    None where this torch has no such call for the tensors' device."""
+    import torch
+    try:
+        torch.mm(a[:1], b[:, :1], out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return None
+    return lambda: torch.mm(a, b, out_dtype=torch.float32)
+
+
+def mosaic_ops_library(d):
+    """One PyTorch call per probe_mosaic_ops body on the inputs d of
+    `probe_mosaic_ops.make_inputs`, by count name; None where no call
+    computes the body's function (the 'default' dots: no call rounds f32
+    operands to bf16 inside a product with f32 output)."""
+    import torch
+    return {"op_transpose[view1]": lambda: d["a"].reshape(64, 4096).clone(),
+            "op_transpose[perm2]": lambda: d["b"].permute(2, 1, 0, 3).contiguous(),
+            "op_gemm[dot3]": lambda: torch.matmul(d["F"], d["d"]),
+            "op_gemm[dot4][default]": None,
+            "op_transpose[view5]": lambda: d["e"].reshape(80, 32, 64).clone(),
+            "op_gemm[dot6][default]": None,
+            "op_transpose[view7]": lambda: d["g"].reshape(128, 32, 128).clone(),
+            "op_gemm[dot8][bf16]": bf16_mm_library(d["Fb"], d["db"])}
+
+
+def rep_gemm_library(acc, F, R):
+    """R steps of one torch.addmm (acc [K, N]) or torch.baddbmm (acc [Z, K,
+    N], F expanded over Z outside the call): 0.5 acc + 1e-3 (F @ acc)."""
+    import torch
+    Fz = F.expand(acc.shape[0], *F.shape) if acc.dim() == 3 else None
+
+    def call():
+        a = acc
+        for _ in range(R):
+            a = torch.addmm(a, F, a, beta=0.5, alpha=1e-3) if Fz is None else \
+                torch.baddbmm(a, Fz, a, beta=0.5, alpha=1e-3)
+        return a
+    return call
+
+
+def rep_swap_library(x, perm, R, s):
+    """R steps of one torch.mul of the permuted view into a contiguous
+    buffer, two buffers in turn (without out=, torch keeps the permuted
+    strides and moves nothing)."""
+    import torch
+    bufs = [torch.empty_like(x) for _ in range(2)]
+
+    def call():
+        a = x
+        for k in range(R):
+            a = torch.mul(a.permute(perm), s, out=bufs[k % 2])
+        return a
+    return call
+
+
+def rep_vmul_library(x, V, R, s):
+    """R steps of one torch.mul by V s broadcast (V s made outside the call,
+    so each step rounds x (V s), not (x V) s)."""
+    import torch
+    Vs = (V * s)[:, None, :, None]
+
+    def call():
+        a = x
+        for _ in range(R):
+            a = torch.mul(a, Vs)
+        return a
+    return call
+
+
+def mosaic_time(r, kern, plain, lib, n_launch, n_profile):
+    """Kernel, plain and library times into r: single launches (medians),
+    per launch in a run of n_launch, device time per call (torch.profiler
+    over 20 kernel calls and n_profile plain and library calls)."""
+    r["ms"], r["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
+    r["library_ms"] = None if lib is None else cuda_ms(lib)
+    r["per_launch_ms"] = per_launch_ms(kern, n_launch)
+    r["plain_per_launch_ms"] = per_launch_ms(plain, n_launch)
+    for key, fn, n in (("device_ms", kern, 20), ("plain_device_ms", plain, n_profile),
+                       ("library_device_ms", lib, n_profile)):
+        r[key] = None if fn is None else device_ms(fn, n)
+
+
+def mosaic_phase(device):
+    """Phase h: the Mosaic op probes (rows 5-6) at the JAX tools' shapes."""
+    import torch
+    from dftk_tpu_torch.kernels import op_probes as op
+    from dftk_tpu_torch.kernels import op_speed as osp
+    from dftk_tpu_torch.tools import probe_mosaic_ops as pmo
+    from dftk_tpu_torch.tools import probe_mosaic_speed as pms
+    t_phase = time.time()
+    check(not torch.backends.cuda.matmul.allow_tf32, "plain f32 matmuls without TF32")
+    results = {}
+
+    def hold(name, out, ref, other, bar, what):
+        """Check one kernel result: exact (bar 0), within bar of max|out|,
+        or (other given: the plain version at the other precision) by the
+        margin rule, kernel vs plain at least BF16_MARGIN times below plain
+        vs other; record the worst max_abs_err."""
+        torch.cuda.synchronize()
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        line = (f"[h] {name} {what}: {tuple(out.shape)} kernel vs plain max_abs_err={err:.3e} "
+                f"max|out|={scale:.3e}")
+        ok = out.shape == ref.shape and out.dtype == ref.dtype \
+            and bool(torch.isfinite(out).all())
+        if other is not None:   # in f64: at R = 100 the rep_dots are ~1e-32, their squares 0
+            out64, ref64 = out.double(), ref.double()
+            rel, rounding = rel_frobenius(out64, ref64), rel_frobenius(ref64, other.double())
+            print(f"{line}; rel Frobenius {rel:.3e} against plain default vs highest "
+                  f"{rounding:.3e}", flush=True)
+            ok = ok and rel * BF16_MARGIN <= rounding
+        else:
+            print(f"{line} bar={bar:g}", flush=True)
+            ok = ok and err <= bar * scale
+        check(ok, f"{name} {what}")
+        r = results.setdefault(name, dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    # row 5: each body on the tool's inputs of ones (every output 1.0 or
+    # 64.0: all exact) and on normal inputs of the same shapes (copies and
+    # permute exact, f32 and bf16-operand dots 1e-5, 'default' by the margin)
+    ones, normal = pmo.make_inputs(device), pmo.make_inputs(device, ones=False, seed=7)
+    print("[h] probe_mosaic_ops: " + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}"
+                                                for k, v in ones.items()), flush=True)
+    for (_, name, kern, plain), (_, _, kern_n, plain_n), keys in zip(
+            pmo.bodies(ones), pmo.bodies(normal), pmo.ARGS):
+        hold(name, kern(), plain(), None, 0.0, "ones")
+        ref = plain_n()
+        if "[default]" in name:
+            hold(name, kern_n(), ref, dot_highest(*(normal[k] for k in keys)), None, "normal")
+        else:
+            hold(name, kern_n(), ref, None, 1e-5 if "gemm" in name else 0.0, "normal")
+    lib5 = mosaic_ops_library(normal)
+    for (_, name, _, plain) in pmo.bodies(normal):
+        if lib5[name] is None:
+            print(f"[h] {name}: no one-call library version", flush=True)
+            continue
+        ref = plain()
+        out = lib5[name]()
+        err, bar = float((out - ref).abs().max()), 1e-5 if "gemm" in name else 0.0
+        print(f"[h] {name}: one-call library vs plain max_abs_err={err:.3e} bar={bar:g}",
+              flush=True)
+        check(out.shape == ref.shape and err <= bar * float(ref.abs().max()),
+              f"{name}: library call within {bar:g}")
+
+    # row 6: each body at R = 1, 3 and 100 against its plain version (the
+    # swaps and kern_vm exactly; the dots by the margin rule both ways: a
+    # 'default' one 10x closer to its plain version than that is to the
+    # plain 'highest', and a 'highest' one 10x closer to its plain version
+    # than that is to the plain 'default', which 1e-5 of max|out| cannot
+    # tell, the product being ~1e-4 of acc); kern_vm is all zeros from
+    # step 31 on, so R = 1, 3 carry it
+    inputs = pms.make_inputs(device)
+    print("[h] probe_mosaic_speed: " + "; ".join(
+        ", ".join(str(tuple(t.shape)) for t in body) for body in inputs) + " f32", flush=True)
+    gemm_args = dict(zip(osp.NAMES, inputs))
+    perms = {"op_rep_swap[tp]": (2, 1, 0, 3), "op_rep_swap[tp2]": (1, 0, 2),
+             "op_rep_swap[tp3]": (0, 2, 1)}
+    for R in MOSAIC_R:
+        for _, name, kern, plain, _ in pms.bodies(inputs, R):
+            other = None
+            if name.startswith("op_rep_gemm"):
+                F, acc = gemm_args[name]
+                other = osp.rep_gemm_steps(acc, F, R, "highest" if name.endswith("[default]")
+                                           else "default")
+            hold(name, kern(), plain(), other, 0.0, f"R={R}")
+
+    def library6(name, R):
+        if name in perms:
+            return rep_swap_library(gemm_args[name][0], perms[name], R, osp.SCALE_SWAP)
+        if name == "op_rep_vmul[vm]":
+            return rep_vmul_library(*gemm_args[name], R, osp.SCALE_VMUL)
+        if name.endswith("[default]"):
+            return None         # no call rounds the operands to bf16 with f32 sums
+        F, acc = gemm_args[name]
+        return rep_gemm_library(acc, F, R)
+    for _, name, _, plain, _ in pms.bodies(inputs, 3):
+        lib = library6(name, 3)
+        if lib is None:
+            print(f"[h] {name}: no one-call library version", flush=True)
+            continue
+        out, ref = lib(), plain()
+        err = float((out - ref).abs().max())
+        print(f"[h] {name}: one-call library vs plain at R=3 max_abs_err={err:.3e} "
+              f"bar=1e-05", flush=True)
+        check(out.shape == ref.shape and err <= 1e-5 * float(ref.abs().max()),
+              f"{name}: library call within 1e-5 at R=3")
+
+    t_checks = time.time() - t_phase
+
+    # the path: the two tools, counts from 0
+    op.counts.reset()
+    osp.counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pmo.main(device)
+    pms.main(device)
+    torch.cuda.synchronize()
+    launches = {n: op.counts.launches[n] for n in op.MOSAIC_NAMES}
+    launches.update(osp.counts.launches)
+    print(f"[h] the two tools ran in {time.time() - t0:.1f} s, launches={launches}",
+          flush=True)
+    check(all(v > 0 for v in launches.values()), "every phase-h kernel launched by the tools")
+
+    # times and bounds: row 5 per body; row 6 at R = 100, as the tool runs them
+    for (_, name, kern, plain), args in zip(pmo.bodies(normal), pmo.ARGS):
+        r = results[name]
+        ts = [normal[k] for k in args]
+        out = kern()
+        nbytes = sum(t.numel() * t.element_size() for t in ts) + out.numel() * 4
+        flops = 0
+        if "gemm" in name:      # a [M, K] with b [K, N...], or a [Z, M, K] @ b [Z, K, N]
+            a, b = ts
+            flops = 2 * a.numel() * (b.numel() // (a.shape[-1] * (a.shape[0] if a.dim() == 3
+                                                                    else 1)))
+        kind = "bf16" if name.endswith(("[default]", "[bf16]")) else "float32"
+        r["bound_ms"], r["bound_by"] = bound((nbytes, flops), kind)
+        mosaic_time(r, kern, plain, lib5[name], 100, 20)
+    for _, name, kern, plain, flops in pms.bodies(inputs, pms.R):
+        r = results[name]
+        ts = gemm_args[name]
+        n = ts[-1].numel() if name.startswith("op_rep_gemm") else ts[0].numel()
+        nbytes = (sum(t.numel() for t in ts) + n) * 4
+        if name.startswith("op_rep_gemm"):
+            K = ts[0].shape[0]
+            work = pms.R * (n // K * (2 * K * K) + 3 * n)
+        else:
+            work = pms.R * n * (2 if name == "op_rep_vmul[vm]" else 1)
+        kind = "bf16" if name.endswith("[default]") else "float32"
+        r["bound_ms"], r["bound_by"] = bound((nbytes, work), kind)
+        mosaic_time(r, kern, plain, library6(name, pms.R), 10, 3)   # 100-400 kernels a call
+        # rates from the event time per launch in a run: device-bound at R = 100
+        if flops:
+            r["tflops"] = flops * pms.R / r["per_launch_ms"] / 1e9
+        if name.startswith("op_rep_gemm"):
+            r["smem_bytes_per_block"] = osp.gemm_smem(ts[0].shape[0])
+        if name in perms:       # each step reads and writes each value in shared memory
+            _, P, _, _, L = op.swap_dims(ts[0].shape, perms[name])
+            r["smem_bytes_per_block"] = osp.swap_smem(P, L)
+            r["smem_bytes_per_step"] = 8 * n
+            r["smem_TBps"] = 8 * n * pms.R / r["per_launch_ms"] / 1e9
+    for name, r in results.items():
+        print(f"[h] time {name}: " + ", ".join(
+            f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items() if k != "max_abs_err"), flush=True)
+    print("[h] tflops and smem_TBps (the swaps' shared-memory traffic, 8 bytes per value "
+          "per step) are over per_launch_ms; smem_TBps is not a bound from the data sheet",
+          flush=True)
+    print(f"[h] phase h took {time.time() - t_phase:.1f} s (checks {t_checks:.1f} s)",
+          flush=True)
     return results, launches
 
 
@@ -1038,6 +1330,9 @@ def main():
     # ---- g. the fused-local-apply op probes -------------------------------------
     op_timings, op_launches = op_probe_phase(device)
 
+    # ---- h. the Mosaic op probes ------------------------------------------------
+    mosaic_timings, mosaic_launches = mosaic_phase(device)
+
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
     work = {"pruned_axis_dft": (axis_dft_work(x_shape, m[2], n[2], 16), "complex128"),
@@ -1072,6 +1367,19 @@ def main():
                             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"], library_ms=r["library_ms"],
                             per_launch_ms=r["per_launch_ms"], device_ms=r["device_ms"]))
+    from dftk_tpu_torch.kernels import op_probes, op_speed
+    for names, src, tool, lines in (
+            (op_probes.MOSAIC_NAMES, OP_SOURCE, "probe_mosaic_ops", MOSAIC_OPS_LINES),
+            (op_speed.NAMES, SPEED_SOURCE, "probe_mosaic_speed", MOSAIC_SPEED_LINES)):
+        for name, line in zip(names, lines):
+            r = mosaic_timings[name]
+            kernels.append(dict(name=name, route="cuda", source=src,
+                                replaces=f"tools/{tool}.py:{line}",
+                                launches=mosaic_launches[name], max_abs_err=r["max_abs_err"],
+                                ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                                per_launch_ms=r["per_launch_ms"], device_ms=r["device_ms"]))
+    check(len(kernels) == 42, f"42 kernels entries, got {len(kernels)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

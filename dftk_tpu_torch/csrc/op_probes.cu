@@ -1,16 +1,23 @@
-// The fused-local-apply op probes: a batched transpose, a realified GEMM and
-// the fused transpose -> GEMM -> V -> GEMM -> transpose axis chain.
+// The op probes of the fused local apply and of Mosaic's op support: a
+// batched transpose (and row permute), a realified GEMM and the fused
+// transpose -> GEMM -> V -> GEMM -> transpose axis chain.
 //
-// Replaces the TPU probe kernels of tools/probe_pallas_fused.py and
-// tools/probe_pallas_fused2.py (each a Mosaic op probe of one body):
+// Replaces the TPU probe kernels of tools/probe_pallas_fused.py,
+// tools/probe_pallas_fused2.py and tools/probe_mosaic_ops.py (each a Mosaic
+// op probe of one body):
 //   t_kernel (:41), s_kernel (:61), k_a (:42), k_b (:57) -> op_transpose_kernel
+//   probe_mosaic_ops bodies (1), (2), (5), (7) (:37-76)  -> op_permute_rows_kernel
 //   g_kernel (:83), k_c (:76)                            -> op_gemm_kernel
+//   probe_mosaic_ops bodies (3), (4), (6), (8) (:45-103) -> op_gemm_kernel
 //   f_kernel (:110)                                      -> op_fused_axis_kernel
-// All f32, sums in f32 FMAs outside the tensor cores (the bodies' HIGHEST
+// f32 out, sums in f32 FMAs outside the tensor cores (the bodies' HIGHEST
 // precision is full f32: no TF32).
 //
-// op_transpose: out[b, c, r] = in[b, r, c] for in [B, R, C].  The four
-// transpose bodies are this once their views are taken (views of contiguous
+// op_transpose: in viewed as [B, P, M, Q, L] -> out [B, Q, M, P, L], rows of
+// L contiguous floats moving whole, in two entry points.
+// dftk_op_transpose is the batched transpose out[b, c, r] = in[b, r, c] of
+// in [B, R, C] (M = L = 1; op_transpose_kernel).  The four transpose bodies
+// of rows 3-4 are this once their views are taken (views of contiguous
 // tensors cost nothing, so k_b's merge-swap-split is one launch).  A block
 // moves G batch entries' [TR, TC] tiles through shared memory: loads run
 // along c, stores along r, both on consecutive addresses; the tile's row
@@ -18,8 +25,15 @@
 // R or C is below 32 the tile takes the whole short axis and G folds batch
 // entries into one block (the wrapper picks TR, TC, G), so s_kernel's C = 2
 // moves 8 whole [64, 2] entries per block, not 2 of 32 lanes.  Any R, C:
-// ragged tiles are masked.  Bound by bytes (each value read and written
-// once, no arithmetic).
+// ragged tiles are masked.  dftk_op_permute_rows (M or L above 1) has each
+// output row gather its input row (op_permute_rows_kernel): a grid-stride
+// loop over the output in float4 units where L is a multiple of 4 and both
+// pointers are 16-byte aligned, so loads run along rows of L and stores
+// along the whole output.  probe_mosaic_ops's permute (2,1,0,3) of
+// [64, 2, 32, 128] is [1, 64, 2, 32, 128] (rows of 128); its three reshapes
+// are copies with P = Q = 1 (a pallas_call writes a new buffer, so the
+// port's body does too).  Bound by bytes (each value read and written once,
+// no arithmetic).
 //
 // op_gemm: C = A @ W per batch entry.  A's K columns come from P equal
 // column parts with their own pointers and C's N columns go to Q equal
@@ -28,7 +42,13 @@
 // block, K in steps of 16 with the A tile (transposed, padded) and the W
 // tile in shared memory, a 4 x 4 register micro-tile per thread (8 shared
 // loads per 16 FMAs).  At the probes' K = 64 it is bound by operations on
-// the card's f32 FMA rate.
+// the card's f32 FMA rate.  Three operand modes: 'highest' (f32 operands),
+// 'default' (f32 operands rounded to bf16, round to nearest even, as they
+// are staged into shared memory: the TPU's one-pass bf16 product of
+// Precision.DEFAULT, bodies (4) and (6)) and bf16 operands in device memory
+// widened as staged (body (8)); products and sums in f32 in all three.
+// Body (4), a dot_general over dim 0 of a 3-D rhs, is F @ d3 viewed
+// [64, 4096]; body (6) is batched, W strided per batch entry.
 //
 // op_fused_axis: the whole f_kernel in one launch, no intermediate in
 // device memory.  For band b of x [nb, m1, R] and pair r' < R/2,
@@ -41,7 +61,11 @@
 // stored row by row.  The TPU body's grid of 2 bands per step is a VMEM
 // blocking choice and is not kept.  Bound by operations (539 MFLOP at the
 // probe's shapes against 17.3 MB in and out).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
 
 namespace {
 
@@ -77,17 +101,50 @@ op_transpose_kernel(const float* __restrict__ in, float* __restrict__ out, const
   }
 }
 
+// out [B, Q, M, P, L] from in [B, P, M, Q, L], in units of V (float or
+// float4: L counted in units).
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+op_permute_rows_kernel(const V* __restrict__ in, V* __restrict__ out, const int P,
+                       const int M, const int Q, const int L, const long long n) {
+  for (long long o = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; o < n;
+       o += static_cast<long long>(gridDim.x) * kThreads) {
+    long long r = o / L;
+    const int l = static_cast<int>(o - r * L);
+    const int p = static_cast<int>(r % P);
+    r /= P;
+    const int m = static_cast<int>(r % M);
+    r /= M;
+    const int q = static_cast<int>(r % Q);
+    const long long b = r / Q;
+    out[o] = in[(((b * P + p) * M + m) * Q + q) * L + l];
+  }
+}
+
 // ---- op_gemm ------------------------------------------------------------------
 constexpr int kBM = 64, kBN = 64, kBK = 16;
+enum GemmMode { kHighest = 0, kDefault = 1, kBf16 = 2 };
+
+// Operand i of a: f32 ('highest'), f32 rounded to bf16 ('default') or bf16
+// in memory, as f32.
+template <int kMode>
+__device__ __forceinline__ float operand(const void* a, const size_t i) {
+  if (kMode == kBf16) return __bfloat162float(static_cast<const __nv_bfloat16*>(a)[i]);
+  const float v = static_cast<const float*>(a)[i];
+  if (kMode == kDefault) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
 
 // Batch entry z: A part p holds columns [p Kp, (p + 1) Kp) at
 // a[p] + z sa + m lda + k; W [K, N] at w + z sw + k ldw + n; C part q holds
-// columns [q Nq, (q + 1) Nq) at c[q] + z sc + m ldc + n.
+// columns [q Nq, (q + 1) Nq) at c[q] + z sc + m ldc + n.  A and W are f32,
+// or bf16 in kBf16 mode; C is f32.
 struct Gemm {
-  const float* a0; const float* a1; const float* w; float* c0; float* c1;
+  const void* a0; const void* a1; const void* w; float* c0; float* c1;
   int M, K, N, P, Q, lda, ldw, ldc, sa, sw, sc;
 };
 
+template <int kMode>
 __global__ void __launch_bounds__(kThreads) op_gemm_kernel(const Gemm g) {
   __shared__ float As[kBK][kBM + 1];
   __shared__ float Ws[kBK][kBN];
@@ -106,15 +163,16 @@ __global__ void __launch_bounds__(kThreads) op_gemm_kernel(const Gemm g) {
       float v = 0.f;
       if (m < g.M && k < g.K) {
         const int p = k / Kp;
-        const float* a = p == 0 ? g.a0 : g.a1;
-        v = a[z * g.sa + static_cast<size_t>(m) * g.lda + (k - p * Kp)];
+        v = operand<kMode>(p == 0 ? g.a0 : g.a1,
+                           z * g.sa + static_cast<size_t>(m) * g.lda + (k - p * Kp));
       }
       As[kk][mm] = v;
     }
     for (int e = threadIdx.x; e < kBK * kBN; e += kThreads) {
       const int kk = e / kBN, nn = e - kk * kBN, k = k0 + kk, n = n0 + nn;
       Ws[kk][nn] = k < g.K && n < g.N
-                       ? g.w[z * g.sw + static_cast<size_t>(k) * g.ldw + n] : 0.f;
+                       ? operand<kMode>(g.w, z * g.sw + static_cast<size_t>(k) * g.ldw + n)
+                       : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -268,18 +326,46 @@ int dftk_op_transpose(const void* in, void* out, int B, int R, int C, int TR, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// C = A @ W for each of `batch` entries (strides in floats; see struct Gemm).
+// in [B, P, M, Q, L] -> out [B, Q, M, P, L], rows of L floats moving whole.
+int dftk_op_permute_rows(const void* in, void* out, int B, int P, int M, int Q, int L,
+                         void* stream) {
+  if (B < 1 || P < 1 || M < 1 || Q < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = L % 4 == 0
+                   && (reinterpret_cast<std::uintptr_t>(in)
+                       | reinterpret_cast<std::uintptr_t>(out)) % 16 == 0;
+  const int Lv = vec ? L / 4 : L;
+  const long long n = static_cast<long long>(B) * P * M * Q * Lv;
+  const long long blocks = std::min((n + kThreads - 1) / kThreads, 132LL * 16);
+  if (vec)
+    op_permute_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        static_cast<const float4*>(in), static_cast<float4*>(out), P, M, Q, Lv, n);
+  else
+    op_permute_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), P, M, Q, Lv, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C = A @ W for each of `batch` entries (strides in elements; see struct
+// Gemm); mode: 0 'highest', 1 'default' (operands rounded to bf16), 2 bf16
+// operands in memory.
 int dftk_op_gemm(const void* a0, const void* a1, const void* w, void* c0, void* c1,
                  int batch, int M, int K, int N, int P, int Q, int lda, int ldw, int ldc,
-                 int sa, int sw, int sc, void* stream) {
+                 int sa, int sw, int sc, int mode, void* stream) {
   if (batch < 1 || batch > 65535 || M < 1 || K < 1 || N < 1 || P < 1 || P > 2 || Q < 1
-      || Q > 2 || K % P || N % Q || (M + kBM - 1) / kBM > 65535)
+      || Q > 2 || K % P || N % Q || (M + kBM - 1) / kBM > 65535 || mode < kHighest
+      || mode > kBf16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Gemm g{static_cast<const float*>(a0), static_cast<const float*>(a1),
-               static_cast<const float*>(w), static_cast<float*>(c0),
-               static_cast<float*>(c1), M, K, N, P, Q, lda, ldw, ldc, sa, sw, sc};
+  const Gemm g{a0, a1, w, static_cast<float*>(c0), static_cast<float*>(c1),
+               M, K, N, P, Q, lda, ldw, ldc, sa, sw, sc};
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  op_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(g);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == kHighest)
+    op_gemm_kernel<kHighest><<<grid, kThreads, 0, st>>>(g);
+  else if (mode == kDefault)
+    op_gemm_kernel<kDefault><<<grid, kThreads, 0, st>>>(g);
+  else
+    op_gemm_kernel<kBf16><<<grid, kThreads, 0, st>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,8 +34,14 @@ _SIGNATURES = {
     "dftk_micro_full": [_P] * 8 + [_I] * 5 + [_P],
     "dftk_micro_swaponly": [_P] * 5 + [_I] * 4 + [_P],
     "dftk_op_transpose": [_P] * 2 + [_I] * 6 + [_P],
-    "dftk_op_gemm": [_P] * 5 + [_I] * 12 + [_P],
+    "dftk_op_permute_rows": [_P] * 2 + [_I] * 5 + [_P],
+    "dftk_op_gemm": [_P] * 5 + [_I] * 13 + [_P],
     "dftk_op_fused_axis": [_P] * 4 + [_I] * 3 + [_P],
+    "dftk_op_rep_gemm": [_P] * 3 + [_I] * 5 + [_P],
+    "dftk_op_rep_swap": [_P] * 2 + [_I] * 5 + [ctypes.c_float, _P],
+    "dftk_op_rep_vmul": [_P] * 3 + [_I] * 5 + [_P],
+    "dftk_op_rep_gemm_smem": [_I],
+    "dftk_op_rep_swap_smem": [_I] * 2,
 }
 
 

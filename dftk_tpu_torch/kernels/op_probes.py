@@ -1,11 +1,12 @@
-"""The fused-local-apply op probes: transposes, a realified GEMM, the axis chain.
+"""The op probes: transposes and copies, a realified GEMM, the axis chain.
 
 Counterpart of the TPU probe kernels of `tools/probe_pallas_fused.py`
-(t_kernel, s_kernel, g_kernel, f_kernel) and `tools/probe_pallas_fused2.py`
-(k_a, k_b, k_c), hand-written CUDA C++ for sm_90a in `csrc/op_probes.cu`,
+(t_kernel, s_kernel, g_kernel, f_kernel), `tools/probe_pallas_fused2.py`
+(k_a, k_b, k_c) and `tools/probe_mosaic_ops.py` (the eight bodies of
+`try_kernel`), hand-written CUDA C++ for sm_90a in `csrc/op_probes.cu`,
 built and bound like the local-apply kernels (`kernels/build.py`): three
-kernels, seven instantiations, one per JAX body, each counted under its
-own name.
+kernels, fifteen instantiations, one per JAX body, each counted in
+`counts` under its own name.
 
   body    wrapper        kernel          what it computes (f32)
   t2d     `t2d(x)`       op_transpose    x [R, C] -> x.T
@@ -19,6 +20,20 @@ own name.
                                          [R/2, 2 m1] @ F, x V [R/2, 1, m1]
                                          broadcast over the halves, @ F^T,
                                          swap back
+  probe_mosaic_ops (f32 out; body names as the counts give them):
+  view1, view5, view7  `reshape_copy(x, shape, body)`  op_transpose  the
+                                         values of x in a new tensor of `shape`
+  perm2   `permute(x, perm, "perm2")`  op_transpose  x permuted by a `perm`
+                                         that swaps two axes, the axes
+                                         between and after them moving whole
+  dot3    `mosaic_dot(F, d, "highest", "dot3")`  op_gemm  F @ d in f32
+  dot4    `mosaic_dot(F, d3, "default", "dot4")` op_gemm  F [M, K] against
+                                         d3 [K, ...] over d3's first axis,
+                                         operands rounded to bf16, f32 sums
+  dot6    `mosaic_dot(X, M, "default", "dot6")`  op_gemm  batched X [Z, M, K]
+                                         @ M [Z, K, N], the same rounding
+  dot8    `mosaic_dot(Fb, db, "highest", "dot8")` op_gemm  bf16 operands in
+                                         memory, f32 products and sums
 
 The wrappers take views of contiguous tensors, which cost nothing: each
 body is one launch.  Each body has a plain PyTorch version here (`*_plain`)
@@ -28,6 +43,8 @@ Dispatch is by device only: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  Bad shapes and dtypes raise
 ValueError on both.
 """
+import math
+
 import torch
 
 from .local_apply import KernelCounts, _raise_on_error, library
@@ -35,15 +52,20 @@ from .local_apply import KernelCounts, _raise_on_error, library
 TRANSPOSE_TILE = 1024      # values per transpose block (kTileSmem of the source / 2)
 FUSED_M1_MAX = 32          # op_fused_axis: 2 m1 columns over 16 threads x 4
 
+GEMM_MODES = {"highest": 0, "default": 1, "bf16": 2}     # dftk_op_gemm's mode
+MOSAIC_NAMES = ("op_transpose[view1]", "op_transpose[perm2]", "op_gemm[dot3]",
+                "op_gemm[dot4][default]", "op_transpose[view5]", "op_gemm[dot6][default]",
+                "op_transpose[view7]", "op_gemm[dot8][bf16]")
+
 counts = KernelCounts(("op_transpose[t2d]", "op_transpose[swap]", "op_gemm[gemm]",
                        "op_fused_axis[fused]", "op_transpose[k_a]", "op_transpose[k_b]",
-                       "op_gemm[k_c]"))
+                       "op_gemm[k_c]") + MOSAIC_NAMES)
 
 
-def _check(name, *xs):
+def _check(name, *xs, dtype=torch.float32):
     for x in xs:
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name}: float32 expected, got {x.dtype}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name}: {str(dtype).split('.')[-1]} expected, got {x.dtype}")
         if x.device != xs[0].device:
             raise ValueError(f"{name}: all tensors must be on {xs[0].device}")
 
@@ -93,18 +115,35 @@ def _transpose(x, name):
     return out
 
 
-def _gemm(parts, W, Q, name):
-    """op_gemm: concat(parts, -1) @ W split into Q equal column parts.
-    parts: P (<= 2) tensors [Z, M, K/P]; W [Z, K, N] or [K, N]."""
+def _permute_rows(x, dims, name):
+    """op_transpose on x viewed [B, P, M, Q, L] (dims): a new tensor holding
+    [B, Q, M, P, L], returned flat (M = L = 1 takes the tiled transpose)."""
+    B, P, M, Q, L = dims
+    if M == L == 1:
+        return _transpose(x.view(B, P, Q), name).view(-1)
+    _check_cuda(name, x)
+    out = torch.empty(x.numel(), dtype=x.dtype, device=x.device)
+    err = library().dftk_op_permute_rows(x.data_ptr(), out.data_ptr(), *dims, _stream(x))
+    _raise_on_error(name, err)
+    counts.launches[name] += 1
+    return out
+
+
+def _gemm(parts, W, Q, name, mode="highest"):
+    """op_gemm: concat(parts, -1) @ W split into Q equal column parts, f32.
+    parts: P (<= 2) tensors [Z, M, K/P]; W [Z, K, N] or [K, N]; mode: a key
+    of GEMM_MODES (f32 operands, or bf16 ones for "bf16")."""
     _check_cuda(name, *parts, W)
     Z, M, Kp = parts[0].shape
     K, N = W.shape[-2:]
-    outs = [torch.empty((Z, M, N // Q), dtype=W.dtype, device=W.device) for _ in range(Q)]
+    outs = [torch.empty((Z, M, N // Q), dtype=torch.float32, device=W.device)
+            for _ in range(Q)]
     a = [p.data_ptr() for p in parts] * (3 - len(parts))
     c = [o.data_ptr() for o in outs] * (3 - Q)
     err = library().dftk_op_gemm(a[0], a[1], W.data_ptr(), c[0], c[1], Z, M, K, N,
                                  len(parts), Q, Kp, N, N // Q, M * Kp,
-                                 K * N if W.dim() == 3 else 0, M * N // Q, _stream(W))
+                                 K * N if W.dim() == 3 else 0, M * N // Q,
+                                 GEMM_MODES[mode], _stream(W))
     _raise_on_error(name, err)
     counts.launches[name] += 1
     return outs
@@ -274,3 +313,110 @@ def fused(xb, F, V):
     if xb.device.type == "cpu":
         return fused_plain(xb, F, V)
     return _fused_axis(xb, F, V, "op_fused_axis[fused]")
+
+
+# ---------------------------------------------------------------------------
+# tools/probe_mosaic_ops.py: reshapes, a permute, f32 / 'default' / bf16 dots
+# ---------------------------------------------------------------------------
+
+def _mosaic_name(kernel, body, suffix=""):
+    name = f"{kernel}[{body}]{suffix}"
+    if name not in MOSAIC_NAMES:
+        raise ValueError(f"{kernel}: no instantiation {name} (one of {MOSAIC_NAMES})")
+    return name
+
+
+def reshape_copy_plain(x, shape, body):
+    counts.plain[_mosaic_name("op_transpose", body)] += 1
+    return x.reshape(shape).clone()
+
+
+def reshape_copy(x, shape, body):
+    """Bodies (1), (5), (7): x's values in a new tensor of `shape` (a
+    pallas_call writes a new buffer: one launch, a copy)."""
+    name = _mosaic_name("op_transpose", body)
+    _check(body, x)
+    shape = tuple(shape)
+    if math.prod(shape) != x.numel() or any(n < 1 for n in shape):
+        raise ValueError(f"{body}: cannot reshape {tuple(x.shape)} to {shape}")
+    if x.device.type == "cpu":
+        return reshape_copy_plain(x, shape, body)
+    return _permute_rows(x, (1, 1, 1, 1, x.numel()), name).view(shape)
+
+
+def swap_dims(shape, perm):
+    """(B, P, M, Q, L): a tensor of `shape` viewed so that permuting it by
+    `perm`, which swaps two axes i < j and keeps the others, is
+    [B, P, M, Q, L] -> [B, Q, M, P, L]."""
+    perm = tuple(perm)
+    moved = [k for k, p in enumerate(perm) if p != k]
+    if sorted(perm) != list(range(len(shape))) or len(moved) != 2 \
+            or perm[moved[0]] != moved[1]:
+        raise ValueError(f"perm {perm} does not swap two axes of a {len(shape)}-D tensor")
+    i, j = moved
+    return (math.prod(shape[:i]), shape[i], math.prod(shape[i + 1:j]), shape[j],
+            math.prod(shape[j + 1:]))
+
+
+def permute_plain(x, perm, body):
+    counts.plain[_mosaic_name("op_transpose", body)] += 1
+    return x.permute(perm).contiguous()
+
+
+def permute(x, perm, body):
+    """Body (2): x permuted by `perm` (two axes swapped), in a new tensor."""
+    name = _mosaic_name("op_transpose", body)
+    _check(body, x)
+    dims = swap_dims(x.shape, perm)
+    if x.device.type == "cpu":
+        return permute_plain(x, perm, body)
+    return _permute_rows(x, dims, name).view([x.shape[p] for p in perm])
+
+
+def _dot_shapes(body, a, b):
+    """(Z, M, K, N, output shape): a [M, K] against b [K, ...] over b's
+    first axis, or a [Z, M, K] @ b [Z, K, N]."""
+    if a.dim() == 2 and b.dim() >= 2 and b.shape[0] == a.shape[1]:
+        N = b.numel() // b.shape[0]
+        return 1, a.shape[0], a.shape[1], N, (a.shape[0],) + tuple(b.shape[1:])
+    if a.dim() == 3 and b.dim() == 3 and a.shape[0] == b.shape[0] and a.shape[2] == b.shape[1]:
+        return a.shape[0], a.shape[1], a.shape[2], b.shape[2], \
+            (a.shape[0], a.shape[1], b.shape[2])
+    raise ValueError(f"{body}: a [M, K] with b [K, ...], or a [Z, M, K] with b [Z, K, N], "
+                     f"got {tuple(a.shape)} and {tuple(b.shape)}")
+
+
+def _dot_mode(a, precision):
+    if precision not in ("highest", "default"):
+        raise ValueError(f"precision must be 'highest' or 'default', got {precision!r}")
+    if a.dtype == torch.bfloat16:
+        if precision != "highest":
+            raise ValueError("bf16 operands take precision 'highest' (nothing to round)")
+        return "bf16"
+    return precision
+
+
+def mosaic_dot_plain(a, b, precision, body):
+    mode = _dot_mode(a, precision)
+    counts.plain[_mosaic_name("op_gemm", body, "" if mode == "highest" else f"[{mode}]")] += 1
+    Z, M, K, N, shape = _dot_shapes(body, a, b)
+    if mode == "default":
+        a, b = (t.to(torch.bfloat16) for t in (a, b))
+    a, b = a.float(), b.float()
+    return (a @ b.reshape(K, N) if a.dim() == 2 else a @ b).reshape(shape)
+
+
+def mosaic_dot(a, b, precision, body):
+    """Bodies (3), (4), (6), (8): a against b in f32 out.  precision
+    'highest': f32 operands; 'default': f32 operands rounded to bf16 (the
+    TPU's Precision.DEFAULT), f32 products and sums; bf16 tensors: bf16
+    operands, f32 products and sums."""
+    mode = _dot_mode(a, precision)
+    name = _mosaic_name("op_gemm", body, "" if mode == "highest" else f"[{mode}]")
+    _check(body, a, b, dtype=torch.bfloat16 if mode == "bf16" else torch.float32)
+    Z, M, K, N, shape = _dot_shapes(body, a, b)
+    if a.device.type == "cpu":
+        return mosaic_dot_plain(a, b, precision, body)
+    _check_cuda(body, a, b)
+    W = b.view(Z, K, N) if a.dim() == 3 else b.view(K, N)
+    return _gemm([a.view(Z, M, K)], W, 1, name, mode)[0].view(shape)

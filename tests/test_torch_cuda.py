@@ -21,7 +21,15 @@ equality, at small sizes and at the probes' plane sizes (m 32, n 64).  The
 op probes (`kernels/op_probes.py`) are held against their plain versions
 at the JAX tools' shapes and at ragged ones that divide no tile: the
 transposes exactly, `gemm` (also batched), `k_c` and `fused` at 1e-5 of
-max|out|.
+max|out|; so are the Mosaic op probes: the reshape copies and the permute
+exactly (also off 16-byte alignment), the f32 and bf16-operand dots at
+1e-5, the 'default' ones by the margin rule, all of them exactly on
+inputs of ones; the R-step kernels (`kernels/op_speed.py`) at R = 1, 2, 3
+(an odd R is a swap): the swaps and the V multiply exactly (kern_vm's
+subnormals kept), the repeated dots by the margin rule both ways (a
+'highest' one against the plain 'default' as a 'default' one against the
+plain 'highest': 1e-5 of max|out| cannot tell them apart, the product
+being ~1e-4 of acc).
 """
 import numpy as np
 import pytest
@@ -389,3 +397,150 @@ def test_cuda_op_probes_refuse_bad_inputs():
         op.gemm(x[0], F[:8].cpu())
     with pytest.raises(ValueError, match="above 32"):
         op.fused(x, F, V)
+
+
+def _margin(out, ref, other):
+    """The bf16 margin rule: kernel-vs-plain at least 10x below the plain
+    'default'-vs-'highest' difference (relative Frobenius norms in f64;
+    `other` is the plain version at the other precision)."""
+    out, ref, other = out.double(), ref.double(), other.double()
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    return rel(out, ref) * 10 <= rel(ref, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, new", [
+    ((64, 32, 128), (64, 4096)), ((2560, 64), (80, 32, 64)),
+    ((64, 2, 32, 128), (128, 32, 128)),              # the probe's three reshapes
+    ((3, 7, 5), (105,)), ((1,), (1, 1))])             # odd sizes: the scalar path
+def test_cuda_op_reshape_copy_equals_plain(shape, new):
+    from dftk_tpu_torch.kernels import op_probes as op
+    x, = _op_tensors(22, shape)
+    op.counts.reset()
+    out = op.reshape_copy(x, new, "view1")
+    torch.cuda.synchronize()
+    assert out.data_ptr() != x.data_ptr()
+    assert torch.equal(out, op.reshape_copy_plain(x, new, "view1"))
+    assert op.counts.launches["op_transpose[view1]"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, perm", [
+    ((64, 2, 32, 128), (2, 1, 0, 3)),                 # the probe's permute
+    ((5, 3, 7, 6), (2, 1, 0, 3)), ((3, 2, 9, 8), (2, 1, 0, 3)),   # P != Q, M, L > 1
+    ((7, 5, 12), (1, 0, 2)), ((2, 3, 4, 5, 6), (0, 3, 2, 1, 4)), ((6, 4, 1), (0, 2, 1))])
+def test_cuda_op_permute_equals_plain(shape, perm):
+    from dftk_tpu_torch.kernels import op_probes as op
+    x, = _op_tensors(23, shape)
+    op.counts.reset()
+    out, ref = op.permute(x, perm, "perm2"), op.permute_plain(x, perm, "perm2")
+    buf = torch.empty(x.numel() + 1, device="cuda")   # 4 bytes off 16: the scalar path
+    xs = buf[1:].view(shape).copy_(x)
+    off = op.permute(xs, perm, "perm2")
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.equal(out, ref) and torch.equal(off, ref)
+    assert op.counts.launches["op_transpose[perm2]"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body, a_shape, b_shape", [
+    ("dot3", (128, 64), (64, 4096)), ("dot4", (128, 64), (64, 32, 128)),
+    ("dot6", (64, 128, 64), (64, 64, 64)), ("dot8", (128, 64), (64, 4096)),  # the probe's
+    ("dot3", (37, 5), (5, 3)), ("dot4", (70, 20), (20, 3, 7)),
+    ("dot6", (3, 70, 20), (3, 20, 65)), ("dot8", (100, 14), (14, 22))])   # ragged tiles
+def test_cuda_op_mosaic_dot_matches_plain(body, a_shape, b_shape):
+    """f32 at 1e-5 of max|out|, bf16 operands in memory likewise (their
+    products are exact in f32), 'default' by the margin rule; on inputs of
+    ones all exactly."""
+    from dftk_tpu_torch.kernels import op_probes as op
+    a, b = _op_tensors(24, a_shape, b_shape)
+    prec = "default" if body in ("dot4", "dot6") else "highest"
+    if body == "dot8":
+        a, b = a.bfloat16(), b.bfloat16()
+    op.counts.reset()
+    out, ref = op.mosaic_dot(a, b, prec, body), op.mosaic_dot_plain(a, b, prec, body)
+    ones = [torch.ones_like(t) for t in (a, b)]
+    assert torch.equal(op.mosaic_dot(*ones, prec, body), op.mosaic_dot_plain(*ones, prec, body))
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    if prec == "default":
+        assert _margin(out, ref, op.mosaic_dot_plain(a, b, "highest", "dot3"))
+    else:
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    name = [n for n in op.MOSAIC_NAMES if f"[{body}]" in n][0]
+    assert op.counts.launches[name] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 3])
+@pytest.mark.parametrize("Z, K, N", [
+    (1, 128, 4096), (1, 64, 8192), (64, 64, 128),    # rep_dot and kern_d1 shapes
+    (1, 50, 70), (3, 100, 33), (2, 1, 1), (1, 33, 4)])   # K, N off the tiles
+def test_cuda_op_rep_gemm_matches_plain(Z, K, N, R):
+    from dftk_tpu_torch.kernels import op_speed as osp
+    acc, F = _op_tensors(25, (Z, K, N), (K, K))
+    acc = acc[0] if Z == 1 else acc
+    osp.counts.reset()
+    body = "rep_dot_128x4096"            # a count name with both precisions
+    for prec in ("highest", "default"):
+        out = osp.rep_gemm(acc, F / K ** 0.5, R, body, prec)
+        ref = osp.rep_gemm_plain(acc, F / K ** 0.5, R, body, prec)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        other = "default" if prec == "highest" else "highest"
+        assert _margin(out, ref, osp.rep_gemm_steps(acc, F / K ** 0.5, R, other))
+        assert osp.counts.launches[osp.gemm_name(body, prec)] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 3])
+@pytest.mark.parametrize("shape, perm", [
+    ((64, 2, 64, 128), (2, 1, 0, 3)), ((64, 64, 128), (1, 0, 2)),
+    ((64, 128, 128), (0, 2, 1)),                      # kern_tp, kern_tp2, kern_tp3
+    ((37, 3, 37, 5), (2, 1, 0, 3)), ((2, 50, 50), (0, 2, 1)), ((3, 3, 33), (1, 0, 2)),
+    ((1, 1, 1), (0, 2, 1))])                          # tiles off the axes
+def test_cuda_op_rep_swap_equals_plain(shape, perm, R):
+    """Each step moves and scales: exact, and an odd R is a swap."""
+    from dftk_tpu_torch.kernels import op_speed as osp
+    x, = _op_tensors(26, shape)
+    osp.counts.reset()
+    out, ref = osp.rep_swap(x, perm, R, "tp"), osp.rep_swap_plain(x, perm, R, "tp")
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.equal(out, ref)
+    assert osp.counts.launches["op_rep_swap[tp]"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 2, 3, 100])
+@pytest.mark.parametrize("shape", [(64, 2, 64, 128), (3, 5, 7, 9), (1, 1, 1, 1)])
+def test_cuda_op_rep_vmul_equals_plain(shape, R):
+    """Exact, subnormals included (no flush to zero)."""
+    from dftk_tpu_torch.kernels import op_speed as osp
+    x, V = _op_tensors(27, shape, (shape[0], shape[2]))
+    osp.counts.reset()
+    out, ref = osp.rep_vmul(x * 0.01, V * 0.01, R), osp.rep_vmul_plain(x * 0.01, V * 0.01, R)
+    tiny, half = torch.full((1, 1, 1, 1), 1e-39), torch.full((1, 1), 0.5)   # subnormal
+    sub = osp.rep_vmul(tiny.cuda(), half.cuda(), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(sub.cpu(), osp.rep_vmul_plain(tiny, half, 1)) and float(sub) != 0
+    assert osp.counts.launches["op_rep_vmul[vm]"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_op_mosaic_refuse_bad_inputs():
+    from dftk_tpu_torch.kernels import op_probes as op
+    from dftk_tpu_torch.kernels import op_speed as osp
+    x, F = _op_tensors(28, (4, 6, 6), (6, 6))
+    with pytest.raises(ValueError, match="contiguous"):
+        op.reshape_copy(x.transpose(1, 2), (36, 4), "view1")
+    with pytest.raises(ValueError, match="contiguous"):
+        op.permute(x.transpose(0, 1), (1, 0, 2), "perm2")
+    with pytest.raises(ValueError, match="all tensors"):
+        op.mosaic_dot(F, x[0].cpu(), "highest", "dot3")
+    with pytest.raises(ValueError, match="contiguous"):
+        osp.rep_gemm(x.transpose(1, 2), F, 1, "d1")
+    with pytest.raises(ValueError, match="contiguous"):
+        osp.rep_swap(x.transpose(1, 2), (0, 2, 1), 1, "tp3")
+    with pytest.raises(ValueError, match="R must be"):
+        osp.rep_vmul(x[None], F[:1, :6], 0)

@@ -88,7 +88,8 @@ def test_cpu_tensors_take_the_plain_versions():
         assert torch.equal(getattr(op, body)(*a), getattr(op, f"{body}_plain")(*a))
     assert all(torch.equal(u, v) for u, v in zip(op.k_c(d["ar"], d["ai"], d["Fc"]),
                                                  op.k_c_plain(d["ar"], d["ai"], d["Fc"])))
-    assert set(op.counts.plain.values()) == {2}
+    rows34 = [n for n in op.counts.plain if n not in op.MOSAIC_NAMES]   # the seven bodies
+    assert len(rows34) == 7 and {op.counts.plain[n] for n in rows34} == {2}
     assert set(op.counts.launches.values()) == {0}
     assert la._library is None
 
