@@ -5,7 +5,9 @@
 
 Phases (any failure raises and exits non-zero):
   1. check that a CUDA device exists; print the card's name and power limit
-  2. build the hand-written CUDA kernels from dftk_tpu_torch/csrc
+  2. build the hand-written CUDA kernels from dftk_tpu_torch/csrc; print
+     ptxas's registers and spills, and the DMMA count of the complex128
+     kernel B's SASS where cuobjdump is found
   3. hold each kernel, and the composed local apply, against its plain
      PyTorch version at the Si54 shapes (compact cube 32^3, grid 64^3,
      128 bands, Gamma) in complex128 (bar 1e-11 of max|out|) and complex64
@@ -34,7 +36,10 @@ Phases (any failure raises and exits non-zero):
      seconds per iteration, peak device memory; then kernels A (forward
      and backward) and B on one 256-band chunk at the Si256 shapes, each
      instantiation against its plain version with the bars of phases 3
-     and a, and kernel B's strip width and ms per launch
+     and a, and the one-call torch.einsum of kernel A forward and of kernel
+     B against the plain complex128 version at its bar; ms per launch of
+     kernel A forward and kernel B (with its strip width) and of the two
+     einsums
   e. the filter-stage probe kernels (csrc/filter_stages.cu) at the JAX
      probes' shapes (t [64, 32, 2, 32, 128] f32, V 64^3, realified factors
      128 x 64): the copy at 1 and 8 planes per block and every stage set
@@ -189,6 +194,28 @@ def cuda_ms(fn, reps=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def sass_counts(lib_path, kernel, opcode):
+    """{function: count of `opcode` in its SASS} for the functions of the
+    built library whose name holds `kernel`, from cuobjdump; {} (with a
+    line saying so) where the toolkit has no cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        print("[2] cuobjdump not found", flush=True)
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if kernel in fn:
+                counts[fn] = 0
+        elif fn in counts and any(w.startswith(opcode) for w in line.split()):
+            counts[fn] += 1
+    return counts
 
 
 def fft_local_apply(xc, V_full, live, grid_idx, fft_size):
@@ -511,6 +538,9 @@ def si256_phase(dt, la, device, n_iter=3):
                 tt, lambda p: la.local_plane(tt, VV, f, precision=p),
                 lambda p: la.local_plane_plain(tt, VV, f, p)),
         }
+        # the one PyTorch call that computes kernel A forward and kernel B
+        library = {"kernel A forward": lambda: torch.einsum("kbxyc,cz->kbzxy", xx, f.fwd[2]),
+                   "kernel B": local_plane_library(tt, VV, f)}
         for name, (inp, kern, plain) in cases.items():
             out, ref = kern(prec), plain(prec)
             torch.cuda.synchronize()
@@ -521,6 +551,12 @@ def si256_phase(dt, la, device, n_iter=3):
             del out
             if tag == "complex128":
                 check(err <= BARS["complex128"], f"Si256 {name} complex128 vs plain")
+                if name in library:
+                    lib_out = library[name]()
+                    lib_err = float((lib_out - ref).abs().max()) / float(ref.abs().max())
+                    del lib_out
+                    line += f"; one-call library vs plain max rel {lib_err:.3e}"
+                    check(lib_err <= BARS["complex128"], f"Si256 {name} library vs plain")
             else:
                 rounding = rel_frobenius(ref, plain("highest"))
                 line += f"; plain default vs highest rel Frobenius {rounding:.3e}"
@@ -528,11 +564,18 @@ def si256_phase(dt, la, device, n_iter=3):
                       f"Si256 {name} bf16: kernel-vs-plain {BF16_MARGIN}x below "
                       f"default-vs-highest")
             del ref
-            if name == "kernel B":
+            if name in library:
                 ms = cuda_ms(lambda: kern(prec), reps=5, warmup=1)
-                b = bound(local_plane_work(tuple(tt.shape), n1, n2, tt.element_size()), tag)
-                line += (f"; strip {la.local_plane_strip(tt, n1, n2)} of {n2}, {ms:.3f} ms "
-                         f"per launch, bound {b[0]:.3f} ms ({b[1]})")
+                work = (axis_dft_work(tuple(xx.shape), m3, n3, xx.element_size())
+                        if name == "kernel A forward" else
+                        local_plane_work(tuple(tt.shape), n1, n2, tt.element_size()))
+                b = bound(work, tag)
+                line += f"; {ms:.3f} ms per launch, bound {b[0]:.3f} ms ({b[1]})"
+                if name == "kernel B":
+                    line += f", strip {la.local_plane_strip(tt, n1, n2)} of {n2}"
+                if tag == "complex128":
+                    line += (f"; one-call library "
+                             f"{cuda_ms(library[name], reps=5, warmup=1):.3f} ms")
             print(line, flush=True)
 
 
@@ -1270,6 +1313,8 @@ def main():
     for line in lib.log.splitlines():
         if "entry function" in line or "Used" in line or "spill" in line:
             print(f"[2] ptxas: {line.strip()}", flush=True)
+    for name, count in sass_counts(lib.path, "local_plane_c128_kernel", "DMMA").items():
+        print(f"[2] SASS: {count} DMMA instructions in {name}", flush=True)
 
     # ---- 3. kernels against their plain versions ---------------------------
     t0 = time.time()

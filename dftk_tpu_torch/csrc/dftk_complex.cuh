@@ -50,6 +50,23 @@ __device__ __forceinline__ cplx<float> ldg(const cplx<float>* p) {
 __device__ __forceinline__ double ldg(const double* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 
+// D = A B + D on one 8 x 8 f64 tile on the tensor cores (DMMA, sm_80+): a
+// lane holds A[gr][tg], B[tg][gr] and D[gr][2 tg], D[gr][2 tg + 1], where
+// gr = lane / 4 and tg = lane % 4.
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d[0]), "+d"(d[1]) : "d"(a), "d"(b));
+}
+
+// One complex k-step of a tile in four real MMAs: acc[0] += ar br - ai bi,
+// acc[1] += ar bi + ai br.
+__device__ __forceinline__ void cmma(double (&acc)[2][2], double2 a, double br, double bi) {
+  dmma(acc[0], a.x, br);
+  dmma(acc[0], -a.y, bi);
+  dmma(acc[1], a.x, bi);
+  dmma(acc[1], a.y, br);
+}
+
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

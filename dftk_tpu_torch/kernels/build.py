@@ -27,7 +27,9 @@ _I = ctypes.c_int
 _MODES = ("c128", "c64", "bf16")
 _SIGNATURES = {
     **{f"dftk_axis_dft_{m}": [_P, _P, _P, _I, _I, _I, _I, _I, _P] for m in _MODES},
-    **{f"dftk_local_plane_{m}": [_P] * 7 + [_I] * 8 + [_P] for m in _MODES},
+    **{f"dftk_local_plane_{m}": [_P] * 7 + [_I] * 8 + [_P] for m in ("c64", "bf16")},
+    "dftk_local_plane_c128": [_P] * 7 + [_I] * 10 + [_P],
+    "dftk_local_plane_c128_smem": [_I] * 4,
     "dftk_probe_copy": [_P, _P, _I, _I, _I, _P],
     "dftk_probe_stages": [_P] * 7 + [_I] * 10 + [_P],
     "dftk_probe_planar": [_P] * 11 + [_I] * 8 + [_P],

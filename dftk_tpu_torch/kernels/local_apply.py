@@ -38,7 +38,22 @@ import torch
 # The most dynamic shared memory one block may use on sm_90 (227 KB).
 SMEM_MAX = 232448
 _GRID_Y_MAX = 65535
-_AXIS_TILE_ROWS = 32        # kTileRows of csrc/pruned_axis_dft.cu
+_AXIS_TILE_ROWS = 32        # kTileRows of csrc/pruned_axis_dft.cu (complex64, bf16)
+# Half an sm_90 SM's 228 KB, less the 1 KB reserved per block: two blocks fit.
+_TWO_BLOCK_SMEM = 233472 // 2 - 1024
+# The complex128 kernel B's block layouts, (warps, out column tiles a warp
+# holds in registers; 0: the output accumulates in device memory), in the
+# order they are preferred; csrc/local_plane.cu instantiates these six.
+_PLANE_LAYOUTS_C128 = ((8, 1), (8, 2), (16, 1), (16, 2), (16, 4), (16, 0))
+
+
+def _plane_smem_c128(m1, m2, n1, strip):
+    """Shared memory of the complex128 kernel B at one strip width: the
+    plane, T1s, S and the F2f and F2b slices, re and im, on whole 8-tiles
+    with rows padded by 4 (the kernel's own count,
+    `dftk_local_plane_c128_smem`, is held to it by a CUDA test)."""
+    m1p, m2p, n1p, wp = (8 * -(-d // 8) for d in (m1, m2, n1, strip))
+    return 16 * (m1p * (m2p + 4) + (m1p + n1p + m2p) * (wp + 4) + wp * (m2p + 4))
 
 
 class LocalFactors(NamedTuple):
@@ -182,13 +197,15 @@ def pruned_axis_dft(x, F, forward, precision="highest"):
         if m3 != K:
             raise ValueError(f"pruned_axis_dft: x has m3={m3}, F has {K} rows")
         out = torch.empty((nk, nb, J, m1, m2), dtype=x.dtype, device=x.device)
-        smem = _AXIS_TILE_ROWS * (K + 1) * x.element_size()
     else:
         n3, m1, m2 = x.shape[2:]
         if n3 != K:
             raise ValueError(f"pruned_axis_dft: x has n3={n3}, F has {K} rows")
         out = torch.empty((nk, nb, m1, m2, J), dtype=x.dtype, device=x.device)
-        smem = _AXIS_TILE_ROWS * K * x.element_size()
+    # complex128 streams F with its input where F is too tall to stay in
+    # shared memory; complex64 and bf16 stage a [32, K (+1 forward)] tile
+    smem = 0 if x.dtype == torch.complex128 else \
+        _AXIS_TILE_ROWS * (K + int(bool(forward))) * x.element_size()
     if smem > SMEM_MAX or nk * nb > _GRID_Y_MAX:
         raise ValueError(f"pruned_axis_dft: shape {tuple(x.shape)} with "
                          f"factor {tuple(F.shape)} is beyond this kernel "
@@ -201,10 +218,53 @@ def pruned_axis_dft(x, F, forward, precision="highest"):
     return out
 
 
+def local_plane_layout_c128(m1, m2, n1, n2, strip=None):
+    """(strip, warps, out tiles) of the complex128 kernel B: the width of the
+    y strips it processes at once (`strip`, checked, or chosen when None)
+    and its block layout, one of `_PLANE_LAYOUTS_C128`.
+
+    A block holds the plane, one strip of T1 and S and the strip's y factor
+    slices in shared memory (`_plane_smem_c128`), and the output in its
+    warps' registers where they hold it (16 row tiles of 4 column tiles of
+    8 x 8 at most), else in device memory.  The chosen strip is the widest
+    with which two blocks of 8 warps share an SM, where 8 warps hold the
+    output and that strip spans 32 columns or all of n2 (so the x factors
+    are read at most n2 / 32 times a plane); else the widest that fits one
+    block of 16 warps.  Explicit strips up to the latter are taken."""
+    need = lambda w: _plane_smem_c128(m1, m2, n1, w)
+
+    def fit(cap):       # need() steps with whole 8-column tiles of the strip
+        if need(n2) <= cap:
+            return n2
+        return max((w for w in range(8, n2, 8) if need(w) <= cap), default=0)
+
+    widest = fit(SMEM_MAX)
+    if widest < 1:
+        raise ValueError(
+            f"local_plane: planes m=({m1},{m2}), n=({n1},{n2}) in "
+            f"torch.complex128 need {need(1)} B of shared memory, more than "
+            f"the {SMEM_MAX} B a block may use")
+    m1t, m2t = -(-m1 // 8), -(-m2 // 8)
+    holds = lambda warps, oc: oc == 0 or m1t * -(-m2t // oc) <= warps
+    if strip is None:
+        two = fit(_TWO_BLOCK_SMEM)
+        strip = two if holds(8, 2) and two >= min(n2, 32) else widest
+    elif not 1 <= strip <= widest:
+        raise ValueError(f"local_plane: strip {strip} outside [1, {widest}]")
+    two_blocks = need(strip) <= _TWO_BLOCK_SMEM
+    return next((strip, warps, oc) for warps, oc in _PLANE_LAYOUTS_C128
+                if (warps == 16 or two_blocks) and holds(warps, oc))
+
+
 def local_plane_strip(t, n1, n2, strip=None):
-    """Width of the y strips kernel B processes at once: all of n2 when
-    the planes fit in shared memory, else the widest strip that does."""
+    """Width of the y strips kernel B processes at once (`strip`, checked,
+    or the widest that suits when None).  complex128: see
+    `local_plane_layout_c128`.  complex64 and bf16 hold the plane and the
+    whole [m1, n2] T1 besides the [n1, strip] buffer in shared memory and
+    take the widest strip that fits."""
     m1, m2 = t.shape[-2:]
+    if t.dtype == torch.complex128:
+        return local_plane_layout_c128(m1, m2, n1, n2, strip)[0]
     es = t.element_size()
     fixed = (m1 * m2 + m1 * n2) * es
     widest = min(n2, (SMEM_MAX - fixed) // (n1 * es))
@@ -239,12 +299,15 @@ def local_plane(t, V, factors: LocalFactors, strip=None, precision="highest"):
             f"{tuple(V.shape)}, factors {[tuple(f.shape) for f in (F1, F2, B1, B2)]}")
     if nk * nb * n3 >= 2 ** 31:
         raise ValueError("local_plane: more than 2^31 - 1 planes")
-    strip = local_plane_strip(t, n1, n2, strip)
+    if t.dtype == torch.complex128:
+        layout = local_plane_layout_c128(m1, m2, n1, n2, strip)
+    else:
+        layout = (local_plane_strip(t, n1, n2, strip),)
     out = torch.empty_like(t)
     fn = getattr(library(), f"dftk_local_plane_{_suffix(t, precision)}")
     err = fn(t.data_ptr(), V.data_ptr(), F2.data_ptr(), F1.data_ptr(),
              B1.data_ptr(), B2.data_ptr(), out.data_ptr(),
-             nk, nb, n3, m1, m2, n1, n2, strip,
+             nk, nb, n3, m1, m2, n1, n2, *layout,
              torch.cuda.current_stream(t.device).cuda_stream)
     _raise_on_error("local_plane", err)
     counts.launches[name] += 1

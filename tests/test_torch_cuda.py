@@ -6,10 +6,14 @@ Imports only torch and the port, so that it runs on a machine without jax:
 
 (--noconftest: tests/conftest.py configures jax).  The kernels are held
 against their plain PyTorch versions, complex128 at 1e-11 and complex64 at
-1e-5 of max|out|; the bf16 ('default') instantiations so that the
-kernel-vs-plain difference is at least 10x below the plain
-'default'-vs-'highest' difference (relative Frobenius norms: both round the
-same operands and sum in other orders).  The Si2 SCF and the Si2 split
+1e-5 of max|out| (complex128 also at ragged shapes, the Si54 and Si256
+plane sizes and forced strips, with F streamed at tall K and the plane
+output in device memory where registers do not hold it, and the refusals
+of what does not fit);
+the bf16 ('default') instantiations so that the kernel-vs-plain
+difference is at least 10x below the plain 'default'-vs-'highest'
+difference (relative Frobenius norms: both round the same operands and sum
+in other orders).  The Si2 SCF and the Si2 split
 CheFSI SCF ("mixed" filter) on the GPU are held against the same SCFs on
 the CPU (1e-9 Ha).  The filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
@@ -81,10 +85,96 @@ def test_cuda_kernels_match_plain(gpu_basis, dtype, bar):
     assert close(t, la.pruned_axis_dft_plain(xc, fac.fwd[2], True))
     back = la.pruned_axis_dft(t, fac.bwd[2], forward=False)
     assert close(back, la.pruned_axis_dft_plain(t, fac.bwd[2], False))
-    for strip in (None, 5):
+    for strip in (None, 5, 7):
         assert close(la.local_plane(t, V, fac, strip=strip),
                      la.local_plane_plain(t, V, fac))
     assert close(la.local_apply(xc, V, fac), la.local_apply_plain(xc, V, fac))
+
+
+def _c128(rng, shape, scale=1.0):
+    return torch.as_tensor((rng.normal(size=shape) + 1j * rng.normal(size=shape)) * scale,
+                           device="cuda")
+
+
+def _close_c128(out, ref):
+    """complex128 bar: 1e-11 of max|out| (the tensor-core and DFMA sums
+    differ from the plain einsum's only in order)."""
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    return float((out - ref).abs().max()) <= 1e-11 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("nk, nb, m1, m2, K, J", [
+    (2, 3, 5, 7, 11, 13),       # K, J no multiple of 4: one ragged tile
+    (1, 4, 9, 30, 37, 45),      # 270 rows: several row tiles, K over two chunks
+    (1, 2, 33, 33, 6, 70),      # 1089 rows: several blocks; J over two column tiles
+    (1, 3, 32, 32, 32, 64),     # the Si54 shapes, fewer bands
+    (1, 2, 6, 7, 160, 80),      # K of five chunks: F streams with the input
+    (1, 2, 9, 5, 200, 64)])     # K of seven chunks, streamed
+def test_cuda_c128_kernel_a_ragged(nk, nb, m1, m2, K, J, forward):
+    """Kernel A in complex128 against its plain version; for backward the
+    roles of K and J are those of the z axis back (K = n3 rows in, J out)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(31)
+    x = _c128(rng, (nk, nb, m1, m2, K) if forward else (nk, nb, K, m1, m2))
+    F = _c128(rng, (K, J), K ** -0.5)
+    la.counts.reset()
+    out = la.pruned_axis_dft(x, F, forward)
+    assert _close_c128(out, la.pruned_axis_dft_plain(x, F, forward))
+    assert la.counts.launches["pruned_axis_dft"] == 1
+
+
+def _plane_case(rng, nk, nb, n3, m, n):
+    """t [nk, nb, n3, m1, m2], V [nk, n3, n1, n2] and random complex128
+    factors of the planes' shapes."""
+    (m1, m2), (n1, n2) = m, n
+    t = _c128(rng, (nk, nb, n3, m1, m2))
+    V = torch.as_tensor(rng.normal(size=(nk, n3, n1, n2)), device="cuda")
+    fac = la.LocalFactors(
+        fwd=(_c128(rng, (m1, n1), m1 ** -0.5), _c128(rng, (m2, n2), m2 ** -0.5), None),
+        bwd=(_c128(rng, (n1, m1), n1 ** -0.5), _c128(rng, (n2, m2), n2 ** -0.5), None))
+    return t, V, fac
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk, nb, n3, m, n, strips", [
+    (2, 3, 4, (9, 13), (18, 22), (None, 5, 7, 8)),    # odd in every axis, nk = 2
+    (1, 2, 3, (64, 64), (120, 120), (None, 16)),      # Si256 planes: strips of 24, 16
+    (1, 2, 2, (32, 32), (64, 64), (None, 24)),        # Si54 planes: strips of 32, 24
+    (1, 2, 2, (136, 8), (144, 16), (None, 5)),        # 17 row tiles: out in device memory
+    (1, 1, 2, (64, 72), (128, 144), (None, 7))])      # 8 x 9 out tiles: out in device memory
+def test_cuda_c128_kernel_b_planes(nk, nb, n3, m, n, strips):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, V, fac = _plane_case(np.random.default_rng(32), nk, nb, n3, m, n)
+    ref = la.local_plane_plain(t, V, fac)
+    la.counts.reset()
+    for strip in strips:
+        assert _close_c128(la.local_plane(t, V, fac, strip=strip), ref)
+    assert la.counts.launches["local_plane"] == len(strips)
+
+
+@pytest.mark.cuda
+def test_cuda_c128_kernel_b_refuses_what_does_not_fit():
+    """The complex128 kernel B's shared-memory arithmetic: planes whose
+    narrowest strip needs more than 227 KB, and strips wider than fit; the
+    kernel's own count of its shared memory is the wrapper's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(33)
+    t, V, fac = _plane_case(rng, 1, 1, 1, (96, 96), (192, 192))
+    with pytest.raises(ValueError, match="shared memory"):
+        la.local_plane(t, V, fac)
+    t, V, fac = _plane_case(rng, 1, 1, 2, (16, 16), (18, 18))
+    with pytest.raises(ValueError, match="strip"):
+        la.local_plane(t, V, fac, strip=19)
+    for m1, m2, n1, strip in ((16, 16, 18, 18), (9, 13, 18, 5), (64, 64, 120, 24),
+                              (136, 8, 144, 16), (64, 72, 128, 7)):
+        assert la.library().dftk_local_plane_c128_smem(m1, m2, n1, strip) == \
+            la._plane_smem_c128(m1, m2, n1, strip)
 
 
 @pytest.mark.cuda

@@ -213,15 +213,16 @@ def test_wrappers_take_plain_path_on_cpu(bases):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("m, n, dtype, widest", [
-    ((32, 32), (64, 64), torch.complex128, 64),     # Si54: the whole plane fits
-    ((32, 32), (64, 64), torch.complex64, 64),
-    ((48, 48), (96, 96), torch.complex128, 79),     # strip-mined
+@pytest.mark.parametrize("m, n, dtype, default, widest", [
+    ((32, 32), (64, 64), torch.complex128, 32, 64),  # Si54: two blocks an SM; one fits all
+    ((32, 32), (64, 64), torch.complex64, 64, 64),   # the whole plane fits
+    ((48, 48), (96, 96), torch.complex128, 40, 40),  # strip-mined, one block
 ])
-def test_local_plane_strip_width(m, n, dtype, widest):
+def test_local_plane_strip_width(m, n, dtype, default, widest):
     t = torch.empty((1, 1, 1) + m, dtype=dtype)
-    assert la.local_plane_strip(t, *n) == widest
+    assert la.local_plane_strip(t, *n) == default
     assert la.local_plane_strip(t, *n, strip=16) == 16
+    assert la.local_plane_strip(t, *n, strip=widest) == widest
     with pytest.raises(ValueError):
         la.local_plane_strip(t, *n, strip=widest + 1)
 
@@ -230,6 +231,32 @@ def test_local_plane_refuses_oversized_planes():
     t = torch.empty((1, 1, 1, 96, 96), dtype=torch.complex128)
     with pytest.raises(ValueError, match="shared memory"):
         la.local_plane_strip(t, 192, 192)
+    # 17 row tiles are more than 16 warps hold in registers: the complex128
+    # output accumulates in device memory
+    t = torch.empty((1, 1, 1, 136, 8), dtype=torch.complex128)
+    assert la.local_plane_layout_c128(136, 8, 144, 16) == (16, 16, 0)
+    assert la.local_plane_strip(t, 144, 16) == 16
+    assert la.local_plane_strip(t.to(torch.complex64), 144, 16) == 16
+
+
+def test_local_plane_c128_layout_range():
+    """Every complex128 plane whose interleaved [m1, m2] and [m1, n2] planes
+    and [n1, 1] strip fit one block's shared memory (the float kernel's
+    layout), with m1 : m2 within 1 : 4 and 4 : 1 and n / m from 1 to 3, has
+    a layout of the complex128 kernel."""
+    ran = 0
+    for m1 in range(4, 140, 5):
+        for m2 in range(4, 140, 5):
+            if max(m1, m2) > 4 * min(m1, m2):
+                continue
+            for f in (1.0, 1.5, 2.0, 3.0):
+                n1, n2 = int(m1 * f + 0.99), int(m2 * f + 0.99)
+                if (m1 * m2 + m1 * n2 + n1) * 16 > la.SMEM_MAX:
+                    continue
+                strip, warps, oc = la.local_plane_layout_c128(m1, m2, n1, n2)
+                assert 1 <= strip <= n2 and (warps, oc) in la._PLANE_LAYOUTS_C128
+                ran += 1
+    assert ran > 1000
 
 
 def test_chip_smoke_local_plane_library_matches_plain(bases):
@@ -246,3 +273,4 @@ def test_chip_smoke_local_plane_library_matches_plain(bases):
     out = chip_smoke.local_plane_library(t, V, tb.pruned.factors)()
     assert out.shape == ref.shape and out.dtype == ref.dtype
     assert float((out - ref).abs().max()) < 1e-12 * float(ref.abs().max())
+
