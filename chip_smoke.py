@@ -6,13 +6,15 @@
 Phases (any failure raises and exits non-zero):
   1. check that a CUDA device exists; print the card's name and power limit
   2. build the hand-written CUDA kernels from dftk_tpu_torch/csrc; print
-     ptxas's registers and spills, and the DMMA count of the complex128
-     kernel B's SASS where cuobjdump is found
+     ptxas's registers and spills, the DMMA count of the complex128 kernel
+     B's SASS and the HMMA count of the bf16 kernels B and A where cuobjdump
+     is found
   3. hold each kernel, and the composed local apply, against its plain
      PyTorch version at the Si54 shapes (compact cube 32^3, grid 64^3,
      128 bands, Gamma) in complex128 (bar 1e-11 of max|out|) and complex64
      (bar 1e-5); time kernel, plain version, a one-call library version
-     where one exists and a torch.fft local apply with CUDA events
+     where one exists and a torch.fft local apply with CUDA events, and the
+     kernels' device time per call from torch.profiler
   4. run self_consistent_field (LOBPCG) in float64 on the GPU on the
      bench.py Si54 problem (LDA, HGH lda/si-q4, Ecut 10, Gamma, no
      symmetry) to a density tolerance of 1e-8, and require convergence,
@@ -23,6 +25,10 @@ Phases (any failure raises and exits non-zero):
      versions at the Si54 shapes: the kernel-vs-plain difference must be at
      least 10x smaller than the plain 'default'-vs-'highest' difference
      (relative Frobenius norms; the max abs errors are printed too); timed
+     (one launch with CUDA events, and device time per call from
+     torch.profiler), with their bounds, and kernel A beside its one-call
+     library version (torch.einsum of operands rounded outside the call),
+     held to the plain version by the same rule
   b. the compact-cube-resident Chebyshev filter chain of bench.py:160-192
      at Si54, 128 bands, chains of 25 and 100 applies, in complex128
      'highest', complex64 'highest' and bf16 'default': us per band-apply
@@ -38,8 +44,8 @@ Phases (any failure raises and exits non-zero):
      instantiation against its plain version with the bars of phases 3
      and a, and the one-call torch.einsum of kernel A forward and of kernel
      B against the plain complex128 version at its bar; ms per launch of
-     kernel A forward and kernel B (with its strip width) and of the two
-     einsums
+     kernel A forward and kernel B (with its strip width and bound, and for
+     bf16 the launches of the three iterations) and of the two einsums
   e. the filter-stage probe kernels (csrc/filter_stages.cu) at the JAX
      probes' shapes (t [64, 32, 2, 32, 128] f32, V 64^3, realified factors
      128 x 64): the copy at 1 and 8 planes per block and every stage set
@@ -96,8 +102,9 @@ Phases (any failure raises and exits non-zero):
      launched; kernel, plain, library and bound times as in phase g, and
      the swaps' shared-memory traffic
   5. print the kernels' JSON line (launches from phases c, e, f, g and h,
-     times from phases 3, a, e, f, g and h, bounds from the shapes), then
-     the result line.
+     times from phases 3, a, e, f, g and h, bounds from the shapes; the
+     main path's kernels also with their device time), then the result
+     line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -294,7 +301,7 @@ def kernel_phase(la, basis, device):
             check(err <= BARS[tag] * scale, f"{name} {tag} within {BARS[tag]}")
             if tag == "complex128":
                 results[name] = dict(max_abs_err=err, ms=cuda_ms(kern),
-                                     plain_ms=cuda_ms(plain))
+                                     plain_ms=cuda_ms(plain), device_ms=device_ms(kern))
         if tag == "complex128":
             # the one PyTorch call that computes each kernel's function
             results["pruned_axis_dft"]["library_ms"] = cuda_ms(
@@ -319,7 +326,8 @@ def kernel_phase(la, basis, device):
                 lambda: fft_local_apply(xc, V_full, live, grid_idx, n)))
     for name, r in results.items():
         print(f"[3] time complex128 {name}: " + ", ".join(
-            f"{k}={v:.4f}" for k, v in r.items() if k != "max_abs_err"), flush=True)
+            f"{k}={v:.4f}" for k, v in r.items() if k != "max_abs_err" and v is not None),
+            flush=True)
     return results, (xc_np, V_np)
 
 
@@ -376,6 +384,16 @@ def bf16_phase(la, basis, device, inputs):
             lambda: la.local_apply_plain(xc, V, fac, "default"),
             lambda: la.local_apply_plain(xc, V, fac)),
     }
+    # the one PyTorch call that computes kernel A's bf16 function: one einsum
+    # of the operands rounded outside the call (no torch product rounds
+    # complex64 operands to bf16 inside it), as B complex128's one call
+    # takes V made complex outside
+    xr, F3r = la.round_bf16(xc), la.round_bf16(fac.fwd[2])
+    library = {"pruned_axis_dft[bf16]": lambda: torch.einsum("kbxyc,cz->kbzxy", xr, F3r)}
+    x_shape, t_shape = tuple(xc.shape), tuple(t.shape)
+    m3, (n1, n2, n3) = x_shape[-1], basis.fft_size
+    work = {"pruned_axis_dft[bf16]": axis_dft_work(x_shape, m3, n3, 8),
+            "local_plane[bf16]": local_plane_work(t_shape, n1, n2, 8)}
     results = {}
     for name, (kern, plain, highest) in cases.items():
         out, ref, hi = kern(), plain(), highest()
@@ -387,9 +405,19 @@ def bf16_phase(la, basis, device, inputs):
               f"ratio (rel) {rel_rounding / max(rel, 1e-300):.3g}", flush=True)
         check(rel * BF16_MARGIN <= rel_rounding,
               f"{name}: kernel-vs-plain {BF16_MARGIN}x below default-vs-highest")
-        results[name] = dict(max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain))
-        print(f"[a] time {name}: ms={results[name]['ms']:.4f} "
-              f"plain_ms={results[name]['plain_ms']:.4f}", flush=True)
+        r = results[name] = dict(max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                                 device_ms=device_ms(kern))
+        if name in library:
+            lib_rel = rel_frobenius(library[name](), ref)
+            print(f"[a] {name} one-call library vs plain: rel={lib_rel:.3e}", flush=True)
+            check(lib_rel * BF16_MARGIN <= rel_rounding, f"{name} library call vs plain")
+            r["library_ms"] = cuda_ms(library[name])
+        line = f"[a] time {name}: " + ", ".join(
+            f"{k}={v:.4f}" for k, v in r.items() if k != "max_abs_err" and v is not None)
+        if name in work:
+            b = bound(work[name], "bf16")
+            line += f"; bound {b[0]:.4f} ms ({b[1]})"
+        print(line, flush=True)
     return results
 
 
@@ -572,7 +600,12 @@ def si256_phase(dt, la, device, n_iter=3):
                 b = bound(work, tag)
                 line += f"; {ms:.3f} ms per launch, bound {b[0]:.3f} ms ({b[1]})"
                 if name == "kernel B":
-                    line += f", strip {la.local_plane_strip(tt, n1, n2)} of {n2}"
+                    strip = (la.local_plane_strip(tt, n1, n2) if tag == "complex128" else
+                             la.local_plane_strip_bf16(m1, m2, n1, n2))
+                    line += f", strip {strip} of {n2}"
+                if tag == "bf16":
+                    count = "local_plane[bf16]" if name == "kernel B" else "pruned_axis_dft[bf16]"
+                    line += f"; {launches[count]} launches of {count} in the {n_iter} iterations"
                 if tag == "complex128":
                     line += (f"; one-call library "
                              f"{cuda_ms(library[name], reps=5, warmup=1):.3f} ms")
@@ -1313,8 +1346,11 @@ def main():
     for line in lib.log.splitlines():
         if "entry function" in line or "Used" in line or "spill" in line:
             print(f"[2] ptxas: {line.strip()}", flush=True)
-    for name, count in sass_counts(lib.path, "local_plane_c128_kernel", "DMMA").items():
-        print(f"[2] SASS: {count} DMMA instructions in {name}", flush=True)
+    for kernel, opcode in (("local_plane_c128_kernel", "DMMA"),
+                           ("local_plane_bf16_kernel", "HMMA"),
+                           ("axis_dft_bf16_kernel", "HMMA")):
+        for name, count in sass_counts(lib.path, kernel, opcode).items():
+            print(f"[2] SASS: {count} {opcode} instructions in {name}", flush=True)
 
     # ---- 3. kernels against their plain versions ---------------------------
     t0 = time.time()
@@ -1392,7 +1428,8 @@ def main():
                             max_abs_err=timings[name]["max_abs_err"],
                             ms=timings[name]["ms"], plain_ms=timings[name]["plain_ms"],
                             bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=timings[name].get("library_ms")))
+                            library_ms=timings[name].get("library_ms"),
+                            device_ms=timings[name]["device_ms"]))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

@@ -13,22 +13,6 @@ struct alignas(2 * sizeof(T)) cplx {
   T re, im;
 };
 
-// An operand of a complex product.  kBf16 (T = float only): real and
-// imaginary parts rounded to bf16, round-to-nearest-even, as
-// `x.astype(jnp.bfloat16)` does in the TPU kernels' 'default' precision.
-// The product of two such values is exact in f32, so the sums that use
-// them accumulate in f32 as the MXU's one-pass bf16 products do.
-template <typename T, bool kBf16>
-__device__ __forceinline__ cplx<T> operand(const cplx<T> v) {
-  if constexpr (kBf16) {
-    static_assert(sizeof(T) == sizeof(float), "the bf16 mode takes complex64 data");
-    return cplx<T>{__bfloat162float(__float2bfloat16_rn(v.re)),
-                   __bfloat162float(__float2bfloat16_rn(v.im))};
-  } else {
-    return v;
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ void cfma(cplx<T>& acc, const cplx<T> a, const cplx<T> b) {
   acc.re += a.re * b.re - a.im * b.im;
@@ -65,6 +49,63 @@ __device__ __forceinline__ void cmma(double (&acc)[2][2], double2 a, double br, 
   dmma(acc[0], -a.y, bi);
   dmma(acc[1], a.x, bi);
   dmma(acc[1], a.y, br);
+}
+
+// ---- bf16 tensor cores (mma.sync m16n8k16, HMMA) ---------------------------
+// Fragments of a 16 x 16 A tile, a 16 x 8 B tile and a 16 x 8 f32 C tile,
+// with gr = lane / 4 and tg = lane % 4 (each 32-bit register two bf16, the
+// lower column or k index in the low half):
+//   A: a0 (gr, 2tg..+1), a1 (gr+8, 2tg..+1), a2 (gr, 2tg+8..+9), a3 (gr+8, 2tg+8..+9)
+//   B: b0 (k 2tg..+1, n gr), b1 (k 2tg+8..+9, n gr)
+//   C: c0, c1 (gr, 2tg..+1), c2, c3 (gr+8, 2tg..+1)
+// A complex B fragment is one uint4 {re b0, re b1, im b0, im b1}.
+
+// two floats rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ void hmma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                     unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A complex A fragment: re, im and -im (negating a bf16 is exact: its sign
+// bit), negated once a k-step for all the tiles it feeds
+struct CFragA {
+  unsigned re[4], im[4], nim[4];
+  __device__ __forceinline__ void negate() {
+    #pragma unroll
+    for (int i = 0; i < 4; ++i) nim[i] = im[i] ^ 0x80008000u;
+  }
+};
+
+// One complex k-step of a 16 x 8 tile in four real MMAs:
+// acc[0] += Ar Br + (-Ai) Bi, acc[1] += Ar Bi + Ai Br.
+__device__ __forceinline__ void chmma(float (&acc)[2][4], const CFragA& a, uint4 b) {
+  hmma(acc[0], a.re, b.x, b.y);
+  hmma(acc[0], a.nim, b.z, b.w);
+  hmma(acc[1], a.re, b.z, b.w);
+  hmma(acc[1], a.im, b.x, b.y);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i (.trans: each transposed)
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
 
 // Opt a kernel into more than the default 48 KB of dynamic shared memory.

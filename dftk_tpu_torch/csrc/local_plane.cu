@@ -53,24 +53,60 @@
 //     (local_plane_layout_c128) picks the layout and the strip.
 //   * Five barriers a strip.
 
-// complex64 and bf16 (local_plane_kernel, the first design): the whole
-// [m1, n2] T1 in shared memory, strips of the x contractions only, each
-// output element one thread's dot product over one shared-memory operand
-// and one factor read through __ldg; no register blocking or tensor cores.
-// The bf16 mode is complex64 data whose operands are rounded to bf16
-// before each of the four contractions (the plane and T1 as they are stored
-// in shared memory, the potential-multiplied strip, each factor as it is
-// read), with f32 accumulation and the V multiply in f32 on the f32 sums:
-// the 'default' precision of fused_filter_mid (fused_filter.py:_dot_left,
-// :106-113).  The wrapper picks the strip width and refuses a shape whose
-// [m1, m2] + [m1, n2] planes alone exceed the 227 KB a block may use.
+// bf16 (local_plane_bf16_kernel): the 'default' precision of
+// dftk_tpu/kernels/fused_filter.py::fused_filter_mid (_dot_left, :106-113)
+// on the bf16 tensor cores, mma.sync m16n8k16 (HMMA) with f32 sums.  Every operand of every
+// complex product is rounded to bf16 once, as it is stored: the plane X as
+// it is loaded, T1s, S (after the V multiply in f32 on the f32 sums) and
+// T1s' as their tiles are written to shared memory, the four factors by the
+// wrapper (round_bf16's rounding, kept per factor tensor); the output is the
+// f32 sum, not rounded.  A complex k-step of a 16 x 8 tile is four real
+// MMAs, Cr += Ar Br + (-Ai) Bi, Ci += Ar Bi + Ai Br (negating a bf16 is
+// exact).
+//   What bounds it on an H100: 3.1 MFLOP a plane at Si54 (m 32, n 64),
+//   25.8 GFLOP for 128 bands, against 134 MB of complex64 planes in and
+//   out: bound by bytes, 0.040 ms (0.026 by operations at 989 TFLOP/s).
+//   At Si256 (m 64, n 120) a 256-band chunk is 371 GFLOP: bound by
+//   operations, 0.375 ms (bytes 0.32).
+//   * Same strip-accumulated data flow as complex128: for each strip of w
+//     y columns T1s = X F2f[:, strip], S = (F1f^T T1s) * V[:, strip],
+//     T1s' = F1b^T S, out += T1s' F2b[strip, :], the output [m1, m2] held
+//     in f32 registers across strips (each warp OC column tiles of 8 of one
+//     row tile of 16; OC = 0 where 8 warps x 4 do not hold it: the y
+//     backward is then a fifth strip contraction adding into the output in
+//     device memory).
+//   * Planar bf16 tiles in shared memory (X, one strip of T1s and then
+//     T1s', S), every dimension zero-padded to 16, rows padded by 8 bf16 so
+//     that ldmatrix's eight 16-byte rows fall on distinct banks: half the
+//     complex64 bytes.  The smem-side operand of each contraction comes
+//     through ldmatrix (.trans for T1s and S as B).
+//   * The factors come pre-rounded and pre-packed in fragment order
+//     (kernels/local_apply.py: F1f^T and F1b^T as A fragments, F2f and F2b
+//     per strip as B fragments), one coalesced 16-byte load a lane and part
+//     per fragment, L1/L2-resident: no shared memory and no rounding for
+//     them in the kernel.
+//   * A warp task is one row tile of 16 and G column tiles of 8 (4, or 2
+//     where 4 leave warps idle), so each A fragment feeds G tiles.  One
+//     block of 8 warps a plane; the wrapper picks the widest strip with
+//     which two blocks share an SM (all of n2 = 64 at Si54, 64 at Si256).
+//   * Four barriers a strip.
+//   ptxas: 126-128 registers; OC = 4 (the Si256 layout) spills 88 bytes,
+//   OC = 2 4 bytes, OC = 1 (Si54) and 0 none.
+
+// complex64 (local_plane_kernel, the first design, which now serves
+// complex64 only): the whole [m1, n2] T1 in shared memory, strips of the x
+// contractions only, each output element one thread's dot product over one
+// shared-memory operand and one factor read through __ldg; no register
+// blocking or tensor cores.  The wrapper picks the strip width and refuses
+// a shape whose [m1, m2] + [m1, n2] planes alone exceed the 227 KB a block
+// may use.
 #include "dftk_complex.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, bool kBf16>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 local_plane_kernel(const cplx<T>* __restrict__ t, const T* __restrict__ V,
                    const cplx<T>* __restrict__ F2f, const cplx<T>* __restrict__ F1f,
@@ -90,7 +126,7 @@ local_plane_kernel(const cplx<T>* __restrict__ t, const T* __restrict__ V,
   const T* Vz = V + (k * n3 + z) * n1 * n2;
 
   for (int e = threadIdx.x; e < m1 * m2; e += blockDim.x)
-    Xs[e] = operand<T, kBf16>(xin[e]);
+    Xs[e] = xin[e];
   __syncthreads();
 
   // y forward: T1[a1, j2] = sum_a2 Xs[a1, a2] F2f[a2, j2]
@@ -98,8 +134,8 @@ local_plane_kernel(const cplx<T>* __restrict__ t, const T* __restrict__ V,
     const int a1 = e / n2, j2 = e - a1 * n2;
     cplx<T> acc{0, 0};
     for (int a2 = 0; a2 < m2; ++a2)
-      cfma(acc, Xs[a1 * m2 + a2], operand<T, kBf16>(ldg(F2f + a2 * n2 + j2)));
-    T1[e] = operand<T, kBf16>(acc);
+      cfma(acc, Xs[a1 * m2 + a2], ldg(F2f + a2 * n2 + j2));
+    T1[e] = acc;
   }
   __syncthreads();
 
@@ -110,9 +146,9 @@ local_plane_kernel(const cplx<T>* __restrict__ t, const T* __restrict__ V,
       const int j1 = e / w, jj = e - j1 * w;
       cplx<T> acc{0, 0};
       for (int a1 = 0; a1 < m1; ++a1)
-        cfma(acc, operand<T, kBf16>(ldg(F1f + a1 * n1 + j1)), T1[a1 * n2 + s0 + jj]);
+        cfma(acc, ldg(F1f + a1 * n1 + j1), T1[a1 * n2 + s0 + jj]);
       const T v = ldg(Vz + j1 * n2 + s0 + jj);
-      Sb[j1 * strip + jj] = operand<T, kBf16>(cplx<T>{acc.re * v, acc.im * v});
+      Sb[j1 * strip + jj] = cplx<T>{acc.re * v, acc.im * v};
     }
     __syncthreads();
     // x backward into the strip's columns of T1 (their forward is done)
@@ -120,8 +156,8 @@ local_plane_kernel(const cplx<T>* __restrict__ t, const T* __restrict__ V,
       const int a1 = e / w, jj = e - a1 * w;
       cplx<T> acc{0, 0};
       for (int j1 = 0; j1 < n1; ++j1)
-        cfma(acc, operand<T, kBf16>(ldg(F1b + j1 * m1 + a1)), Sb[j1 * strip + jj]);
-      T1[a1 * n2 + s0 + jj] = operand<T, kBf16>(acc);
+        cfma(acc, ldg(F1b + j1 * m1 + a1), Sb[j1 * strip + jj]);
+      T1[a1 * n2 + s0 + jj] = acc;
     }
     __syncthreads();
   }
@@ -131,22 +167,22 @@ local_plane_kernel(const cplx<T>* __restrict__ t, const T* __restrict__ V,
     const int a1 = e / m2, a2 = e - a1 * m2;
     cplx<T> acc{0, 0};
     for (int j2 = 0; j2 < n2; ++j2)
-      cfma(acc, T1[a1 * n2 + j2], operand<T, kBf16>(ldg(F2b + j2 * m2 + a2)));
+      cfma(acc, T1[a1 * n2 + j2], ldg(F2b + j2 * m2 + a2));
     xout[e] = acc;
   }
 }
 
-template <typename T, bool kBf16>
+template <typename T>
 int launch_local_plane(const void* t, const void* V, const void* F2f,
                        const void* F1f, const void* F1b, const void* F2b,
                        void* out, int nk, int nb, int n3, int m1, int m2,
                        int n1, int n2, int strip, void* stream) {
   const size_t smem = (static_cast<size_t>(m1) * m2 + static_cast<size_t>(m1) * n2
                        + static_cast<size_t>(n1) * strip) * sizeof(cplx<T>);
-  cudaError_t err = allow_smem(local_plane_kernel<T, kBf16>, smem);
+  cudaError_t err = allow_smem(local_plane_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned int planes = static_cast<unsigned int>(nk) * nb * n3;
-  local_plane_kernel<T, kBf16><<<planes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  local_plane_kernel<T><<<planes, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const cplx<T>*>(t), static_cast<const T*>(V),
       static_cast<const cplx<T>*>(F2f), static_cast<const cplx<T>*>(F1f),
       static_cast<const cplx<T>*>(F1b), static_cast<const cplx<T>*>(F2b),
@@ -334,7 +370,7 @@ local_plane_c128_kernel(const double2* __restrict__ t, const double* __restrict_
     strip_gemm<WARPS, G>(g.m1t, g.wt, n1p, warp, gr, tg, f1b_frag, Sr, Si, g.pw, to_t1);
     __syncthreads();
     // y backward: out += T1s' F2b[strip, :]
-    if (OC == 0) {
+    if constexpr (OC == 0) {
       const bool first = s0 == 0;
       strip_gemm<WARPS, G>(g.m1t, g.m2t, wp, warp, gr, tg, t1_frag, Hr, Hi, g.pm,
                  [&](int r, int c, const double (&acc)[2][2]) {
@@ -421,6 +457,305 @@ int launch_local_plane_c128(const void* t, const void* V, const void* F2f, const
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- bf16 -----------------------------------------------------------------
+
+constexpr int kBf16Warps = 8;
+constexpr size_t kSmemMax = 232448;   // the most dynamic shared memory a block may use
+
+// Launch geometry: true sizes, 16-tile counts, the strip width, and the
+// shared row pitches in bf16 (16-tiles + 8: a row is an odd number of
+// 16-byte units, so ldmatrix's eight rows fall on distinct banks).
+struct PlaneBf16Geom {
+  int m1, m2, n1, n2, strip;
+  int m1t, m2t, n1t, wt;
+  int px, pw;
+};
+
+PlaneBf16Geom plane_bf16_geom(int m1, int m2, int n1, int n2, int strip) {
+  PlaneBf16Geom g{m1, m2, n1, n2, strip, (m1 + 15) / 16, (m2 + 15) / 16, (n1 + 15) / 16,
+                  (strip + 15) / 16, 0, 0};
+  g.px = 16 * g.m2t + 8;
+  g.pw = 16 * g.wt + 8;
+  return g;
+}
+
+// bytes: X [m1p][px], T1s [m1p][pw] and S [n1p][pw], each re and im
+size_t plane_bf16_smem(const PlaneBf16Geom& g) {
+  const size_t m1p = 16 * g.m1t, n1p = 16 * g.n1t;
+  return 2 * sizeof(__nv_bfloat16) * (m1p * g.px + (m1p + n1p) * g.pw);
+}
+
+// out column tiles of 8 a warp holds in registers: the fewest of 1, 2, 4
+// with which 8 warps hold the [m1, m2] output, else 0 (device memory)
+int plane_bf16_oc(int m1, int m2) {
+  const int m1t = (m1 + 15) / 16, m2n = 2 * ((m2 + 15) / 16);
+  for (int oc = 1; oc <= 4; oc *= 2)
+    if (m1t * ((m2n + oc - 1) / oc) <= kBf16Warps) return oc;
+  return 0;
+}
+
+// One strip contraction C[Mt x Nt tiles of 16 x 8] = A[., Kt k-steps of 16]
+// B on the bf16 tensor cores.  loadA(mt, ks, a) gives a complex A fragment,
+// loadB(nt, ks, b0, b1) the B fragments of column tiles nt and nt + 1 (Nt
+// is even); a warp task is one row tile and G column tiles, and
+// store(mt, nt, acc) takes each finished tile.
+template <int G, typename LoadA, typename LoadB, typename Store>
+__device__ __forceinline__ void strip_hmma(int Mt, int Nt, int Kt, int warp, LoadA loadA,
+                                           LoadB loadB, Store store) {
+  const int ngroups = (Nt + G - 1) / G;
+  for (int u = warp; u < Mt * ngroups; u += kBf16Warps) {
+    const int mt = u / ngroups, n0 = (u - mt * ngroups) * G;
+    float acc[G][2][4] = {};
+    for (int ks = 0; ks < Kt; ++ks) {
+      CFragA a;
+      loadA(mt, ks, a);
+      a.negate();
+      uint4 b[G];
+      #pragma unroll
+      for (int c = 0; c < G; c += 2)
+        if (n0 + c < Nt) loadB(n0 + c, ks, b[c], b[c + 1]);
+      #pragma unroll
+      for (int c = 0; c < G; ++c)
+        if (n0 + c < Nt) chmma(acc[c], a, b[c]);
+    }
+    #pragma unroll
+    for (int c = 0; c < G; ++c)
+      if (n0 + c < Nt) store(mt, n0 + c, acc[c]);
+  }
+}
+
+// The packed factors (kernels/local_apply.py::_pack_a, _pack_b): A
+// fragments [Mt][Kt][re, im][32 lanes] and B fragments [Nt][Kt][32 lanes]
+// of uint4; P2f [strips][2 wt][m2t][32] and P2b [strips][2 m2t][wt][32] per
+// strip of the wrapper's width.
+template <int OC>
+__global__ void __launch_bounds__(32 * kBf16Warps, 2)
+local_plane_bf16_kernel(const float2* __restrict__ t, const float* __restrict__ V,
+                        const uint4* __restrict__ P2f, const uint4* __restrict__ P1f,
+                        const uint4* __restrict__ P1b, const uint4* __restrict__ P2b,
+                        float2* __restrict__ out, int nb, int n3, PlaneBf16Geom g,
+                        bool pairs) {
+  using u16 = unsigned short;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m1p = 16 * g.m1t, n1p = 16 * g.n1t;
+  u16* Xr = reinterpret_cast<u16*>(smem_raw);   // [m1p][px]  the plane
+  u16* Xi = Xr + m1p * g.px;
+  u16* Tr = Xi + m1p * g.px;                     // [m1p][pw]  T1s, then T1s'
+  u16* Ti = Tr + m1p * g.pw;
+  u16* Sr = Ti + m1p * g.pw;                     // [n1p][pw]  S
+  u16* Si = Sr + n1p * g.pw;
+
+  const size_t q = blockIdx.x;                   // plane (k, band, z)
+  const size_t k = q / (static_cast<size_t>(nb) * n3);
+  const int z = static_cast<int>(q % n3);
+  const float2* xin = t + q * g.m1 * g.m2;
+  float2* xout = out + q * g.m1 * g.m2;
+  const float* Vz = V + (k * n3 + z) * g.n1 * g.n2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, tg = lane & 3;
+
+  // the plane, rounded, planar, zero past m1 and m2; pairs along a2 (one
+  // 16-byte load where m2 is even and the plane aligned)
+  const int hp = 8 * g.m2t;
+  for (int e = tid; e < m1p * hp; e += 32 * kBf16Warps) {
+    const int a1 = e / hp, a2 = 2 * (e - a1 * hp);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (a1 < g.m1 && a2 < g.m2) {
+      const float2* src = xin + a1 * g.m2 + a2;
+      if (pairs) {
+        v = *reinterpret_cast<const float4*>(src);
+      } else {
+        const float2 v0 = src[0];
+        const float2 v1 = a2 + 1 < g.m2 ? src[1] : make_float2(0.f, 0.f);
+        v = make_float4(v0.x, v0.y, v1.x, v1.y);
+      }
+    }
+    *reinterpret_cast<unsigned*>(Xr + a1 * g.px + a2) = pack_bf16(v.x, v.z);
+    *reinterpret_cast<unsigned*>(Xi + a1 * g.px + a2) = pack_bf16(v.y, v.w);
+  }
+
+  // the out tiles of this warp: row tile orow, column tiles ocol .. ocol + OC
+  constexpr int NO = OC > 0 ? OC : 1;
+  const int m2n = 2 * g.m2t;
+  const int ogroups = (m2n + NO - 1) / NO;
+  const bool holds_out = OC > 0 && warp < g.m1t * ogroups;
+  const int orow = holds_out ? warp / ogroups : 0;
+  const int ocol = holds_out ? (warp - orow * ogroups) * NO : 0;
+  float oacc[NO][2][4] = {};
+
+  // A from planar rows of pitch p (row tile mt, k-step ks)
+  auto lds_a = [&](const u16* R, const u16* I, int p, int mt, int ks, CFragA& a) {
+    const int o = (16 * mt + (lane & 15)) * p + 16 * ks + 8 * (lane >> 4);
+    ldsm4(a.re, R + o);
+    ldsm4(a.im, I + o);
+  };
+  // B from planar [k][pitch p] rows: column tiles nt, nt + 1
+  auto lds_b = [&](const u16* R, const u16* I, int p, int nt, int ks, uint4& b0, uint4& b1) {
+    const int o = (16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1)) * p + 8 * (nt + (lane >> 4));
+    unsigned r[4], i[4];
+    ldsm4t(r, R + o);
+    ldsm4t(i, I + o);
+    b0 = make_uint4(r[0], r[1], i[0], i[1]);
+    b1 = make_uint4(r[2], r[3], i[2], i[3]);
+  };
+  auto ldg_a = [&](const uint4* Pk, int Kt, int mt, int ks, CFragA& a) {
+    const uint4* f = Pk + static_cast<size_t>((mt * Kt + ks) * 2) * 32 + lane;
+    const uint4 r = __ldg(f), i = __ldg(f + 32);
+    a.re[0] = r.x; a.re[1] = r.y; a.re[2] = r.z; a.re[3] = r.w;
+    a.im[0] = i.x; a.im[1] = i.y; a.im[2] = i.z; a.im[3] = i.w;
+  };
+  auto ldg_b = [&](const uint4* Pk, int Kt, int nt, int ks) {
+    return __ldg(Pk + static_cast<size_t>(nt * Kt + ks) * 32 + lane);
+  };
+  // a finished tile, rounded to bf16, into planar rows of pitch p
+  auto sts_c = [&](u16* R, u16* I, int p, int mt, int nt, const float (&acc)[2][4]) {
+    const int o = (16 * mt + gr) * p + 8 * nt + 2 * tg;
+    *reinterpret_cast<unsigned*>(R + o) = pack_bf16(acc[0][0], acc[0][1]);
+    *reinterpret_cast<unsigned*>(R + o + 8 * p) = pack_bf16(acc[0][2], acc[0][3]);
+    *reinterpret_cast<unsigned*>(I + o) = pack_bf16(acc[1][0], acc[1][1]);
+    *reinterpret_cast<unsigned*>(I + o + 8 * p) = pack_bf16(acc[1][2], acc[1][3]);
+  };
+  auto run = [&](int Mt, int Nt, int Kt, auto loadA, auto loadB, auto store) {
+    if (Mt * ((Nt + 3) / 4) >= kBf16Warps)
+      strip_hmma<4>(Mt, Nt, Kt, warp, loadA, loadB, store);
+    else
+      strip_hmma<2>(Mt, Nt, Kt, warp, loadA, loadB, store);
+  };
+
+  const int nst = (g.n2 + g.strip - 1) / g.strip;
+  for (int s = 0; s < nst; ++s) {
+    const int s0 = s * g.strip, w = min(g.strip, g.n2 - s0);
+    const int wts = (w + 15) / 16, Nt = 2 * wts;
+    const uint4* p2f = P2f + static_cast<size_t>(s) * 2 * g.wt * g.m2t * 32;
+    const uint4* p2b = P2b + static_cast<size_t>(s) * m2n * g.wt * 32;
+    __syncthreads();
+    // y forward: T1s = X F2f[:, strip]
+    run(g.m1t, Nt, g.m2t,
+        [&](int mt, int ks, CFragA& a) { lds_a(Xr, Xi, g.px, mt, ks, a); },
+        [&](int nt, int ks, uint4& b0, uint4& b1) {
+          b0 = ldg_b(p2f, g.m2t, nt, ks);
+          b1 = ldg_b(p2f, g.m2t, nt + 1, ks);
+        },
+        [&](int mt, int nt, const float (&acc)[2][4]) { sts_c(Tr, Ti, g.pw, mt, nt, acc); });
+    __syncthreads();
+    // x forward and the potential: S = (F1f^T T1s) * V[:, strip], the V
+    // multiply in f32 on the f32 sums, then rounded
+    run(g.n1t, Nt, g.m1t,
+        [&](int mt, int ks, CFragA& a) { ldg_a(P1f, g.m1t, mt, ks, a); },
+        [&](int nt, int ks, uint4& b0, uint4& b1) { lds_b(Tr, Ti, g.pw, nt, ks, b0, b1); },
+        [&](int mt, int nt, const float (&acc)[2][4]) {
+          float sc[2][4];
+          #pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j1 = 16 * mt + gr + 8 * (i >> 1), jj = 8 * nt + 2 * tg + (i & 1);
+            const float v = j1 < g.n1 && jj < w ? __ldg(Vz + j1 * g.n2 + s0 + jj) : 0.f;
+            sc[0][i] = acc[0][i] * v;
+            sc[1][i] = acc[1][i] * v;
+          }
+          sts_c(Sr, Si, g.pw, mt, nt, sc);
+        });
+    __syncthreads();
+    // x backward: T1s' = F1b^T S, over T1s (read in full before the barrier)
+    run(g.m1t, Nt, g.n1t,
+        [&](int mt, int ks, CFragA& a) { ldg_a(P1b, g.n1t, mt, ks, a); },
+        [&](int nt, int ks, uint4& b0, uint4& b1) { lds_b(Sr, Si, g.pw, nt, ks, b0, b1); },
+        [&](int mt, int nt, const float (&acc)[2][4]) { sts_c(Tr, Ti, g.pw, mt, nt, acc); });
+    __syncthreads();
+    // y backward: out += T1s' F2b[strip, :]
+    if constexpr (OC == 0) {
+      const bool first = s == 0;
+      run(g.m1t, m2n, wts,
+          [&](int mt, int ks, CFragA& a) { lds_a(Tr, Ti, g.pw, mt, ks, a); },
+          [&](int nt, int ks, uint4& b0, uint4& b1) {
+            b0 = ldg_b(p2b, g.wt, nt, ks);
+            b1 = ldg_b(p2b, g.wt, nt + 1, ks);
+          },
+          [&](int mt, int nt, const float (&acc)[2][4]) {
+            #pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int a1 = 16 * mt + gr + 8 * (i >> 1), a2 = 8 * nt + 2 * tg + (i & 1);
+              if (a1 < g.m1 && a2 < g.m2) {
+                float2* o = xout + a1 * g.m2 + a2;
+                const float2 prev = first ? make_float2(0.f, 0.f) : *o;
+                *o = make_float2(prev.x + acc[0][i], prev.y + acc[1][i]);
+              }
+            }
+          });
+    } else {
+      for (int ks = 0; holds_out && ks < wts; ++ks) {
+        CFragA a;
+        lds_a(Tr, Ti, g.pw, orow, ks, a);
+        a.negate();
+        #pragma unroll
+        for (int o = 0; o < NO; ++o)
+          if (ocol + o < m2n) chmma(oacc[o], a, ldg_b(p2b, g.wt, ocol + o, ks));
+      }
+    }
+  }
+
+  if (holds_out) {
+    #pragma unroll
+    for (int o = 0; o < NO; ++o) {
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a1 = 16 * orow + gr + 8 * h, a2 = 8 * (ocol + o) + 2 * tg;
+        if (ocol + o < m2n && a1 < g.m1 && a2 < g.m2) {
+          float2* o2 = xout + a1 * g.m2 + a2;
+          const float2 v0 = make_float2(oacc[o][0][2 * h], oacc[o][1][2 * h]);
+          const float2 v1 = make_float2(oacc[o][0][2 * h + 1], oacc[o][1][2 * h + 1]);
+          if (pairs) {
+            *reinterpret_cast<float4*>(o2) = make_float4(v0.x, v0.y, v1.x, v1.y);
+          } else {
+            o2[0] = v0;
+            if (a2 + 1 < g.m2) o2[1] = v1;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int OC>
+cudaError_t launch_plane_bf16_as(const PlaneBf16Geom& g, size_t smem, unsigned int planes,
+                                 const float2* t, const float* V, const uint4* P2f,
+                                 const uint4* P1f, const uint4* P1b, const uint4* P2b,
+                                 float2* out, int nb, int n3, bool pairs, cudaStream_t s) {
+  cudaError_t err = allow_smem(local_plane_bf16_kernel<OC>, smem);
+  if (err != cudaSuccess) return err;
+  local_plane_bf16_kernel<OC><<<planes, 32 * kBf16Warps, smem, s>>>(t, V, P2f, P1f, P1b, P2b,
+                                                                    out, nb, n3, g, pairs);
+  return cudaGetLastError();
+}
+
+int launch_local_plane_bf16(const void* t, const void* V, const void* P2f, const void* P1f,
+                            const void* P1b, const void* P2b, void* out, int nk, int nb,
+                            int n3, int m1, int m2, int n1, int n2, int strip, void* stream) {
+  if (strip < 1 || strip > n2) return static_cast<int>(cudaErrorInvalidValue);
+  const PlaneBf16Geom g = plane_bf16_geom(m1, m2, n1, n2, strip);
+  const size_t smem = plane_bf16_smem(g);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int planes = static_cast<unsigned int>(nk) * nb * n3;
+  // 16-byte plane loads and stores: m2 even and both planes aligned
+  const bool pairs = m2 % 2 == 0 && reinterpret_cast<size_t>(t) % 16 == 0
+                     && reinterpret_cast<size_t>(out) % 16 == 0;
+  const auto* x = static_cast<const float2*>(t);
+  const auto* v = static_cast<const float*>(V);
+  const auto* p2f = static_cast<const uint4*>(P2f);
+  const auto* p1f = static_cast<const uint4*>(P1f);
+  const auto* p1b = static_cast<const uint4*>(P1b);
+  const auto* p2b = static_cast<const uint4*>(P2b);
+  auto* y = static_cast<float2*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (plane_bf16_oc(m1, m2)) {
+    case 1: err = launch_plane_bf16_as<1>(g, smem, planes, x, v, p2f, p1f, p1b, p2b, y, nb, n3, pairs, s); break;
+    case 2: err = launch_plane_bf16_as<2>(g, smem, planes, x, v, p2f, p1f, p1b, p2b, y, nb, n3, pairs, s); break;
+    case 4: err = launch_plane_bf16_as<4>(g, smem, planes, x, v, p2f, p1f, p1b, p2b, y, nb, n3, pairs, s); break;
+    default: err = launch_plane_bf16_as<0>(g, smem, planes, x, v, p2f, p1f, p1b, p2b, y, nb, n3, pairs, s);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -444,16 +779,26 @@ int dftk_local_plane_c64(const void* t, const void* V, const void* F2f,
                          const void* F1f, const void* F1b, const void* F2b,
                          void* out, int nk, int nb, int n3, int m1, int m2,
                          int n1, int n2, int strip, void* stream) {
-  return launch_local_plane<float, false>(t, V, F2f, F1f, F1b, F2b, out, nk, nb, n3,
+  return launch_local_plane<float>(t, V, F2f, F1f, F1b, F2b, out, nk, nb, n3,
                                    m1, m2, n1, n2, strip, stream);
 }
 
-int dftk_local_plane_bf16(const void* t, const void* V, const void* F2f,
-                          const void* F1f, const void* F1b, const void* F2b,
+// P2f, P1f, P1b, P2b: the factors rounded to bf16 and packed in fragment
+// order (kernels/local_apply.py::bf16_plane_packs) for this strip width
+int dftk_local_plane_bf16(const void* t, const void* V, const void* P2f,
+                          const void* P1f, const void* P1b, const void* P2b,
                           void* out, int nk, int nb, int n3, int m1, int m2,
                           int n1, int n2, int strip, void* stream) {
-  return launch_local_plane<float, true>(t, V, F2f, F1f, F1b, F2b, out, nk, nb, n3,
-                                         m1, m2, n1, n2, strip, stream);
+  return launch_local_plane_bf16(t, V, P2f, P1f, P1b, P2b, out, nk, nb, n3, m1, m2, n1, n2,
+                                 strip, stream);
 }
+
+// shared memory of one bf16 block at these plane sizes and strip width
+int dftk_local_plane_bf16_smem(int m1, int m2, int n1, int strip) {
+  return static_cast<int>(plane_bf16_smem(plane_bf16_geom(m1, m2, n1, 1, strip)));
+}
+
+// out column tiles a warp of the bf16 kernel holds (0: device memory)
+int dftk_local_plane_bf16_oc(int m1, int m2) { return plane_bf16_oc(m1, m2); }
 
 }  // extern "C"

@@ -30,6 +30,8 @@ _SIGNATURES = {
     **{f"dftk_local_plane_{m}": [_P] * 7 + [_I] * 8 + [_P] for m in ("c64", "bf16")},
     "dftk_local_plane_c128": [_P] * 7 + [_I] * 10 + [_P],
     "dftk_local_plane_c128_smem": [_I] * 4,
+    "dftk_local_plane_bf16_smem": [_I] * 4,
+    "dftk_local_plane_bf16_oc": [_I] * 2,
     "dftk_probe_copy": [_P, _P, _I, _I, _I, _P],
     "dftk_probe_stages": [_P] * 7 + [_I] * 10 + [_P],
     "dftk_probe_planar": [_P] * 11 + [_I] * 8 + [_P],

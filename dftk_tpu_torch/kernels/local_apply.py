@@ -16,7 +16,10 @@ complex128).  "default" is the TPU kernels' one-pass bf16 mode, used by the
 Chebyshev filter: complex64 data and factors in memory, the real and
 imaginary parts of both operands of every complex product rounded to bf16
 (round to nearest even), f32 accumulation, the V multiply in f32.  Its
-launches and plain calls count under "<name>[bf16]".
+launches and plain calls count under "<name>[bf16]".  The bf16 kernels read
+the factors rounded to bf16 (`round_bf16`'s rounding) and packed in the
+order of the tensor cores' fragments (`bf16_axis_pack`, `bf16_plane_packs`),
+made once per factor tensor and kept while it is unchanged.
 
 Dispatch is by device only.  A CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  No failure of the build or of a
@@ -34,11 +37,13 @@ factor contracting its own axis (see `ops/pruned.py` for their values).
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as tnf
+from torch.utils.weak import WeakTensorKeyDictionary
 
 # The most dynamic shared memory one block may use on sm_90 (227 KB).
 SMEM_MAX = 232448
 _GRID_Y_MAX = 65535
-_AXIS_TILE_ROWS = 32        # kTileRows of csrc/pruned_axis_dft.cu (complex64, bf16)
+_AXIS_TILE_ROWS = 32        # kTileRows of csrc/pruned_axis_dft.cu (complex64)
 # Half an sm_90 SM's 228 KB, less the 1 KB reserved per block: two blocks fit.
 _TWO_BLOCK_SMEM = 233472 // 2 - 1024
 # The complex128 kernel B's block layouts, (warps, out column tiles a warp
@@ -54,6 +59,19 @@ def _plane_smem_c128(m1, m2, n1, strip):
     `dftk_local_plane_c128_smem`, is held to it by a CUDA test)."""
     m1p, m2p, n1p, wp = (8 * -(-d // 8) for d in (m1, m2, n1, strip))
     return 16 * (m1p * (m2p + 4) + (m1p + n1p + m2p) * (wp + 4) + wp * (m2p + 4))
+
+
+def _pad(d, q):
+    return q * -(-d // q)
+
+
+def _plane_smem_bf16(m1, m2, n1, strip):
+    """Shared memory of the bf16 kernel B at one strip width: the plane, one
+    strip of T1s and S, re and im in bf16, on whole 16-tiles with rows
+    padded by 8 (the kernel's own count, `dftk_local_plane_bf16_smem`, is
+    held to it by a CUDA test)."""
+    m1p, m2p, n1p, wp = (_pad(d, 16) for d in (m1, m2, n1, strip))
+    return 4 * (m1p * (m2p + 8) + (m1p + n1p) * (wp + 8))
 
 
 class LocalFactors(NamedTuple):
@@ -109,6 +127,96 @@ def round_bf16(x):
         raise TypeError(f"the bf16 mode takes complex64 data, got {x.dtype}")
     return torch.complex(x.real.to(torch.bfloat16).float(),
                          x.imag.to(torch.bfloat16).float())
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' factors: rounded once, in fragment order
+# ---------------------------------------------------------------------------
+#
+# mma.sync m16n8k16 fragments (csrc/dftk_complex.cuh), lane = 4 gr + tg:
+#   A (16 x 16): a0 (row gr, k 2tg, 2tg+1), a1 (row gr+8), a2 (k +8), a3 (both)
+#   B (16 x 8):  b0 (k 2tg, 2tg+1, column gr), b1 (k +8)
+# each register two bf16, the lower index in the low half.
+
+def _frags_a(M):
+    """A fragments of real bf16 matrices [..., R, C], zero-padded to 16 x 16
+    tiles: [..., R/16, C/16, 32 lanes, 8] (a0..a3, two values each)."""
+    *lead, R, C = M.shape
+    M = tnf.pad(M, (0, _pad(C, 16) - C, 0, _pad(R, 16) - R))
+    Rt, Ct, n = M.shape[-2] // 16, M.shape[-1] // 16, len(lead)
+    M = M.reshape(*lead, Rt, 2, 8, Ct, 2, 4, 2)       # rows (rh, gr), columns (ch, tg, e)
+    order = (n, n + 3, n + 2, n + 5, n + 4, n + 1, n + 6)   # Rt, Ct, gr, tg, ch, rh, e
+    return M.permute(*range(n), *order).reshape(*lead, Rt, Ct, 32, 8)
+
+
+def _frags_b(M):
+    """B fragments of real bf16 matrices [..., K, N], zero-padded to 16 x 8
+    tiles: [..., N/8, K/16, 32 lanes, 4] (b0, b1, two values each)."""
+    *lead, K, N = M.shape
+    M = tnf.pad(M, (0, _pad(N, 8) - N, 0, _pad(K, 16) - K))
+    Kt, Nt, n = M.shape[-2] // 16, M.shape[-1] // 8, len(lead)
+    M = M.reshape(*lead, Kt, 2, 4, 2, Nt, 8)          # k (kh, tg, e), columns gr
+    order = (n + 4, n, n + 5, n + 2, n + 1, n + 3)    # Nt, Kt, gr, tg, kh, e
+    return M.permute(*range(n), *order).reshape(*lead, Nt, Kt, 32, 4)
+
+
+def _pack_a(F):
+    """Complex F [..., R, C] rounded to bf16 as A fragments: [..., R/16,
+    C/16, (re, im), 32, 8] bf16, one uint4 a lane and part."""
+    return torch.stack((_frags_a(F.real.to(torch.bfloat16)),
+                        _frags_a(F.imag.to(torch.bfloat16))), dim=-3).contiguous()
+
+
+def _pack_b(F):
+    """Complex F [..., K, N] rounded to bf16 as B fragments: [..., N/8, K/16,
+    32, 8] bf16, one uint4 {re b0, re b1, im b0, im b1} a lane."""
+    return torch.cat((_frags_b(F.real.to(torch.bfloat16)),
+                      _frags_b(F.imag.to(torch.bfloat16))), dim=-1).contiguous()
+
+
+_PACKS = WeakTensorKeyDictionary()
+
+
+def _packed(F, key, make):
+    """make() for factor F, made once per key while F is unchanged (its
+    in-place version counter) and dropped with F."""
+    version, packs = _PACKS.get(F, (None, None))
+    if version != F._version:
+        packs = {}
+        _PACKS[F] = (F._version, packs)
+    if key not in packs:
+        packs[key] = make()
+    return packs[key]
+
+
+def bf16_axis_pack(F, forward):
+    """Kernel A's factor F [K, J] for the bf16 kernel: forward F^T as A
+    fragments [ceil(J/16), ceil(K/16), 2, 32, 8], backward F as B fragments
+    [ceil(J/8), ceil(K/16), 32, 8]."""
+    return _packed(F, ("z", bool(forward)),
+                   lambda: _pack_a(F.T) if forward else _pack_b(F))
+
+
+def bf16_plane_packs(factors, strip):
+    """Kernel B's factors for the bf16 kernel at this strip width: (F2f per
+    strip as B fragments [strips, 2 wt, m2t, 32, 8], F1f^T and F1b^T as A
+    fragments [n1t, m1t, ...] and [m1t, n1t, ...], F2b per strip as B
+    fragments [strips, 2 m2t, wt, 32, 8]); m1t = ceil(m1/16), wt =
+    ceil(strip/16), each strip zero-padded to wt tiles."""
+    (F1, F2), (B1, B2) = factors.fwd[:2], factors.bwd[:2]
+    (m2, n2), m1 = F2.shape, F1.shape[0]
+    ns, wp = -(-n2 // strip), _pad(strip, 16)
+
+    def y_fwd():        # [m2, n2] -> strips [ns, m2, wp] -> B (K = m2, N = strip)
+        G = tnf.pad(F2, (0, ns * strip - n2)).reshape(m2, ns, strip).permute(1, 0, 2)
+        return _pack_b(tnf.pad(G, (0, wp - strip)))
+
+    def y_bwd():        # [n2, m2] -> strips [ns, wp, m2p] -> B (K = strip, N = m2)
+        H = tnf.pad(B2, (0, 0, 0, ns * strip - n2)).reshape(ns, strip, m2)
+        return _pack_b(tnf.pad(H, (0, _pad(m2, 16) - m2, 0, wp - strip)))
+
+    return (_packed(F2, ("y", strip), y_fwd), _packed(F1, ("x",), lambda: _pack_a(F1.T)),
+            _packed(B1, ("x",), lambda: _pack_a(B1.T)), _packed(B2, ("y", strip), y_bwd))
 
 
 # ---------------------------------------------------------------------------
@@ -202,16 +310,17 @@ def pruned_axis_dft(x, F, forward, precision="highest"):
         if n3 != K:
             raise ValueError(f"pruned_axis_dft: x has n3={n3}, F has {K} rows")
         out = torch.empty((nk, nb, m1, m2, J), dtype=x.dtype, device=x.device)
-    # complex128 streams F with its input where F is too tall to stay in
-    # shared memory; complex64 and bf16 stage a [32, K (+1 forward)] tile
-    smem = 0 if x.dtype == torch.complex128 else \
+    # complex128 and bf16 stream their input past a fixed shared-memory
+    # tile; complex64 stages a [32, K (+1 forward)] tile
+    smem = 0 if x.dtype == torch.complex128 or precision == "default" else \
         _AXIS_TILE_ROWS * (K + int(bool(forward))) * x.element_size()
     if smem > SMEM_MAX or nk * nb > _GRID_Y_MAX:
         raise ValueError(f"pruned_axis_dft: shape {tuple(x.shape)} with "
                          f"factor {tuple(F.shape)} is beyond this kernel "
                          f"({smem} B shared memory, {nk * nb} batches)")
+    Fk = bf16_axis_pack(F, forward) if precision == "default" else F
     fn = getattr(library(), f"dftk_axis_dft_{_suffix(x, precision)}")
-    err = fn(x.data_ptr(), F.data_ptr(), out.data_ptr(), nk * nb, m1 * m2,
+    err = fn(x.data_ptr(), Fk.data_ptr(), out.data_ptr(), nk * nb, m1 * m2,
              K, J, int(bool(forward)), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error("pruned_axis_dft", err)
     counts.launches[name] += 1
@@ -256,12 +365,40 @@ def local_plane_layout_c128(m1, m2, n1, n2, strip=None):
                 if (warps == 16 or two_blocks) and holds(warps, oc))
 
 
+def local_plane_strip_bf16(m1, m2, n1, n2, strip=None):
+    """Width of the y strips of the bf16 kernel B (`strip`, checked, or
+    chosen when None).  A block holds the plane, one strip of T1s and S in
+    shared memory (`_plane_smem_bf16`; the output, in registers or device
+    memory, and the packed factors, read through L1, take none).  The
+    chosen strip is the widest of all of n2 and the even splits of n2 into
+    16-column multiples with which two blocks share an SM, else the widest
+    that fits one block.  Explicit strips up to the widest that fits are
+    taken."""
+    need = lambda w: _plane_smem_bf16(m1, m2, n1, w)
+    if need(n2) <= SMEM_MAX:
+        widest = n2
+    else:
+        widest = max((w for w in range(16, n2, 16) if need(w) <= SMEM_MAX), default=0)
+    if widest < 1:
+        raise ValueError(
+            f"local_plane: planes m=({m1},{m2}), n=({n1},{n2}) in bf16 need "
+            f"{need(1)} B of shared memory, more than the {SMEM_MAX} B a block "
+            f"may use")
+    if strip is None:
+        splits = [n2] + [_pad(-(-n2 // ns), 16) for ns in range(2, -(-n2 // 16) + 1)]
+        return next((w for w in splits if w <= widest and need(w) <= _TWO_BLOCK_SMEM),
+                    widest)
+    if not 1 <= strip <= widest:
+        raise ValueError(f"local_plane: strip {strip} outside [1, {widest}]")
+    return strip
+
+
 def local_plane_strip(t, n1, n2, strip=None):
     """Width of the y strips kernel B processes at once (`strip`, checked,
     or the widest that suits when None).  complex128: see
-    `local_plane_layout_c128`.  complex64 and bf16 hold the plane and the
-    whole [m1, n2] T1 besides the [n1, strip] buffer in shared memory and
-    take the widest strip that fits."""
+    `local_plane_layout_c128`; bf16: `local_plane_strip_bf16`.  complex64
+    holds the plane and the whole [m1, n2] T1 besides the [n1, strip]
+    buffer in shared memory and takes the widest strip that fits."""
     m1, m2 = t.shape[-2:]
     if t.dtype == torch.complex128:
         return local_plane_layout_c128(m1, m2, n1, n2, strip)[0]
@@ -299,14 +436,17 @@ def local_plane(t, V, factors: LocalFactors, strip=None, precision="highest"):
             f"{tuple(V.shape)}, factors {[tuple(f.shape) for f in (F1, F2, B1, B2)]}")
     if nk * nb * n3 >= 2 ** 31:
         raise ValueError("local_plane: more than 2^31 - 1 planes")
+    mats = (F2, F1, B1, B2)
     if t.dtype == torch.complex128:
         layout = local_plane_layout_c128(m1, m2, n1, n2, strip)
+    elif precision == "default":
+        layout = (local_plane_strip_bf16(m1, m2, n1, n2, strip),)
+        mats = bf16_plane_packs(factors, layout[0])
     else:
         layout = (local_plane_strip(t, n1, n2, strip),)
     out = torch.empty_like(t)
     fn = getattr(library(), f"dftk_local_plane_{_suffix(t, precision)}")
-    err = fn(t.data_ptr(), V.data_ptr(), F2.data_ptr(), F1.data_ptr(),
-             B1.data_ptr(), B2.data_ptr(), out.data_ptr(),
+    err = fn(t.data_ptr(), V.data_ptr(), *(f.data_ptr() for f in mats), out.data_ptr(),
              nk, nb, n3, m1, m2, n1, n2, *layout,
              torch.cuda.current_stream(t.device).cuda_stream)
     _raise_on_error("local_plane", err)

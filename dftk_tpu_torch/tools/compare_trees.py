@@ -10,9 +10,14 @@ then each tree runs, in its own process and in the order given (for a
 parent P and a change C: `P C C P`), phase 3 of its `chip_smoke.py` (its
 kernels against their plain versions at the Si54 shapes, with CUDA-event
 times) and phase c (the Si54 split CheFSI SCF, float64, "mixed" filter),
-timed on the host clock ending in a synchronize.  Prints one JSON line per
-run: the tree, the complex128 ms of kernel A forward, kernel B and A+B+A,
-and the SCF's wall seconds, iterations and energy error.
+timed on the host clock ending in a synchronize; and phase a (the bf16
+kernels against their plain versions), with the device time per call
+(torch.profiler) of the bf16 kernel A forward, kernel B and A+B+A at Si54
+and of kernel A forward and kernel B on one 256-band chunk at the Si256
+shapes (random data).  Prints one JSON line per run: the tree, the
+complex128 and bf16 ms of kernel A forward, kernel B and A+B+A (one launch,
+CUDA events), the bf16 device times, and the SCF's wall seconds,
+iterations and energy error.
 """
 import json
 import os
@@ -32,8 +37,33 @@ with open("tests/data/torch_port_si54.json") as f:
     E_ref = json.load(f)["total_energy"]
 device = torch.device("cuda", 0)
 basis = build_bench_basis(3, 10.0, device)
-timings, _ = cs.kernel_phase(la, basis, device)
+timings, inputs = cs.kernel_phase(la, basis, device)
 result = {"ms": {n: timings[n]["ms"] for n in ("pruned_axis_dft", "local_plane", "local_apply")}}
+# bf16: phase a's checks and one-launch times, and device times per call
+bf = cs.bf16_phase(la, basis, device, inputs)
+names = ("pruned_axis_dft[bf16]", "local_plane[bf16]", "local_apply[bf16]")
+result["ms_bf16"] = {n: bf[n]["ms"] for n in names}
+fac = la.LocalFactors(fwd=tuple(f.to(torch.complex64) for f in basis.pruned.factors.fwd),
+                      bwd=tuple(f.to(torch.complex64) for f in basis.pruned.factors.bwd))
+xc = torch.as_tensor(inputs[0], device=device).to(torch.complex64)
+V = torch.as_tensor(inputs[1], device=device).to(torch.float32)
+t = la.pruned_axis_dft(xc, fac.fwd[2], True, "default")
+calls = (lambda: la.pruned_axis_dft(xc, fac.fwd[2], True, "default"),
+         lambda: la.local_plane(t, V, fac, precision="default"),
+         lambda: la.local_apply(xc, V, fac, "default"))
+result["device_ms_bf16"] = {n: cs.device_ms(f) for n, f in zip(names, calls)}
+# one 256-band chunk at the Si256 shapes (random data and factors)
+g = torch.Generator(device=device).manual_seed(5)
+cr = lambda *s: torch.randn(*s, dtype=torch.complex64, device=device, generator=g)
+(m1, m2, m3), (n1, n2, n3) = (64, 64, 32), (120, 120, 64)
+fac = la.LocalFactors(fwd=(cr(m1, n1) / 8, cr(m2, n2) / 8, cr(m3, n3) / 6),
+                      bwd=(cr(n1, m1) / 11, cr(n2, m2) / 11, cr(n3, m3) / 8))
+x, t = cr(1, 256, m1, m2, m3), cr(1, 256, n3, m1, m2)
+V = torch.randn(1, n3, n1, n2, device=device, generator=g)
+calls = (lambda: la.pruned_axis_dft(x, fac.fwd[2], True, "default"),
+         lambda: la.local_plane(t, V, fac, precision="default"))
+result["si256_device_ms_bf16"] = {n: cs.device_ms(f, n=5) for n, f in zip(names, calls)}
+del x, t, V
 
 def scf(*args, **kw):           # the phase's SCF call, its result recorded
     res = dt.self_consistent_field_split(*args, **kw)

@@ -13,7 +13,10 @@ of what does not fit);
 the bf16 ('default') instantiations so that the kernel-vs-plain
 difference is at least 10x below the plain 'default'-vs-'highest'
 difference (relative Frobenius norms: both round the same operands and sum
-in other orders).  The Si2 SCF and the Si2 split
+in other orders), kernel B also at ragged planes, explicit strips, the
+Si54 and Si256 planes, both output layouts and planes near the first
+design's limit, kernel A at K and J that no tile divides and tall K, with
+the bf16 kernel B's shared-memory count held against the wrapper's.  The Si2 SCF and the Si2 split
 CheFSI SCF ("mixed" filter) on the GPU are held against the same SCFs on
 the CPU (1e-9 Ha).  The filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
@@ -231,16 +234,106 @@ def test_cuda_bf16_kernels_match_plain(gpu_basis):
             (la.pruned_axis_dft(xc, fac.fwd[2], True, "default"),
              la.pruned_axis_dft_plain(xc, fac.fwd[2], True, "default"),
              la.pruned_axis_dft_plain(xc, fac.fwd[2], True)),
+            (la.pruned_axis_dft(t, fac.bwd[2], False, "default"),
+             la.pruned_axis_dft_plain(t, fac.bwd[2], False, "default"),
+             la.pruned_axis_dft_plain(t, fac.bwd[2], False)),
             (la.local_plane(t, V, fac, strip=7, precision="default"),
+             la.local_plane_plain(t, V, fac, "default"), la.local_plane_plain(t, V, fac)),
+            (la.local_plane(t, V, fac, precision="default"),
              la.local_plane_plain(t, V, fac, "default"), la.local_plane_plain(t, V, fac)),
             (la.local_apply(xc, V, fac, "default"),
              la.local_apply_plain(xc, V, fac, "default"), la.local_apply_plain(xc, V, fac))):
         assert 10 * rel(kern, plain) <= rel(plain, highest)
-    assert la.counts.launches["pruned_axis_dft[bf16]"] == 3
-    assert la.counts.launches["local_plane[bf16]"] == 2
+    assert la.counts.launches["pruned_axis_dft[bf16]"] == 4
+    assert la.counts.launches["local_plane[bf16]"] == 3
     with pytest.raises(TypeError, match="complex64"):
         la.local_plane(t.to(torch.complex128), V.double(), b.pruned.factors,
                        precision="default")
+
+
+def _c64_case(t, V, fac):
+    """The complex128 plane case in complex64 data and an f32 potential."""
+    c = lambda f: None if f is None else f.to(torch.complex64)
+    return t.to(torch.complex64), V.float(), la.LocalFactors(
+        fwd=tuple(map(c, fac.fwd)), bwd=tuple(map(c, fac.bwd)))
+
+
+def _margin(out, plain, highest):
+    """The bf16 bar: kernel-vs-plain at least 10x below the plain
+    'default'-vs-'highest' difference (relative Frobenius norms)."""
+    assert out.shape == plain.shape and bool(torch.isfinite(out).all())
+    return 10 * _rel(out, plain) <= _rel(plain, highest)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk, nb, n3, m, n, strips", [
+    (2, 3, 4, (9, 13), (18, 22), (None, 5, 7, 8, 16)),  # odd in every axis, nk = 2
+    (1, 2, 3, (64, 64), (120, 120), (None, 16)),        # Si256 planes: strips of 64, 16
+    (1, 2, 2, (32, 32), (64, 64), (None, 24)),          # Si54 planes: one strip of 64, 24
+    (1, 2, 2, (136, 8), (144, 16), (None, 5)),          # 9 row tiles of 16: out in device memory
+    (1, 1, 2, (64, 72), (128, 144), (None, 7)),         # 4 x 10 out tiles: device memory
+    (1, 1, 2, (100, 100), (120, 120), (None, 120)),     # large planes the first design ran
+    (1, 1, 2, (24, 94), (72, 282), (None, 278))])       # the first design's widest strip
+def test_cuda_bf16_kernel_b_planes(nk, nb, n3, m, n, strips):
+    """The bf16 kernel B against its plain version by the margin rule, at
+    ragged planes, explicit strips, both output layouts, and (last case)
+    planes near the first design's shared-memory limit at its widest strip."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    t, V, fac = _c64_case(*_plane_case(np.random.default_rng(34), nk, nb, n3, m, n))
+    plain = la.local_plane_plain(t, V, fac, "default")
+    highest = la.local_plane_plain(t, V, fac)
+    la.counts.reset()
+    for strip in strips:
+        assert _margin(la.local_plane(t, V, fac, strip=strip, precision="default"),
+                       plain, highest), strip
+    assert la.counts.launches["local_plane[bf16]"] == len(strips)
+    assert la.counts.plain["local_plane[bf16]"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("nk, nb, m1, m2, K, J", [
+    (2, 3, 5, 7, 11, 13),       # K, J odd: one ragged tile, 8-byte copies
+    (1, 4, 9, 30, 37, 45),      # 270 rows: several row tiles, K over two chunks
+    (1, 2, 33, 33, 6, 70),      # 1089 rows: several blocks; J over two column tiles
+    (1, 3, 32, 32, 32, 64),     # the Si54 shapes, fewer bands
+    (1, 2, 6, 7, 160, 80),      # tall K: five chunks (backward: n3 160, m3 80)
+    (1, 2, 9, 5, 200, 64)])     # K = 200: seven chunks
+def test_cuda_bf16_kernel_a_ragged(nk, nb, m1, m2, K, J, forward):
+    """The bf16 kernel A against its plain version by the margin rule; for
+    backward the roles of K and J are those of the z axis back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(35)
+    x = _c128(rng, (nk, nb, m1, m2, K) if forward else (nk, nb, K, m1, m2))
+    x, F = x.to(torch.complex64), _c128(rng, (K, J), K ** -0.5).to(torch.complex64)
+    la.counts.reset()
+    out = la.pruned_axis_dft(x, F, forward, "default")
+    assert _margin(out, la.pruned_axis_dft_plain(x, F, forward, "default"),
+                   la.pruned_axis_dft_plain(x, F, forward))
+    assert la.counts.launches["pruned_axis_dft[bf16]"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_layout_matches_the_wrapper():
+    """The bf16 kernel B's own count of its shared memory is the wrapper's,
+    the register-held output takes the planes of up to 8 warps x 4 tiles,
+    and a plane whose strip of 16 does not fit is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    lib = la.library()
+    for m1, m2, n1, strip in ((16, 16, 18, 18), (9, 13, 18, 5), (64, 64, 120, 64),
+                              (32, 32, 64, 64), (136, 8, 144, 16), (64, 72, 128, 7),
+                              (100, 100, 120, 120), (24, 94, 72, 278)):
+        assert lib.dftk_local_plane_bf16_smem(m1, m2, n1, strip) == \
+            la._plane_smem_bf16(m1, m2, n1, strip)
+    assert [lib.dftk_local_plane_bf16_oc(*m) for m in
+            ((32, 32), (64, 64), (9, 13), (136, 8), (64, 72))] == [1, 4, 1, 0, 0]
+    t, V, fac = _c64_case(*_plane_case(np.random.default_rng(36), 1, 1, 1, (16, 16),
+                                       (3000, 18)))
+    with pytest.raises(ValueError, match="shared memory"):
+        la.local_plane(t, V, fac, precision="default")
 
 
 def _probe_inputs(n3, m1, m2, n1, n2, nbt):

@@ -274,3 +274,153 @@ def test_chip_smoke_local_plane_library_matches_plain(bases):
     assert out.shape == ref.shape and out.dtype == ref.dtype
     assert float((out - ref).abs().max()) < 1e-12 * float(ref.abs().max())
 
+
+
+# ---- the bf16 kernels' packed factors (the layout the CUDA kernels read) ----
+
+def _unpack_a(P):
+    """Complex tiles [..., 16 Rt, 16 Ct] from A fragments [..., Rt, Ct, 2,
+    32, 8], by the PTX layout of mma.m16n8k16: lane = 4 gr + tg holds a_r
+    (row gr + 8 (r % 2), columns 2 tg + 8 (r // 2) + e) as values 2 r + e."""
+    *lead, Rt, Ct = P.shape[:-3]
+    out = torch.zeros(*lead, Rt, 16, Ct, 16, dtype=torch.complex128)
+    for lane in range(32):
+        gr, tg = divmod(lane, 4)
+        for r in range(4):
+            for e in range(2):
+                v = P[..., lane, 2 * r + e].double()
+                out[..., gr + 8 * (r % 2), :, 2 * tg + 8 * (r // 2) + e] = \
+                    torch.complex(v[..., 0], v[..., 1])
+    return out.reshape(*lead, 16 * Rt, 16 * Ct)
+
+
+def _unpack_b(P):
+    """Complex tiles [..., 16 Kt, 8 Nt] from B fragments [..., Nt, Kt, 32,
+    8]: lane = 4 gr + tg holds b_r (k 2 tg + 8 r + e, column gr) as values
+    2 r + e of the real part, then the same four of the imaginary part."""
+    *lead, Nt, Kt = P.shape[:-2]
+    out = torch.zeros(*lead, Kt, 16, Nt, 8, dtype=torch.complex128)
+    for lane in range(32):
+        gr, tg = divmod(lane, 4)
+        for r in range(2):
+            for e in range(2):
+                re, im = P[..., lane, 2 * r + e].double(), P[..., lane, 4 + 2 * r + e].double()
+                out[..., 2 * tg + 8 * r + e, :, gr] = torch.complex(re, im).transpose(-1, -2)
+    return out.reshape(*lead, 16 * Kt, 8 * Nt)
+
+
+def _crand(rng, *shape):
+    return torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape)).to(
+        torch.complex64)
+
+
+@pytest.mark.parametrize("R, C", [(16, 16), (9, 30), (33, 7)])
+def test_bf16_fragment_packs_follow_the_mma_layout(R, C):
+    """_pack_a and _pack_b hold the matrix rounded to bf16 (round_bf16),
+    zero-padded to whole tiles, each value where mma.sync reads it."""
+    F = _crand(np.random.default_rng(R * C), R, C)
+    ref = la.round_bf16(F).to(torch.complex128)
+    A = _unpack_a(la._pack_a(F))
+    assert A.shape == (la._pad(R, 16), la._pad(C, 16))
+    assert torch.equal(A[:R, :C], ref) and not A[R:].any() and not A[:, C:].any()
+    B = _unpack_b(la._pack_b(F))
+    assert B.shape == (la._pad(R, 16), la._pad(C, 8))
+    assert torch.equal(B[:R, :C], ref) and not B[R:].any() and not B[:, C:].any()
+
+
+def _plane_bf16_emulated(t, V, fac, strip):
+    """Kernel B's bf16 data flow on the CPU from the wrapper's packs, as the
+    CUDA kernel walks them: per strip T1s = X F2f, S = (F1f^T T1s) V, T1s' =
+    F1b^T S, out += T1s' F2b, the four intermediates' operands rounded to
+    bf16, f32 sums."""
+    r = la.round_bf16
+    nk, nb, n3, m1, m2 = t.shape
+    n1, n2 = V.shape[-2:]
+    P2f, P1f, P1b, P2b = la.bf16_plane_packs(fac, strip)
+    F1T, B1T = (_unpack_a(p).to(torch.complex64) for p in (P1f, P1b))
+    G, H = (_unpack_b(p).to(torch.complex64) for p in (P2f, P2b))
+    m1p, m2p, wp = F1T.shape[1], G.shape[1], G.shape[2]
+    X = torch.zeros(nk, nb, n3, m1p, m2p, dtype=torch.complex64)
+    X[..., :m1, :m2] = r(t)
+    out = torch.zeros_like(X)
+    for s in range(G.shape[0]):
+        w = min(strip, n2 - s * strip)
+        Vs = torch.zeros(nk, 1, n3, F1T.shape[0], wp)
+        Vs[..., :n1, :w] = V[:, None, :, :, s * strip:s * strip + w]
+        T = r(X @ G[s])
+        S = r((F1T @ T) * Vs)
+        out += r(B1T @ S) @ H[s]
+    return out[..., :m1, :m2]
+
+
+@pytest.mark.parametrize("m, n, strips", [((9, 13), (18, 22), (None, 5, 7, 16)),
+                                          ((16, 16), (18, 18), (None, 8))])
+def test_bf16_plane_packs_emulated_match_plain(m, n, strips):
+    """The packs of bf16_plane_packs, read strip by strip as the CUDA kernel
+    reads them, give local_plane_plain's 'default' result: their difference
+    at least 10x below the 'default'-vs-'highest' one (the bar of the
+    kernel on the card)."""
+    rng = np.random.default_rng(9)
+    (m1, m2), (n1, n2) = m, n
+    t = _crand(rng, 1, 2, 3, m1, m2)
+    V = torch.as_tensor(rng.normal(size=(1, 3, n1, n2))).float()
+    fac = la.LocalFactors(fwd=(_crand(rng, m1, n1) / m1 ** 0.5,
+                               _crand(rng, m2, n2) / m2 ** 0.5, None),
+                          bwd=(_crand(rng, n1, m1) / n1 ** 0.5,
+                               _crand(rng, n2, m2) / n2 ** 0.5, None))
+    ref = la.local_plane_plain(t, V, fac, "default")
+    rounding = float(torch.linalg.vector_norm(ref - la.local_plane_plain(t, V, fac))
+                     / torch.linalg.vector_norm(ref))
+    for strip in strips:
+        w = la.local_plane_strip_bf16(m1, m2, n1, n2, strip)
+        out = _plane_bf16_emulated(t, V, fac, w)
+        rel = float(torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref))
+        assert 10 * rel <= rounding, (strip, rel, rounding)
+
+
+@pytest.mark.parametrize("forward", [True, False])
+def test_bf16_axis_pack_emulated_matches_plain(forward):
+    """Kernel A's packed factor, read as the CUDA kernel reads it (forward
+    out^T = F^T in^T with F^T as A, backward out = in^T F with F as B),
+    gives pruned_axis_dft_plain's 'default' result at K and J that no tile
+    divides."""
+    rng = np.random.default_rng(10)
+    K, J = 37, 45
+    F = _crand(rng, K, J) / K ** 0.5
+    x = _crand(rng, 1, 2, 5, 7, K) if forward else _crand(rng, 1, 2, K, 5, 7)
+    ref = la.pruned_axis_dft_plain(x, F, forward, "default")
+    P = la.bf16_axis_pack(F, forward)
+    Fe = (_unpack_a(P).T if forward else _unpack_b(P))[:K, :J].to(torch.complex64)
+    xr = la.round_bf16(x)
+    out = (torch.einsum("kbxyc,cz->kbzxy", xr, Fe) if forward
+           else torch.einsum("kbzxy,zc->kbxyc", xr, Fe))
+    assert torch.allclose(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    assert la.bf16_axis_pack(F, forward) is P           # kept per factor tensor
+    F.mul_(2)
+    assert la.bf16_axis_pack(F, forward) is not P       # remade after an in-place change
+
+
+def test_local_plane_bf16_strip_range():
+    """Every plane the first bf16 design ran (its complex64 [m1, m2] and [m1,
+    n2] planes and one [n1, 1] column within one block's shared memory),
+    with m1 : m2 within 1 : 4 and 4 : 1 and n / m from 1 to 3, has a strip of
+    the bf16 kernel, and the widest strip the first design took is taken."""
+    ran = 0
+    for m1 in range(4, 200, 5):
+        for m2 in range(4, 200, 5):
+            if max(m1, m2) > 4 * min(m1, m2):
+                continue
+            for f in (1.0, 1.5, 2.0, 3.0):
+                n1, n2 = int(m1 * f + 0.99), int(m2 * f + 0.99)
+                first = min(n2, (la.SMEM_MAX - (m1 * m2 + m1 * n2) * 8) // (n1 * 8))
+                if first < 1:
+                    continue
+                strip = la.local_plane_strip_bf16(m1, m2, n1, n2)
+                assert 1 <= strip <= n2
+                assert la._plane_smem_bf16(m1, m2, n1, strip) <= la.SMEM_MAX
+                assert la.local_plane_strip_bf16(m1, m2, n1, n2, first) == first
+                ran += 1
+    assert ran > 2000
+    # the Si54 and Si256 planes: one strip of 64, two of 64 (two blocks an SM)
+    assert la.local_plane_strip_bf16(32, 32, 64, 64) == 64
+    assert la.local_plane_strip_bf16(64, 64, 120, 120) == 64
