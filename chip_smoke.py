@@ -101,6 +101,19 @@ Phases (any failure raises and exits non-zero):
      dftk_tpu_torch.tools.probe_mosaic_{ops,speed}), every instantiation
      launched; kernel, plain, library and bound times as in phase g, and
      the swaps' shared-memory traffic
+  i. forces and stresses on the card: Si54 as in phase 4 with atom 0 moved
+     by (0.004, -0.002, 0.001) in reduced coordinates; the LOBPCG SCF in
+     float64 to a density tolerance of 1e-10 (kernels launched, no plain
+     call, |E - E_ref| < 1e-7 Ha), then compute_forces_cart and
+     compute_stresses_cart on the card, held against the JAX package's CPU
+     float64 values of the same problem
+     (tests/data/torch_port_si54_derivatives.json) at 1e-7 Ha/bohr and
+     1e-8 Ha/bohr^3, the forces summing to under 1e-5; then the split
+     CheFSI SCF ("mixed" filter) to 1e-8, whose compute_forces_split and
+     compute_stresses_split equal the complex path on the same state
+     within 1e-11 and the JAX values within 1e-6; each derivative's wall
+     time (CUDA-synchronised; a first call and a second) and peak device
+     memory beside the card's name and power limit
   5. print the kernels' JSON line (launches from phases c, e, f, g and h,
      times from phases 3, a, e, f, g and h, bounds from the shapes; the
      main path's kernels also with their device time), then the result
@@ -179,6 +192,11 @@ SPEED_SOURCE = "dftk_tpu_torch/csrc/op_speed.cu"
 MOSAIC_OPS_LINES = (38, 45, 53, 63, 72, 80, 89, 97)
 MOSAIC_SPEED_LINES = (48,) * 6 + (76, 89, 96, 104, 114)
 MOSAIC_R = (1, 3, 100)          # the R-step kernels are checked at each
+# phase i: atom 0 of Si54 moved in the supercell's reduced coordinates; the
+# bars against tests/data/torch_port_si54_derivatives.json (Ha/bohr, Ha/bohr^3)
+DISPLACEMENT = (0.004, -0.002, 0.001)
+FORCE_TOL, STRESS_TOL = 1e-7, 1e-8
+SPLIT_TOL, ADAPTER_TOL, SUM_RULE_TOL = 1e-6, 1e-11, 1e-5
 
 
 def check(ok, what):
@@ -1320,6 +1338,118 @@ def probe_phase(device):
             if label not in ("copy zblk=8", "full zblk=4", "full zblk=8")}, launches
 
 
+def timed_on_card(fn):
+    """fn() with the wall times (ms, CUDA-synchronised) of a first call and
+    of a second, and the peak device memory a call allocated above what was
+    held before it (MiB)."""
+    import torch
+    ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def derivatives_phase(dt, la, device, smi):
+    """Phase i: forces and stresses of a displaced Si54 on the card."""
+    import types
+    import torch
+    from dftk_tpu_torch.ops.engine_split import prepare_split_data
+    from dftk_tpu_torch.ops.forces_split import compute_forces_split
+    from dftk_tpu_torch.ops.stresses_split import compute_stresses_split
+    from dftk_tpu_torch.scf.energy_eval import split_state_to_complex
+    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
+    t_phase = time.time()
+    with open(os.path.join(HERE, "tests", "data", "torch_port_si54_derivatives.json")) as f:
+        ref = json.load(f)
+    F_ref, S_ref = np.array(ref["forces_cart"]), np.array(ref["stresses_cart"])
+    m = build_bench_basis(3, 10.0, device).model
+    positions = [p.copy() for p in m.positions]
+    positions[0] = positions[0] + np.array(DISPLACEMENT)
+    model = dt.model_DFT(m.lattice, m.atoms, positions,
+                         functionals=["lda_x", "lda_c_vwn"], symmetries=False)
+    basis = dt.PlaneWaveBasis(model, Ecut=10.0, kgrid=(1, 1, 1), device=device)
+
+    def show(info):
+        print(f"[i] it={info['n_iter']:3d} E={info['E']:.12f} drho={info['drho']:.3e} "
+              f"t={time.time() - t0:.1f}s", flush=True)
+
+    def report(label, F, S, F_ms, F_mib, S_ms, S_mib, bar_F, bar_S):
+        F, S = F.cpu().numpy(), S.cpu().numpy()
+        dF, dS = np.abs(F - F_ref).max(), np.abs(S - S_ref).max()
+        drift = np.abs(F.sum(0)).max()
+        print(f"[i] {label}: forces {F_ms[0]:.1f} ms (again {F_ms[1]:.1f}), peak "
+              f"{F_mib:.1f} MiB; stresses {S_ms[0]:.1f} ms (again {S_ms[1]:.1f}), peak "
+              f"{S_mib:.1f} MiB ({smi}); max|F - F_ref| = {dF:.3e} "
+              f"Ha/bohr, max|S - S_ref| = {dS:.3e} Ha/bohr^3, max|sum F| = {drift:.3e}",
+              flush=True)
+        check(np.all(np.isfinite(F)) and F.shape == F_ref.shape
+              and np.all(np.isfinite(S)) and S.shape == (3, 3),
+              f"{label}: finite forces and stresses of their shapes")
+        check(dF < bar_F, f"{label}: forces within {bar_F} Ha/bohr of the JAX package's")
+        check(dS < bar_S, f"{label}: stresses within {bar_S} Ha/bohr^3 of the JAX package's")
+        check(drift < SUM_RULE_TOL, f"{label}: forces sum to under {SUM_RULE_TOL}")
+
+    # the LOBPCG SCF to 1e-10, then both derivatives
+    la.counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = dt.self_consistent_field(basis, tol=1e-10, is_converged="density", callback=show)
+    torch.cuda.synchronize()
+    launches, plain = dict(la.counts.launches), dict(la.counts.plain)
+    dE = res.total_energy - ref["total_energy"]
+    print(f"[i] SCF converged={res.converged} n_iter={res.n_iter} wall="
+          f"{time.time() - t0:.2f} s E={res.total_energy:.12f} dE={dE:.3e} "
+          f"launches={launches} plain_calls={plain}", flush=True)
+    check(res.converged and abs(dE) < E_TOL, f"displaced SCF converged, |E - E_ref| < {E_TOL}")
+    check(launches["pruned_axis_dft"] > 0 and launches["local_plane"] > 0,
+          "every complex128 kernel launched in the displaced SCF")
+    check(all(v == 0 for v in plain.values()), "no plain version called in the displaced SCF")
+    F, F_ms, F_mib = timed_on_card(lambda: dt.compute_forces_cart(res))
+    S, S_ms, S_mib = timed_on_card(lambda: dt.compute_stresses_cart(res))
+    check(F.device.type == "cuda" and S.device.type == "cuda", "derivatives on the card")
+    report("LOBPCG", F, S, F_ms, F_mib, S_ms, S_mib, FORCE_TOL, STRESS_TOL)
+    del res
+
+    # the split CheFSI SCF ("mixed" filter) to 1e-8, then the split adapters
+    la.counts.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sres = dt.self_consistent_field_split(
+        basis, tol=1e-8, maxiter=60, eigensolver="chefsi", chebyshev_degree=10,
+        chefsi_cycles=2, is_converged="density", filter_precision="mixed")
+    torch.cuda.synchronize()
+    launches, plain = dict(la.counts.launches), dict(la.counts.plain)
+    dE = sres["energies"]["total"] - ref["total_energy"]
+    print(f"[i] split SCF converged={sres['converged']} n_iter={sres['n_iter']} wall="
+          f"{time.time() - t0:.2f} s E={sres['energies']['total']:.12f} dE={dE:.3e} "
+          f"launches={launches} plain_calls={plain}", flush=True)
+    check(sres["converged"] and abs(dE) < E_TOL,
+          f"displaced split SCF converged, |E - E_ref| < {E_TOL}")
+    check(all(v > 0 for v in launches.values()), "every kernel launched in the split SCF")
+    check(all(v == 0 for v in plain.values()), "no plain version called in the split SCF")
+    sd = prepare_split_data(basis)
+    U, occ, rho = sres["U"], sres["occupation"], sres["rho"]
+    Fs, Fs_ms, Fs_mib = timed_on_card(lambda: compute_forces_split(basis, sd, U, occ, rho))
+    Ss, Ss_ms, Ss_mib = timed_on_card(lambda: compute_stresses_split(basis, sd, U, occ))
+    psi, occ_c = split_state_to_complex(basis, U, occ)
+    state = types.SimpleNamespace(psi=psi, occupation=occ_c, rho=rho)
+    dFc = float((Fs - dt.compute_forces(state, basis)).abs().max())
+    dSc = float((Ss - dt.compute_stresses_cart(state, basis)).abs().max())
+    print(f"[i] split adapters against the complex path on the same state: forces "
+          f"{dFc:.3e}, stresses {dSc:.3e}", flush=True)
+    check(dFc < ADAPTER_TOL and dSc < ADAPTER_TOL,
+          f"split adapters within {ADAPTER_TOL} of the complex path")
+    Fs_cart = Fs @ torch.as_tensor(np.linalg.inv(model.lattice), device=Fs.device)
+    report("split", Fs_cart, Ss, Fs_ms, Fs_mib, Ss_ms, Ss_mib, SPLIT_TOL, SPLIT_TOL)
+    print(f"[i] phase i took {time.time() - t_phase:.1f} s", flush=True)
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -1413,6 +1543,9 @@ def main():
 
     # ---- h. the Mosaic op probes ------------------------------------------------
     mosaic_timings, mosaic_launches = mosaic_phase(device)
+
+    # ---- i. forces and stresses on the card --------------------------------------
+    derivatives_phase(dt, la, device, smi)
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])

@@ -6,7 +6,9 @@ CPU when the caller asks (`PlaneWaveBasis(..., device="cpu")`), complex128
 by default.  Two SCF loops: `self_consistent_field` (batched LOBPCG) and
 `self_consistent_field_split` (the large-cell path: CheFSI with the
 compact-cube-resident Chebyshev filter, bf16 filter cycles then exact
-ones), with `refine_split_energy` to evaluate a result's energy.  The
+ones), with `refine_split_energy` to evaluate a result's energy, and the
+Hellmann-Feynman forces and stresses of a result by `torch.autograd`
+(`compute_forces`, `compute_forces_cart`, `compute_stresses_cart`).  The
 local-potential part of H psi runs through hand-written CUDA kernels on a
 CUDA device (`kernels/local_apply.py`).  The JAX package `dftk_tpu` is the
 reference this port is held against; this package never imports it or jax.
@@ -28,6 +30,8 @@ from .models.elements import ElementPsp  # noqa: E402
 from .models.standard import LDA, model_DFT  # noqa: E402
 from .ops.density import guess_density  # noqa: E402
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
+from .postprocess.forces import compute_forces, compute_forces_cart  # noqa: E402
+from .postprocess.stresses import compute_stresses_cart  # noqa: E402
 from .scf.driver import SCFResult, self_consistent_field  # noqa: E402
 from .scf.energy_eval import evaluate_total_energy, refine_split_energy  # noqa: E402
 from .supercell import create_supercell  # noqa: E402
@@ -35,4 +39,5 @@ from .supercell import create_supercell  # noqa: E402
 __all__ = ["model_DFT", "LDA", "ElementPsp", "PlaneWaveBasis", "MonkhorstPack",
            "ExplicitKpoints", "self_consistent_field", "SCFResult",
            "guess_density", "self_consistent_field_split", "create_supercell",
-           "refine_split_energy", "evaluate_total_energy"]
+           "refine_split_energy", "evaluate_total_energy", "compute_forces",
+           "compute_forces_cart", "compute_stresses_cart"]

@@ -63,6 +63,11 @@ class ElementPsp:
     def local_potential_fourier(self, p):
         return self.psp.local_fourier(p)
 
+    def local_potential_fourier_sq(self, psq):
+        """The local potential as a function of p^2 (a torch tensor in the
+        stresses' graph)."""
+        return self.psp.local_fourier_sq(psq)
+
 
 # Gaussian guess-density decay lengths (ABINIT m_atomdata coefficient table,
 # same data as DFTK density_methods.jl:286-323)

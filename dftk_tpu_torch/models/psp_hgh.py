@@ -1,15 +1,16 @@
-"""Analytic GTH/HGH norm-conserving pseudopotentials (host-side numpy).
+"""Analytic GTH/HGH norm-conserving pseudopotentials.
 
 Port of `dftk_tpu/models/psp_hgh.py` (reference `src/pseudo/PspHgh.jl`):
 the same published closed forms (GTH96 eq. (1)-(8), HGH98 eq. (1)-(15)),
-evaluated in numpy on the host while the basis is set up.  Only the
-built-in HGH tables are supported; UPF files come with a later slice.
+evaluated in numpy on the host while the basis is set up, and as torch
+functions of p^2 (`*_sq`) inside the stresses' graph.  Only the built-in
+HGH tables are supported; UPF files come with a later slice.
 
 Conventions:
   * `local_fourier(p)` is the Fourier transform of the local potential with
     the -Z/r tail's G=0 divergence removed (0 at p=0).  Hartree * bohr^3.
-  * `projector_fourier(i, l, p)` is the radial part of \\hat{proj}_{il}(p)
-    with the 1/p^l factor divided out.
+  * `projector_fourier_sq(i, l, p^2)` is the radial part of
+    \\hat{proj}_{il}(p) with the 1/p^l factor divided out.
 """
 import dataclasses
 import math
@@ -17,6 +18,7 @@ import re
 from typing import List
 
 import numpy as np
+import torch
 
 from .psp_data import DEFAULT_Q_SEMICORE, HGH_PSP_TABLE
 
@@ -47,7 +49,14 @@ class PspHgh:
 
     def local_fourier(self, p):
         """V_loc(|p|) in Fourier space (GTH96 eq. (6)); p=0 -> 0."""
-        psq = np.asarray(p) ** 2
+        return self.local_fourier_sq(np.asarray(p) ** 2)
+
+    def local_fourier_sq(self, psq):
+        """local_fourier as a function of p^2 (numpy array or torch tensor).
+
+        The HGH forms are even in p; taking p^2 keeps a torch graph smooth
+        at p = 0 (no sqrt), which the stresses need."""
+        xp = _xp(psq)
         t2 = psq * self.rloc ** 2
         c1, c2, c3, c4 = self.cloc
         P = (c1
@@ -55,19 +64,20 @@ class PspHgh:
              + c3 * (15 - 10 * t2 + t2 * t2)
              + c4 * (105 - 105 * t2 + 21 * t2 * t2 - t2 * t2 * t2))
         pref = 4 * math.pi * self.rloc ** 2
-        t2s = np.where(t2 == 0, 1.0, t2)
+        # a safe division at p = 0, whose value the last where replaces
+        t2s = xp.where(t2 == 0, 1.0, t2)
         val = pref * (-self.Zion + math.sqrt(math.pi / 2) * self.rloc * t2 * P) \
-            * np.exp(-t2 / 2) / t2s
-        return np.where(t2 == 0, 0.0, val)
+            * xp.exp(-t2 / 2) / t2s
+        return xp.where(t2 == 0, 0.0, val)
 
-    def projector_fourier(self, i, l, p):
-        """Radial Fourier projector \\hat{proj}_{il}(p) / p^l (HGH98 eq. 7-15);
+    def projector_fourier_sq(self, i, l, psq):
+        """Radial Fourier projector \\hat{proj}_{il}(p) / p^l (HGH98 eq. 7-15)
+        as a function of p^2 (numpy array or torch tensor; smooth at p = 0);
         i is 1-based as in the published tables."""
-        psq = np.asarray(p) ** 2
         rp = self.rp[l]
         t2 = psq * rp * rp
         common = (4 * math.pi ** (5 / 4) * math.sqrt(2.0 ** (l + 1) * rp ** 3)
-                  * np.exp(-t2 / 2))
+                  * _xp(psq).exp(-t2 / 2))
         if l == 0:
             if i == 1:
                 return common
@@ -99,6 +109,11 @@ class PspHgh:
               + math.sqrt(math.pi / 2) * self.rloc ** 3
               * sum(c * cl for c, cl in zip(coeffs, self.cloc)))
         return 4 * math.pi * dc
+
+
+def _xp(a):
+    """The array module of `a`: torch for a tensor, else numpy."""
+    return torch if torch.is_tensor(a) else np
 
 
 _NUMS = re.compile(r"[-+]?[0-9]*\.?[0-9]+(?:[eEdD][-+]?[0-9]+)?")

@@ -4,9 +4,11 @@ Port of `dftk_tpu/ops/terms.py::instantiate_terms` for the terms of the LDA
 path: Kinetic, AtomicLocal, AtomicNonlocal, Hartree, Xc, Ewald and
 PspCorrection.  Density-independent data (the local pseudopotential, the
 Hartree kernel, the nonlocal projectors P and couplings D, the Ewald and psp
-correction energies) are built once on the host in numpy and held as
-tensors on the basis' device in `Terms.data`; the density-dependent
-potentials are assembled each SCF step by `ops/hamiltonian.py`.
+correction energies) are built once on the host (the projectors' form
+factors by `projector_form_factors`, a torch function that the stresses
+also trace through the lattice) and held as tensors on the basis' device
+in `Terms.data`; the density-dependent potentials are assembled each SCF
+step by `ops/hamiltonian.py`.
 
 Any other term raises NotImplementedError naming its ROADMAP item.
 """
@@ -15,6 +17,7 @@ import math
 from typing import Any, NamedTuple, Optional, Sequence
 
 import numpy as np
+import scipy.linalg
 import torch
 
 from ..models.elements import ElementPsp
@@ -124,9 +127,9 @@ def instantiate_terms(basis) -> Terms:
             charges = np.array([at.charge_ionic() for at in model.atoms], dtype=float)
             if len(charges) > 0:
                 eta = term.eta or default_eta(model.lattice)
-                E_ewald = energy_ewald(model.lattice, charges,
-                                       np.stack(model.positions), eta=eta,
-                                       device=basis.device)
+                E_ewald = float(energy_ewald(model.lattice, charges,
+                                             np.stack(model.positions), eta=eta,
+                                             device=basis.device))
         elif isinstance(term, PspCorrection):
             E_psp = _energy_psp_correction(model)
         else:
@@ -163,46 +166,52 @@ def _atomic_local_potential(basis):
         * (N / math.sqrt(model.unit_cell_volume))
 
 
-def _build_nonlocal_projectors(basis):
-    """P[nk, nG, nproj] with P[:, :, a] = ff * sf / sqrt(Omega), D block
-    diagonal (reference terms/nonlocal.jl:166-244).
+def projector_form_factors(psp, Gpk_cart, mask):
+    """Projector form factors of one psp (no structure factor) at the
+    Cartesian k+G tensor [nk, nG, 3]: complex [nk, nG, npp], zero on the
+    padding and differentiable in Gpk_cart (the stresses trace it through
+    the lattice), and the couplings D [npp, npp] (numpy, block diagonal).
 
-    Projector order per atom: l ascending, then m, then radial index i."""
+    Projector order: l ascending, then m, then the radial index i
+    (reference terms/nonlocal.jl:166-244)."""
+    Gpk_sq = torch.sum(Gpk_cart * Gpk_cart, -1)
+    Y = solid_harmonics_real(Gpk_cart, psp.lmax)
+    D = np.zeros((psp.n_proj(), psp.n_proj()))
+    cols = []
+    for l in range(psp.lmax + 1):
+        nproj_l = psp.n_proj_radial(l)
+        if nproj_l == 0:
+            continue
+        rad = [psp.projector_fourier_sq(i, l, Gpk_sq) for i in range(1, nproj_l + 1)]
+        for m in range(-l, l + 1):
+            cols += [r * (-1j) ** l * Y[..., LM_INDEX[(l, m)]] for r in rad]
+            blk = slice(len(cols) - nproj_l, len(cols))
+            D[blk, blk] = np.array(psp.h[l])
+    return torch.stack(cols, -1) * mask[..., None], D
+
+
+def _build_nonlocal_projectors(basis):
+    """P[nk, nG, nproj] with P[:, :, a] = ff * sf / sqrt(Omega) for each atom
+    of each psp, D block diagonal."""
     model = basis.model
     psp_groups = [g for g in model.atom_groups
-                  if isinstance(model.atoms[g[0]], ElementPsp)]
+                  if isinstance(model.atoms[g[0]], ElementPsp)
+                  and model.atoms[g[0]].psp.n_proj() > 0]
     if not psp_groups:
         return None
-    n_proj = sum(model.atoms[g[0]].psp.n_proj() * len(g) for g in psp_groups)
-    P = np.zeros((basis.n_kpoints, basis.nG_max, n_proj), dtype=np.complex128)
-    D = np.zeros((n_proj, n_proj))
     sqrt_vol = math.sqrt(model.unit_cell_volume)
-    Gpk = basis.Gpk_cart_np
-    Gpk_norm = np.linalg.norm(Gpk, axis=-1)
-    Gred_pk = basis.Gred_np + basis.kcoords_spin[:, None, :]
-
-    offset = 0
+    Gpk = torch.as_tensor(basis.Gpk_cart_np)
+    mask = torch.as_tensor(basis.mask_np)
+    Gred_pk = torch.as_tensor(basis.Gred_np + basis.kcoords_spin[:, None, :])
+    Ps, Ds = [], []
     for group in psp_groups:
-        psp = model.atoms[group[0]].psp
-        Y = solid_harmonics_real(Gpk, psp.lmax)
-        radial = {(l, i): psp.projector_fourier(i, l, Gpk_norm)
-                  for l in range(psp.lmax + 1)
-                  for i in range(1, psp.n_proj_radial(l) + 1)}
+        ff, D = projector_form_factors(model.atoms[group[0]].psp, Gpk, mask)
         for atom_idx in group:
-            sf = np.exp(-2j * math.pi * (Gred_pk @ np.asarray(model.positions[atom_idx])))
-            col = offset
-            for l in range(psp.lmax + 1):
-                nproj_l = psp.n_proj_radial(l)
-                for m in range(-l, l + 1):
-                    ylm = Y[..., LM_INDEX[(l, m)]]
-                    for i in range(1, nproj_l + 1):
-                        P[:, :, col] = sf * radial[(l, i)] * (-1j) ** l * ylm / sqrt_vol
-                        col += 1
-                    blk = slice(col - nproj_l, col)
-                    D[blk, blk] = np.array(psp.h[l])
-            offset = col
-    P *= basis.mask_np[:, :, None]
-    return P, D
+            pos = torch.as_tensor(model.positions[atom_idx])
+            sf = torch.exp(-2j * math.pi * (Gred_pk @ pos))
+            Ps.append(ff * sf[..., None] / sqrt_vol)
+            Ds.append(D)
+    return torch.cat(Ps, -1).numpy(), scipy.linalg.block_diag(*Ds)
 
 
 def _energy_psp_correction(model):

@@ -1,0 +1,181 @@
+"""Forces: -dE/dR at fixed orbitals and occupations (Hellmann-Feynman).
+
+Port of `dftk_tpu/postprocess/forces.py` (reference
+`src/postprocess/forces.jl`, `terms/local.jl:147-181`,
+`terms/nonlocal.jl:49-100`).  The position-dependent energy terms
+(AtomicLocal, AtomicNonlocal, Ewald) are one differentiable torch function
+of the fractional positions, and `torch.autograd` gives the exact
+derivative.  Everything runs in float64 on the basis' device.
+
+Forces are in reduced coordinates (covectors) from `compute_forces`;
+`compute_forces_cart` symmetrizes and converts them with inv(lattice)^T.
+
+Not ported (each raises NotImplementedError naming its ROADMAP item): the
+NLCC core-density and meta-GGA tau terms (item 8), classical pairwise
+forces (item 11) and symmetrization over crystal symmetries other than
+the identity (item 5a).
+"""
+import math
+
+import numpy as np
+import torch
+
+from ..models.elements import ElementPsp
+from ..models.model import _is_identity
+from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
+from ..ops.terms import AtomicLocal, projector_form_factors
+
+# complex entries of one atom chunk's phase or projector tensor (256 MB)
+CHUNK_ELEMS = 2 ** 24
+
+
+def check_supported(basis, scfres, what):
+    """Raise NotImplementedError for what the derivatives do not port yet."""
+    if any(getattr(at, "has_core_density", lambda: False)()
+           for at in basis.model.atoms):
+        raise NotImplementedError(
+            f"{what} with NLCC core densities are not ported yet (ROADMAP "
+            f"Queue 1, item 8)")
+    if getattr(scfres, "tau", None) is not None:
+        raise NotImplementedError(
+            f"{what} of meta-GGA models (tau) are not ported yet (ROADMAP "
+            f"Queue 1, item 8)")
+    if getattr(basis.terms, "pairwise_forces", None) is not None:
+        raise NotImplementedError(
+            f"{what} with classical pairwise terms are not ported yet (ROADMAP "
+            f"Queue 1, item 11)")
+
+
+def check_identity_symmetries(basis):
+    """The port's models carry the identity only (models/model.py)."""
+    if not all(_is_identity(op) for op in basis.model.symmetries):
+        raise NotImplementedError(
+            "symmetrizing over crystal symmetries other than the identity "
+            "is not ported yet (ROADMAP Queue 1, item 5a, 'Symmetry')")
+
+
+def f64(basis, arr):
+    """numpy -> float64 tensor on the basis' device."""
+    return torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.float64,
+                           device=basis.device)
+
+
+def has_local(model):
+    return any(isinstance(t, AtomicLocal) for t in model.term_types)
+
+
+def psp_groups(model):
+    """The atom groups whose psp has nonlocal projectors."""
+    return [g for g in model.atom_groups if isinstance(model.atoms[g[0]], ElementPsp)
+            and model.atoms[g[0]].psp.n_proj() > 0]
+
+
+def structure_factor(Gred, pos):
+    """sum_a exp(-2 pi i G.r_a) over the atoms pos [na, 3] for reduced
+    G [M, 3] -> [M] complex, atom chunks bounded by CHUNK_ELEMS."""
+    n = max(1, CHUNK_ELEMS // Gred.shape[0])
+    sf = 0
+    for i in range(0, pos.shape[0], n):
+        sf = sf + torch.exp(-2j * math.pi * (Gred @ pos[i:i + n].T)).sum(1)
+    return sf
+
+
+def nonlocal_group_energy(ff, D, psi, wocc, Gred_pk, pos, sqrt_vol):
+    """sum_kn w_k f_kn (P^dag psi)^dag D (P^dag psi) summed over the atoms
+    pos [na, 3] of one psp group, P = ff e^{-2 pi i (k+G).r} / sqrt(vol),
+    batched over chunks of atoms.  ff [nk, nG, npp], D [npp, npp]."""
+    n = max(1, CHUNK_ELEMS // ff.numel())
+    D = D.to(psi.dtype)
+    E = 0
+    for i in range(0, pos.shape[0], n):
+        sf = torch.exp(-2j * math.pi * torch.einsum("kgd,ad->akg", Gred_pk, pos[i:i + n]))
+        Pd = torch.einsum("akgp,kng->aknp", (ff * sf[..., None]).conj(), psi) / sqrt_vol
+        band_e = torch.einsum("aknp,pq,aknq->kn", Pd.conj(), D, Pd).real
+        E = E + torch.sum(wocc * band_e)
+    return E
+
+
+def _positions_energy(basis, psi, occupation, rho, positions):
+    """The explicitly position-dependent energy terms as a torch function of
+    positions [n_atoms, 3] (fractional, float64)."""
+    model = basis.model
+    terms = basis.terms
+    sqrt_vol = math.sqrt(model.unit_cell_volume)
+    N = int(np.prod(basis.fft_size))
+    E = torch.zeros((), dtype=torch.float64, device=basis.device)
+
+    # AtomicLocal: E = sum_G conj(rho_G) Vloc_G
+    if has_local(model):
+        rho_G = (torch.fft.fftn(rho.sum(0)) * (sqrt_vol / N)).reshape(-1)
+        Gred = f64(basis, basis.G_cube.reshape(-1, 3))
+        Gnorm = basis.G_cube_cart_norm.reshape(-1)
+        vloc_G = 0
+        for group in model.atom_groups:
+            ff = f64(basis, model.atoms[group[0]].local_potential_fourier(Gnorm))
+            vloc_G = vloc_G + ff * structure_factor(Gred, positions[group]) / sqrt_vol
+        E = E + torch.sum(rho_G.real * vloc_G.real + rho_G.imag * vloc_G.imag)
+
+    # AtomicNonlocal
+    if terms.data.P.shape[-1] > 0:
+        wocc = f64(basis, basis.kweights)[:, None] * occupation
+        Gred_pk = f64(basis, basis.Gred_np + basis.kcoords_spin[:, None, :])
+        for group in psp_groups(model):
+            ff, D = _projector_form_factors(basis, model.atoms[group[0]].psp)
+            E = E + nonlocal_group_energy(ff, D, psi, wocc, Gred_pk,
+                                          positions[group], sqrt_vol)
+
+    # Ewald
+    charges = np.array([at.charge_ionic() for at in model.atoms], dtype=float)
+    if len(charges) > 0 and terms.E_ewald != 0.0:
+        eta = default_eta(model.lattice)
+        Gbox, Rbox = ewald_sum_bounds(model.lattice, np.stack(model.positions), eta)
+        E = E + energy_ewald(model.lattice, charges, positions, eta=eta,
+                             device=basis.device, Gbox=Gbox, Rbox=Rbox)
+    return E
+
+
+def _projector_form_factors(basis, psp):
+    """`ops/terms.py::projector_form_factors` at the basis' own k+G, with D
+    as a tensor.
+
+    Cached on the basis instance: a module-level dict keyed on id(basis)
+    would hand a new basis the stale factors of a dead one whose id was
+    reused."""
+    cache = basis.__dict__.setdefault("_ff_cache", {})
+    if psp not in cache:
+        ff, D = projector_form_factors(psp, f64(basis, basis.Gpk_cart_np),
+                                       f64(basis, basis.mask_np))
+        cache[psp] = (ff, f64(basis, D))
+    return cache[psp]
+
+
+def compute_forces(scfres, basis=None):
+    """Forces in reduced coordinates, a float64 tensor [n_atoms, 3] on the
+    basis' device.  scfres: an SCFResult, or anything with psi, occupation
+    and rho."""
+    basis = basis or scfres.basis
+    check_supported(basis, scfres, "forces")
+    dev = basis.device
+    psi = torch.as_tensor(scfres.psi, device=dev).to(torch.complex128)
+    occ = torch.as_tensor(scfres.occupation, device=dev).to(torch.float64)
+    rho = torch.as_tensor(scfres.rho, device=dev).to(torch.float64)
+    with torch.enable_grad():
+        positions = f64(basis, np.stack(basis.model.positions)).requires_grad_(True)
+        E = _positions_energy(basis, psi, occ, rho, positions)
+        (grad,) = torch.autograd.grad(E, positions)
+    return -grad
+
+
+def compute_forces_cart(scfres, basis=None):
+    """Symmetrized Cartesian forces, a float64 tensor [n_atoms, 3] on the
+    basis' device."""
+    basis = basis or scfres.basis
+    f_red = symmetrize_forces(basis, compute_forces(scfres, basis))
+    return f_red @ f64(basis, np.linalg.inv(basis.model.lattice))  # rows: inv(L)^T f
+
+
+def symmetrize_forces(basis, forces_red):
+    """Average the reduced forces over the model's symmetries: the identity
+    only in the port, so the forces come back as they are."""
+    check_identity_symmetries(basis)
+    return forces_red

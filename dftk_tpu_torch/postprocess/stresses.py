@@ -1,0 +1,139 @@
+"""Stresses: sigma = (1/Omega) dE/d(strain) at fixed orbital coefficients.
+
+Port of `dftk_tpu/postprocess/stresses.py` (reference
+`src/postprocess/stresses.jl`).  The total energy is one torch function of
+the lattice matrix: every lattice-dependent quantity (reciprocal lattice,
+volume, |k+G|^2, form factors, Hartree kernel, Ewald sums, density
+normalisation) is recomputed in the graph from the fixed integer G-vectors
+and orbital coefficients, and `torch.autograd` of a symmetric strain gives
+the stress tensor exactly.  Everything runs in float64 on the basis' device.
+
+The density is rebuilt from psi by `torch.fft` once, outside the graph: at
+fixed coefficients psi(r) scales as 1/sqrt(Omega), so rho(L) = rho(L0)
+Omega0 / Omega(L), and no band cube is kept for the backward pass.
+
+Not ported (each raises NotImplementedError naming its ROADMAP item): the
+NLCC core-density and meta-GGA terms (item 8), classical pairwise terms
+(item 11) and symmetrization over crystal symmetries other than the
+identity (item 5a); the density symmetrizer is none while symmetry is not
+ported.
+"""
+import math
+
+import numpy as np
+import torch
+
+from ..ops.density import compute_density
+from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
+from ..ops.hamiltonian import xc_energy
+from ..ops.terms import Hartree, projector_form_factors
+from .forces import (check_identity_symmetries, check_supported, f64, has_local,
+                     nonlocal_group_energy, psp_groups, structure_factor)
+
+DENSITY_BAND_CHUNK = 64     # bands per batch of full-grid cubes in the density
+
+
+def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
+    """Total energy (Ha) as a differentiable function of the lattice matrix
+    [3, 3] (a float64 tensor on the basis' device, columns the lattice
+    vectors).  psi and occupation are held fixed (Hellmann-Feynman);
+    positions (fractional) default to the model's."""
+    model = basis.model
+    terms = basis.terms
+    bd = basis.data
+    fft_size = basis.fft_size
+    N = int(np.prod(fft_size))
+    vol0 = model.unit_cell_volume
+    psi = torch.as_tensor(psi, device=basis.device).to(torch.complex128)
+    occupation = torch.as_tensor(occupation, device=basis.device).to(torch.float64)
+    if positions is None:
+        positions = np.stack(model.positions)
+    pos = f64(basis, positions)
+
+    B = 2 * math.pi * torch.linalg.inv(lattice.T)
+    vol = torch.abs(torch.linalg.det(lattice))
+    sqrt_vol = torch.sqrt(vol)
+    wocc = f64(basis, basis.kweights)[:, None] * occupation
+    mask = f64(basis, basis.mask_np)
+
+    # kinetic, through |B (k+G)|^2
+    Gred_pk = f64(basis, basis.Gred_np + basis.kcoords_spin[:, None, :])
+    Gpk_cart = torch.einsum("ab,knb->kna", B, Gred_pk)
+    kin = 0.5 * torch.sum(Gpk_cart * Gpk_cart, -1) * mask
+    abs2 = psi.real ** 2 + psi.imag ** 2
+    E = torch.sum(wocc[:, :, None] * kin[:, None, :] * abs2) * terms.data.kinetic_scale
+
+    # density from psi at L0, rescaled by the volume in the graph
+    bd64 = bd._replace(mask=mask, kweights=f64(basis, basis.kweights))
+    with torch.no_grad():
+        rho0 = compute_density(bd64, psi, occupation, fft_size, vol0,
+                               model.n_spin_components, DENSITY_BAND_CHUNK)
+    rho = rho0 * (vol0 / vol)
+    rho_G = torch.fft.fftn(rho.sum(0)) * (sqrt_vol / N)
+
+    # Cartesian G on the cube
+    Gred_cube = f64(basis, basis.G_cube.reshape(-1, 3))
+    G_cart = Gred_cube @ B.T
+    Gsq = torch.sum(G_cart * G_cart, -1)
+
+    hartree = next((t.scaling_factor for t in model.term_types
+                    if isinstance(t, Hartree)), 0.0)
+    if hartree:
+        nonzero = Gsq > 0
+        coeffs = torch.where(nonzero, 4 * math.pi / torch.where(nonzero, Gsq, 1.0), 0.0)
+        E = E + 0.5 * hartree * torch.sum(
+            coeffs * (rho_G.real ** 2 + rho_G.imag ** 2).reshape(-1))
+
+    if terms.xc:
+        E = E + xc_energy(terms.xc, rho, vol, terms.xc_scaling)
+
+    # AtomicLocal: p^2 form factors keep the graph smooth at G = 0
+    if has_local(model):
+        rho_Gf = rho_G.reshape(-1)
+        vloc_G = 0
+        for group in model.atom_groups:
+            ff = model.atoms[group[0]].local_potential_fourier_sq(Gsq)
+            vloc_G = vloc_G + ff * structure_factor(Gred_cube, pos[group])
+        E = E + torch.sum(rho_Gf.real * vloc_G.real + rho_Gf.imag * vloc_G.imag) / sqrt_vol
+
+    # AtomicNonlocal: projectors traced through the metric
+    if terms.data.P.shape[-1] > 0:
+        for group in psp_groups(model):
+            ff, D = projector_form_factors(model.atoms[group[0]].psp, Gpk_cart, mask)
+            E = E + nonlocal_group_energy(ff, f64(basis, D), psi, wocc, Gred_pk,
+                                          pos[group], sqrt_vol)
+
+    charges = np.array([at.charge_ionic() for at in model.atoms], dtype=float)
+    if len(charges) > 0 and terms.E_ewald != 0.0:
+        eta = default_eta(model.lattice)
+        Gbox, Rbox = ewald_sum_bounds(model.lattice, np.stack(model.positions), eta)
+        E = E + energy_ewald(lattice, charges, pos, eta=eta, device=basis.device,
+                             Gbox=Gbox, Rbox=Rbox)
+    # PspCorrection: corr * n_electrons / Omega
+    E = E + terms.E_psp_correction * vol0 / vol
+    return E
+
+
+def compute_stresses_cart(scfres, basis=None):
+    """Cartesian stress tensor (Ha/bohr^3), a symmetrized float64 tensor
+    [3, 3] on the basis' device: sigma = (1/Omega) dE[(I + eps) L] / d eps
+    at eps = 0.  scfres: an SCFResult, or anything with psi and occupation."""
+    basis = basis or scfres.basis
+    check_supported(basis, scfres, "stresses")
+    L0 = f64(basis, basis.model.lattice)
+    with torch.enable_grad():
+        eps = torch.zeros((3, 3), dtype=torch.float64, device=basis.device,
+                          requires_grad=True)
+        L = (torch.eye(3, dtype=torch.float64, device=basis.device)
+             + (eps + eps.T) / 2) @ L0
+        (grad,) = torch.autograd.grad(
+            energy_at_lattice(basis, scfres.psi, scfres.occupation, L), eps)
+    stress = grad / basis.model.unit_cell_volume
+    return symmetrize_stresses(basis, (stress + stress.T) / 2)
+
+
+def symmetrize_stresses(basis, stress):
+    """Average the Cartesian stress over the model's symmetries: the
+    identity only in the port, so the stress comes back as it is."""
+    check_identity_symmetries(basis)
+    return stress

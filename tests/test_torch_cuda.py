@@ -18,7 +18,8 @@ Si54 and Si256 planes, both output layouts and planes near the first
 design's limit, kernel A at K and J that no tile divides and tall K, with
 the bf16 kernel B's shared-memory count held against the wrapper's.  The Si2 SCF and the Si2 split
 CheFSI SCF ("mixed" filter) on the GPU are held against the same SCFs on
-the CPU (1e-9 Ha).  The filter-stage probe kernels (`kernels/filter_stages.py`)
+the CPU (1e-9 Ha); the forces and stresses of one Si2 state on the GPU
+against the CPU's (1e-11), every op of both on the card.  The filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
 planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
 the margin rule above, the copy at 1e-6.  The planar chain (`probe_planar`,
@@ -38,9 +39,13 @@ subnormals kept), the repeated dots by the margin rule both ways (a
 plain 'highest': 1e-5 of max|out| cannot tell them apart, the product
 being ~1e-4 of acc).
 """
+import types
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 import dftk_tpu_torch as dt
 from dftk_tpu_torch.kernels import local_apply as la
@@ -49,9 +54,9 @@ A_SI = 5.131570667152971
 SI_LATTICE = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
 
 
-def _si2(device):
+def _si2(device, positions=(np.ones(3) / 8, -np.ones(3) / 8)):
     Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
-    model = dt.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+    model = dt.model_DFT(SI_LATTICE, [Si, Si], list(positions),
                          functionals=["lda_x", "lda_c_vwn"], symmetries=False)
     return dt.PlaneWaveBasis(model, Ecut=7.0, kgrid=dt.MonkhorstPack((2, 2, 2)),
                              fft_size=(18, 18, 18), device=device)
@@ -209,6 +214,49 @@ def test_cuda_scf_matches_cpu(gpu_basis):
     assert abs(res_g.total_energy - res_c.total_energy) < 1e-9
     assert la.counts.launches["pruned_axis_dft"] > 0 and la.counts.launches["local_plane"] > 0
     assert all(v == 0 for v in la.counts.plain.values())
+
+
+class _OffCardOps(TorchDispatchMode):
+    """Records every op that computes a tensor of one or more dimensions off
+    the card.  Not counted: `lift_fresh`, which hands torch a host array
+    (numpy setup data, a list of indices) before its copy to the card, and
+    the 0-d scalars torch wraps Python numbers in."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is not torch.ops.aten.lift_fresh.default and any(
+                isinstance(t, torch.Tensor) and t.device.type != "cuda" and t.dim() > 0
+                for t in tree_leaves(out)):
+            self.ops.append(str(func))
+        return out
+
+
+@pytest.mark.cuda
+def test_cuda_forces_stresses_match_cpu():
+    """Forces and stresses of one state of Si2 with atom 0 displaced (random
+    orbitals, 4 occupied bands and 2 empty, the guess density): the card's
+    within 1e-11 of the CPU's, and no op of either derivative computes a
+    tensor off the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    positions = (np.array([0.127, 0.125, 0.123]), -np.ones(3) / 8)
+    cpu, gpu = _si2("cpu", positions), _si2("cuda", positions)
+    psi = dt.scf.driver.random_orbitals(cpu, 6, seed=11)
+    occ = torch.tensor([2.0, 2.0, 2.0, 2.0, 0.0, 0.0]).repeat(cpu.n_kpoints, 1)
+    rho = dt.guess_density(cpu)
+    state_c = types.SimpleNamespace(psi=psi, occupation=occ, rho=rho)
+    state_g = types.SimpleNamespace(psi=psi.cuda(), occupation=occ.cuda(), rho=rho.cuda())
+    ref = (dt.compute_forces_cart(state_c, cpu), dt.compute_stresses_cart(state_c, cpu))
+    with _OffCardOps() as log:
+        out = (dt.compute_forces_cart(state_g, gpu), dt.compute_stresses_cart(state_g, gpu))
+    assert not log.ops, sorted(set(log.ops))
+    for a, b in zip(out, ref):
+        assert a.device.type == "cuda" and a.dtype == torch.float64
+        assert float((a.cpu() - b).abs().max()) < 1e-11
 
 
 @pytest.mark.cuda

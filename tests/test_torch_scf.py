@@ -105,7 +105,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, dftk_tpu_torch, dftk_tpu_torch.interop, "
             "dftk_tpu_torch.ops.engine_split, dftk_tpu_torch.ops.eigen.chefsi, "
             "dftk_tpu_torch.scf.energy_eval, dftk_tpu_torch.supercell, "
-            "dftk_tpu_torch.tools.run_si_big; "
+            "dftk_tpu_torch.tools.run_si_big, dftk_tpu_torch.postprocess.forces, "
+            "dftk_tpu_torch.postprocess.stresses, dftk_tpu_torch.ops.forces_split, "
+            "dftk_tpu_torch.ops.stresses_split; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'dftk_tpu' or m.startswith('dftk_tpu.')]; "
             "assert not bad, bad")
