@@ -14,7 +14,8 @@ Phases (any failure raises and exits non-zero):
      128 bands, Gamma) in complex128 (bar 1e-11 of max|out|) and complex64
      (bar 1e-5); time kernel, plain version, a one-call library version
      where one exists and a torch.fft local apply with CUDA events, and the
-     kernels' device time per call from torch.profiler
+     kernels' device time per call from torch.profiler; kernels A and B
+     also in complex64 (their first design), with their bounds
   4. run self_consistent_field (LOBPCG) in float64 on the GPU on the
      bench.py Si54 problem (LDA, HGH lda/si-q4, Ecut 10, Gamma, no
      symmetry) to a density tolerance of 1e-8, and require convergence,
@@ -32,7 +33,7 @@ Phases (any failure raises and exits non-zero):
   b. the compact-cube-resident Chebyshev filter chain of bench.py:160-192
      at Si54, 128 bands, chains of 25 and 100 applies, in complex128
      'highest', complex64 'highest' and bf16 'default': us per band-apply
-     from the slope
+     from the slope, and the kernels' launches of each chain
   c. the split CheFSI SCF (self_consistent_field_split, float64, "mixed"
      filter, degree 10, 2 cycles) on Si54 to a density tolerance of 1e-8:
      |E - E_ref| < 1e-7 Ha, every kernel instantiation of the path
@@ -114,7 +115,26 @@ Phases (any failure raises and exits non-zero):
      within 1e-11 and the JAX values within 1e-6; each derivative's wall
      time (CUDA-synchronised; a first call and a second) and peak device
      memory beside the card's name and power limit
-  5. print the kernels' JSON line (launches from phases c, e, f, g and h,
+  j. crystal symmetry under model_DFT's default symmetries, against
+     tests/data/torch_port_symmetry.json (the JAX package's CPU float64
+     values and the ABINIT golden's numbers): j1 the ABINIT silicon golden
+     at Ecut 25 (grid 33, the 4 explicit k-points, 8 bands, LOBPCG to an
+     energy tolerance of 1e-9): eigenvalues and energy within 1e-5 of
+     ABINIT, the k = 0 triple degeneracy within 1e-7; j2 Si8 conventional
+     cubic on MonkhorstPack (4, 4, 4) at Ecut 20 (192 operations, 10
+     irreducible k-points, grid 48): k-points, weights, symmetries and FFT
+     size equal to the JAX package's, the LOBPCG SCF to 1e-10 within 1e-8
+     Ha of its energy, the forces under 1e-8; then with atom 0 moved by
+     0.004 (1, 1, 1) (6 operations, 20 k-points): energy within 1e-8 Ha,
+     forces within 1e-7 Ha/bohr and stresses within 1e-8 Ha/bohr^3 (both
+     cells); j3 bench.py's Si54 with the default symmetries and no
+     fft_size (1296 operations, grid 72, the numpy path of symmetry
+     detection), the split CheFSI SCF ("mixed" filter, symmetrize=True) to
+     1e-8 within 1e-7 Ha of the JAX package's energy, with its gap to the
+     symmetry-free E_ref printed; every run with kernels A and B launched
+     and no plain call, its wall time and peak device memory; the host
+     build of the symmetrization maps and one symmetrizer application
+  5. print the kernels' JSON line (launches from phases c, e, f, g, h and j,
      times from phases 3, a, e, f, g and h, bounds from the shapes; the
      main path's kernels also with their device time), then the result
      line.
@@ -192,6 +212,11 @@ SPEED_SOURCE = "dftk_tpu_torch/csrc/op_speed.cu"
 MOSAIC_OPS_LINES = (38, 45, 53, 63, 72, 80, 89, 97)
 MOSAIC_SPEED_LINES = (48,) * 6 + (76, 89, 96, 104, 114)
 MOSAIC_R = (1, 3, 100)          # the R-step kernels are checked at each
+A_SI = 5.131570667152971     # the silicon fcc primitive cell's a / 2 (bohr)
+# phase j: the bars of the symmetric paths against the ABINIT golden and the
+# JAX package's values in tests/data/torch_port_symmetry.json
+SYM_ABINIT_TOL, SYM_DEGENERACY_TOL = 1e-5, 1e-7
+SI8_DISPLACEMENT, SI8_E_TOL, SI8_ZERO_FORCE_TOL = 0.004, 1e-8, 1e-8
 # phase i: atom 0 of Si54 moved in the supercell's reduced coordinates; the
 # bars against tests/data/torch_port_si54_derivatives.json (Ha/bohr, Ha/bohr^3)
 DISPLACEMENT = (0.004, -0.002, 0.001)
@@ -317,20 +342,22 @@ def kernel_phase(la, basis, device):
             print(f"[3] {name} {tag}: max_abs_err={err:.3e} max|out|={scale:.3e} "
                   f"rel={err / scale:.3e} bar={BARS[tag]:.0e}", flush=True)
             check(err <= BARS[tag] * scale, f"{name} {tag} within {BARS[tag]}")
-            if tag == "complex128":
-                results[name] = dict(max_abs_err=err, ms=cuda_ms(kern),
-                                     plain_ms=cuda_ms(plain), device_ms=device_ms(kern))
-        if tag == "complex128":
-            # the one PyTorch call that computes each kernel's function
-            results["pruned_axis_dft"]["library_ms"] = cuda_ms(
-                lambda: torch.einsum("kbxyc,cz->kbzxy", xc, fac.fwd[2]))
-            lib = local_plane_library(t_ref, V, fac)
-            ref = la.local_plane_plain(t_ref, V, fac)
-            err = float((lib() - ref).abs().max())
-            print(f"[3] local_plane one-call library vs plain: max_abs_err={err:.3e}",
-                  flush=True)
-            check(err <= BARS[tag] * float(ref.abs().max()), "local_plane library call")
-            results["local_plane"]["library_ms"] = cuda_ms(lib)
+            if tag == "complex128" or name in ("pruned_axis_dft", "local_plane"):
+                # complex64: the two kernels' own timings (their first design)
+                key = name if tag == "complex128" else f"{name}[complex64]"
+                results[key] = dict(max_abs_err=err, ms=cuda_ms(kern),
+                                    plain_ms=cuda_ms(plain), device_ms=device_ms(kern))
+        # the one PyTorch call that computes each kernel's function
+        sfx = "" if tag == "complex128" else "[complex64]"
+        results["pruned_axis_dft" + sfx]["library_ms"] = cuda_ms(
+            lambda: torch.einsum("kbxyc,cz->kbzxy", xc, fac.fwd[2]))
+        lib = local_plane_library(t_ref, V, fac)
+        ref = la.local_plane_plain(t_ref, V, fac)
+        err = float((lib() - ref).abs().max())
+        print(f"[3] local_plane one-call library vs plain {tag}: max_abs_err={err:.3e}",
+              flush=True)
+        check(err <= BARS[tag] * float(ref.abs().max()), f"local_plane library call {tag}")
+        results["local_plane" + sfx]["library_ms"] = cuda_ms(lib)
         # the same operator through torch.fft, as a comparison
         V_full = V.permute(0, 2, 3, 1).contiguous()
         ffted = fft_local_apply(xc, V_full, live, grid_idx, n)
@@ -342,10 +369,16 @@ def kernel_phase(la, basis, device):
         if tag == "complex128":
             results["torch.fft"] = dict(ms=cuda_ms(
                 lambda: fft_local_apply(xc, V_full, live, grid_idx, n)))
+    x_shape, t_shape = tuple(xc.shape), (basis.n_kpoints, N_BANDS_KERNEL, n[2], m[0], m[1])
+    work64 = {"pruned_axis_dft[complex64]": axis_dft_work(x_shape, m[2], n[2], 8),
+              "local_plane[complex64]": local_plane_work(t_shape, n[0], n[1], 8)}
     for name, r in results.items():
-        print(f"[3] time complex128 {name}: " + ", ".join(
-            f"{k}={v:.4f}" for k, v in r.items() if k != "max_abs_err" and v is not None),
-            flush=True)
+        line = f"[3] time {name if name in work64 else 'complex128 ' + name}: " + ", ".join(
+            f"{k}={v:.4f}" for k, v in r.items() if k != "max_abs_err" and v is not None)
+        if name in work64:
+            b = bound(work64[name], "complex64")
+            line += f"; bound {b[0]:.4f} ms ({b[1]})"
+        print(line, flush=True)
     return results, (xc_np, V_np)
 
 
@@ -439,7 +472,7 @@ def bf16_phase(la, basis, device, inputs):
     return results
 
 
-def filter_chain_phase(dt, basis, device, n_short=25, n_long=100):
+def filter_chain_phase(dt, la, basis, device, n_short=25, n_long=100):
     """Phase b: compact-resident filter applies, us per band-apply from the
     slope between two chain lengths (bench.py:143-192)."""
     import torch
@@ -461,6 +494,7 @@ def filter_chain_phase(dt, basis, device, n_short=25, n_long=100):
                                                       precision=prec)
         X = torch.as_tensor(X_np, device=device).to(dtype)
         scale = 1.0 / 40      # keeps the powers of H finite in single precision
+        la.counts.reset()
 
         def chain(n):
             x = enter(X).to(apply_c.dtype)
@@ -476,7 +510,8 @@ def filter_chain_phase(dt, basis, device, n_short=25, n_long=100):
         print(f"[b] filter chain {label}: {n_short} applies {t_short:.2f} ms, "
               f"{n_long} applies {t_long:.2f} ms, slope {per_apply_us:.3f} us per "
               f"band-apply ({per_apply_us * N_BANDS_KERNEL / 1e3:.3f} ms per "
-              f"{N_BANDS_KERNEL}-band apply)", flush=True)
+              f"{N_BANDS_KERNEL}-band apply); launches {dict(la.counts.launches)}",
+              flush=True)
     return out
 
 
@@ -1450,6 +1485,177 @@ def derivatives_phase(dt, la, device, smi):
     print(f"[i] phase i took {time.time() - t_phase:.1f} s", flush=True)
 
 
+def symmetry_engine(model):
+    """Which engine found the model's operations: the native engine, or the
+    numpy path where the engine's buffer of operations is too small."""
+    from dftk_tpu_torch.utils.native import native_symmetry_operations
+    types = [model.atoms.index(at) for at in model.atoms]
+    found = native_symmetry_operations(model.lattice, np.stack(model.positions), types)
+    return "native" if found is not None else "numpy path"
+
+
+def si8_model(dt, displacement=0.0):
+    """Si8 conventional cubic (fcc sites +-(1/8, 1/8, 1/8)), atom 0 moved
+    by displacement * (1, 1, 1) in reduced coordinates, default symmetries."""
+    fcc = [np.array(p, dtype=float) for p in ([0, 0, 0], [0, .5, .5], [.5, 0, .5], [.5, .5, 0])]
+    positions = [f + s * np.ones(3) / 8 for f in fcc for s in (1, -1)]
+    positions[0] = positions[0] + displacement * np.ones(3)
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    return dt.model_DFT(np.eye(3) * 2 * A_SI, [Si] * 8, positions,
+                        functionals=["lda_x", "lda_c_vwn"])
+
+
+def run_on_card(la, label, smi, fn):
+    """fn() with the counts set to 0 just before it, its wall time
+    (CUDA-synchronised) and peak device memory; checks that kernels A and
+    B launched and that no plain version was called.  Returns (result,
+    launches)."""
+    import torch
+    la.counts.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, plain = dict(la.counts.launches), dict(la.counts.plain)
+    print(f"[j] {label}: wall {wall:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB ({smi}); "
+          f"launches={launches} plain_calls={plain}", flush=True)
+    check(launches["pruned_axis_dft"] > 0 and launches["local_plane"] > 0,
+          f"{label}: every complex128 kernel launched")
+    check(all(v == 0 for v in plain.values()), f"{label}: no plain version called")
+    return out, launches
+
+
+def time_symmetrizer(basis, label, smi):
+    """The symmetrizer's build (the maps on the host, then on the card) and
+    one application on the card (CUDA-synchronised, the median of 5 after
+    one warm-up).  The basis keeps it for the SCF."""
+    import torch
+    from dftk_tpu_torch.ops.density import make_symmetrizer
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sym = make_symmetrizer(basis)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    rho = torch.rand((1,) + basis.fft_size, dtype=torch.float64, device=basis.device,
+                     generator=torch.Generator(basis.device).manual_seed(3))
+    ms = cuda_ms(lambda: sym(rho), reps=5, warmup=1)
+    print(f"[j] {label} symmetrizer: {len(basis.symmetries)} operations, "
+          f"{len({op.W for op in basis.symmetries})} rotations, grid {basis.fft_size}: "
+          f"built in {t_build:.2f} s, one application {ms:.3f} ms ({smi})", flush=True)
+
+
+def symmetry_phase(dt, la, device, smi):
+    """Phase j: the default model's crystal symmetry on the card: the ABINIT
+    golden, symmetric and displaced Si8 on a Monkhorst-Pack grid, and the
+    symmetric Si54 split SCF.  Returns the kernel launches of its runs."""
+    import torch
+    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
+    t_phase = time.time()
+    with open(os.path.join(HERE, "tests", "data", "torch_port_symmetry.json")) as f:
+        ref = json.load(f)
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # j1: the ABINIT golden at its full size (tests/test_silicon_scf.py::
+    # test_silicon_lda_large's configuration)
+    ab = ref["abinit_silicon_lda"]
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    lattice = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
+    model = dt.model_DFT(lattice, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+                         functionals=["lda_x", "lda_c_vwn"])
+    basis = dt.PlaneWaveBasis(model, Ecut=25.0, kgrid=dt.ExplicitKpoints(*ab["kpoints"]),
+                              fft_size=(33, 33, 33), device=device)
+    print(f"[j1] {basis}, engine: {symmetry_engine(model)}", flush=True)
+    res, launches = run_on_card(la, "j1 golden LOBPCG SCF", smi, lambda: dt.self_consistent_field(
+        basis, tol=1e-9, is_converged="energy", n_bands=8))
+    add(launches)
+    dev = np.abs(res.eigenvalues[:, :8] - np.array(ab["eigenvalues"])).max()
+    dE = res.total_energy - ab["total_energy"]
+    degen = abs(res.eigenvalues[0][1] - res.eigenvalues[0][3])
+    print(f"[j1] converged={res.converged} n_iter={res.n_iter} E={res.total_energy:.12f} "
+          f"E - E_ABINIT={dE:.3e}; max|eigenvalue - ABINIT|={dev:.3e}; k=0 triple "
+          f"degeneracy {degen:.3e}", flush=True)
+    check(res.converged and abs(dE) < SYM_ABINIT_TOL and dev < SYM_ABINIT_TOL,
+          f"j1: energy and eigenvalues within {SYM_ABINIT_TOL} of ABINIT")
+    check(degen < SYM_DEGENERACY_TOL, f"j1: k=0 degeneracy within {SYM_DEGENERACY_TOL}")
+    del res, basis
+
+    # j2: Si8 conventional on MonkhorstPack (4, 4, 4) at Ecut 20, symmetric
+    # then with atom 0 moved along [111]
+    for key, disp in (("si8_symmetric", 0.0), ("si8_displaced", SI8_DISPLACEMENT)):
+        r = ref[key]
+        model = si8_model(dt, disp)
+        basis = dt.PlaneWaveBasis(model, Ecut=20.0, kgrid=dt.MonkhorstPack((4, 4, 4)),
+                                  device=device)
+        print(f"[j2] {key}: {basis}, engine: {symmetry_engine(model)}", flush=True)
+        check(len(basis.symmetries) == r["n_symmetries"] and list(basis.fft_size) == r["fft_size"]
+              and np.array_equal(basis.kcoords, np.array(r["kcoords"]))
+              and np.array_equal(basis.kweights, np.array(r["kweights"])),
+              f"j2 {key}: k-points, weights, symmetries and FFT size equal the JAX package's")
+        time_symmetrizer(basis, f"j2 {key}", smi)
+        res, launches = run_on_card(la, f"j2 {key} LOBPCG SCF", smi,
+                                    lambda: dt.self_consistent_field(basis, tol=1e-10))
+        add(launches)
+        F, F_ms, F_mib = timed_on_card(lambda: dt.compute_forces_cart(res))
+        S, S_ms, S_mib = timed_on_card(lambda: dt.compute_stresses_cart(res))
+        F, S = F.cpu().numpy(), S.cpu().numpy()
+        dE = res.total_energy - r["total_energy"]
+        dF = np.abs(F - np.array(r["forces_cart"])).max()
+        dS = np.abs(S - np.array(r["stresses_cart"])).max()
+        print(f"[j2] {key}: converged={res.converged} n_iter={res.n_iter} "
+              f"E={res.total_energy:.12f} dE={dE:.3e}; forces {F_ms[0]:.1f} ms (again "
+              f"{F_ms[1]:.1f}), peak {F_mib:.1f} MiB, max|F - F_ref|={dF:.3e}, max|F|="
+              f"{np.abs(F).max():.3e}; stresses {S_ms[0]:.1f} ms (again {S_ms[1]:.1f}), "
+              f"peak {S_mib:.1f} MiB, max|S - S_ref|={dS:.3e} ({smi})", flush=True)
+        check(res.converged and abs(dE) < SI8_E_TOL,
+              f"j2 {key}: |E - E_JAX| < {SI8_E_TOL}")
+        check(np.all(np.isfinite(F)) and np.all(np.isfinite(S)), f"j2 {key}: finite derivatives")
+        check(dS < STRESS_TOL, f"j2 {key}: stresses within {STRESS_TOL} of the JAX package's")
+        if disp == 0.0:
+            check(np.abs(F).max() < SI8_ZERO_FORCE_TOL,
+                  f"j2 {key}: forces vanish (< {SI8_ZERO_FORCE_TOL})")
+        else:
+            check(dF < FORCE_TOL, f"j2 {key}: forces within {FORCE_TOL} of the JAX package's")
+        del res, basis
+
+    # j3: bench.py's Si54 under the default model (no fft_size: 72^3), the
+    # split CheFSI SCF with the "mixed" filter and symmetrize=True
+    m = build_bench_basis(3, 10.0, device).model
+    t0 = time.time()
+    model = dt.model_DFT(m.lattice, m.atoms, m.positions, functionals=["lda_x", "lda_c_vwn"])
+    t_model = time.time() - t0
+    basis = dt.PlaneWaveBasis(model, Ecut=10.0, kgrid=(1, 1, 1), device=device)
+    r = ref["si54_symmetric"]
+    print(f"[j3] {basis}: operations found in {t_model:.2f} s, engine: "
+          f"{symmetry_engine(model)}; basis in {time.time() - t0 - t_model:.2f} s", flush=True)
+    check(len(basis.symmetries) == r["n_symmetries"] and list(basis.fft_size) == r["fft_size"],
+          "j3: symmetries and FFT size equal the JAX package's")
+    time_symmetrizer(basis, "j3 Si54", smi)
+    res, launches = run_on_card(la, "j3 Si54 split CheFSI SCF", smi,
+                                lambda: dt.self_consistent_field_split(
+        basis, tol=1e-8, maxiter=60, eigensolver="chefsi", chebyshev_degree=10,
+        chefsi_cycles=2, is_converged="density", filter_precision="mixed",
+        symmetrize=True))
+    add(launches)
+    E = res["energies"]["total"]
+    with open(os.path.join(HERE, "tests", "data", "torch_port_si54.json")) as f:
+        E_free = json.load(f)["total_energy"]
+    print(f"[j3] converged={res['converged']} n_iter={res['n_iter']} E={E:.12f} "
+          f"E - E_JAX={E - r['total_energy']:.3e}; E - E_ref(symmetry-free, 64^3)="
+          f"{E - E_free:.3e}", flush=True)
+    check(res["converged"] and abs(E - r["total_energy"]) < E_TOL,
+          f"j3: |E - E_JAX| < {E_TOL}")
+    check(all(v > 0 for v in launches.values()), "j3: every kernel launched")
+    print(f"[j] phase j took {time.time() - t_phase:.1f} s; launches {total}", flush=True)
+    return total
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -1521,7 +1727,7 @@ def main():
     timings.update(bf16_phase(la, basis, device, inputs))
 
     # ---- b. the compact-resident filter chain -----------------------------------
-    filter_chain_phase(dt, basis, device)
+    filter_chain_phase(dt, la, basis, device)
 
     # ---- c. the split CheFSI SCF on Si54 (this slice's main path) -------------
     launches = split_scf_phase(dt, la, basis, E_ref)
@@ -1546,6 +1752,11 @@ def main():
 
     # ---- i. forces and stresses on the card --------------------------------------
     derivatives_phase(dt, la, device, smi)
+    torch.cuda.empty_cache()
+
+    # ---- j. crystal symmetry: the default model on the card --------------------
+    for name, count in symmetry_phase(dt, la, device, smi).items():
+        launches[name] += count
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])

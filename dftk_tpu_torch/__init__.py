@@ -13,8 +13,9 @@ local-potential part of H psi runs through hand-written CUDA kernels on a
 CUDA device (`kernels/local_apply.py`).  The JAX package `dftk_tpu` is the
 reference this port is held against; this package never imports it or jax.
 
-This slice covers the symmetry-free, zero-temperature LDA SCF; see
-ROADMAP.md for the rest.
+Crystal symmetry is on by default (`symmetries=True`): IBZ k-points and
+symmetrized densities, forces and stresses.  This covers the
+zero-temperature LDA SCF without spin; see ROADMAP.md for the rest.
 """
 import torch
 

@@ -13,11 +13,14 @@ two packages' arrays compare element by element.  Index and mask
 construction is host-side numpy; `basis.data` holds the tensors on
 `basis.device` in `basis.dtype` (complex) and its real counterpart.
 
+The k-points are the irreducible wedge of the k-grid under the model's
+symmetries that map the full grid onto itself; `basis.symmetries` keeps
+the model's operations that map the r-grid (when the basis chooses its FFT
+size, which it then makes divisible by the translations' denominators) and
+the k-points onto themselves.
+
 The device defaults to the CUDA card; without one, building a basis raises
 unless the caller asks for the CPU (`device="cpu"`).
-
-Not ported in this slice: symmetry-reduced k-points (the model must be
-symmetry-free) and the k-point device mesh.
 """
 import dataclasses
 from typing import Any, NamedTuple, Optional
@@ -28,6 +31,8 @@ import torch
 from .bzmesh import as_kgrid
 from .models.model import Model
 from .ops import fft as fftops
+from .symmetry import (SymOp, symmetries_preserving_kgrid,
+                       symmetries_preserving_rgrid)
 
 LANE = 128  # nG padding multiple, kept from the JAX package
 
@@ -55,6 +60,8 @@ class PlaneWaveBasis:
     fft_size: Optional[tuple] = None
     device: Any = "cuda"
     dtype: torch.dtype = torch.complex128
+    symmetries_respect_rgrid: Optional[bool] = None
+    use_symmetries_for_kpoint_reduction: bool = True
 
     def __post_init__(self):
         model = self.model
@@ -66,15 +73,39 @@ class PlaneWaveBasis:
         self.rdtype = real_dtype(self.dtype)
         self.kgrid = as_kgrid(self.kgrid if self.kgrid is not None else (1, 1, 1))
 
-        kcoords, kweights = self.kgrid.irreducible_kcoords()
+        if self.symmetries_respect_rgrid is None:
+            # the reference default (PlaneWaveBasis.jl:329): filter by the
+            # r-grid only where the basis chooses its FFT size
+            self.symmetries_respect_rgrid = self.fft_size is None
+
+        # IBZ reduction, with the model's operations that map the full
+        # (reducible) k-grid onto itself (shifted Monkhorst-Pack meshes)
+        if self.use_symmetries_for_kpoint_reduction:
+            ksym = symmetries_preserving_kgrid(
+                model.symmetries, self.kgrid.reducible_kcoords(), unfold=False)
+        else:
+            ksym = [SymOp.identity()]
+        kcoords, kweights = self.kgrid.irreducible_kcoords(ksym)
         self.kcoords = np.asarray(kcoords, dtype=float)
         self.kweights_irr = np.asarray(kweights, dtype=float)
         if abs(self.kweights_irr.sum() - 1.0) > 1e-12:
             raise ValueError("k-point weights must sum to 1")
 
         if self.fft_size is None:
-            self.fft_size = fftops.compute_fft_size(model.lattice, self.Ecut)
+            factors = (1,)
+            if self.symmetries_respect_rgrid:
+                # the grid holds every fractional translation exactly
+                denoms = [_rational_denominator(w) for op in model.symmetries
+                          for w in op.w]
+                factors = (int(np.lcm.reduce(denoms)),) if denoms else (1,)
+            self.fft_size = fftops.compute_fft_size(model.lattice, self.Ecut,
+                                                    factors=factors)
         self.fft_size = tuple(int(n) for n in self.fft_size)
+
+        syms = model.symmetries
+        if self.symmetries_respect_rgrid:
+            syms = symmetries_preserving_rgrid(syms, self.fft_size)
+        self.symmetries = symmetries_preserving_kgrid(syms, self.kcoords)
 
         nspin = model.n_spin_components
         nk_irr = len(self.kcoords)
@@ -82,6 +113,7 @@ class PlaneWaveBasis:
         self.kweights = np.tile(self.kweights_irr, nspin)
         self.kspin = np.repeat(np.arange(nspin), nk_irr)
         self.n_kpoints = nk_irr * nspin
+        self.n_irreducible_kpoints = nk_irr
 
         self._build_spheres()
 
@@ -143,5 +175,11 @@ class PlaneWaveBasis:
 
     def __repr__(self):
         return (f"PlaneWaveBasis(Ecut={self.Ecut}, fft_size={self.fft_size}, "
-                f"n_kpoints={self.n_kpoints}, nG_max={self.nG_max}, "
+                f"n_kpoints={self.n_kpoints} (irr {self.n_irreducible_kpoints}), "
+                f"nG_max={self.nG_max}, n_symmetries={len(self.symmetries)}, "
                 f"device={self.device}, dtype={self.dtype})")
+
+
+def _rational_denominator(x, max_den=48):
+    from fractions import Fraction
+    return Fraction(float(x)).limit_denominator(max_den).denominator

@@ -1,13 +1,16 @@
 """Brillouin-zone sampling: Monkhorst-Pack and explicit k-grids.
 
-Port of `dftk_tpu/bzmesh.py` (reference `src/bzmesh.jl:24-236`) without
-symmetry reduction: the slice runs symmetry-free models, whose irreducible
-k-set is the full grid with equal weights (IBZ reduction comes with the
-symmetry slice, ROADMAP Queue 1, "Symmetry").
+Port of `dftk_tpu/bzmesh.py` (reference `src/bzmesh.jl:24-236`): the MP
+coordinate convention (k = (shift + [i,j,k]) / n, components normalised to
+[-0.5, 0.5)), and symmetry reduction to the irreducible wedge (no time
+reversal in the reduction, matching the reference's spglib call with
+is_time_reversal=false).
 """
 import dataclasses
 
 import numpy as np
+
+from .symmetry import irreducible_kcoords as _irr_kcoords
 
 
 def normalize_kpoint_coordinate(k):
@@ -36,11 +39,12 @@ class MonkhorstPack:
                     ks.append((np.array(self.kshift) + np.array([i, j, k])) / n)
         return normalize_kpoint_coordinate(np.array(ks))
 
-    def irreducible_kcoords(self):
+    def irreducible_kcoords(self, symmetries):
         if all(s == 1 for s in self.kgrid_size):
             return np.array([self.kshift], dtype=float), np.array([1.0])
         full = self.reducible_kcoords()
-        return full, np.full(len(full), 1.0 / len(full))
+        kcoords, weights = _irr_kcoords(full, symmetries, use_time_reversal=False)
+        return normalize_kpoint_coordinate(kcoords), weights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +62,10 @@ class ExplicitKpoints:
     def __len__(self):
         return len(self.kcoords)
 
-    def irreducible_kcoords(self):
+    def reducible_kcoords(self):
+        return np.array(self.kcoords, dtype=float)
+
+    def irreducible_kcoords(self, symmetries):
         return np.array(self.kcoords, dtype=float), np.array(self.kweights)
 
 

@@ -1,13 +1,14 @@
 """The Model: physics specification of a periodic Kohn-Sham problem.
 
 Port of `dftk_tpu/models/model.py` (reference `src/Model.jl:6-219`): lattice,
-atoms + positions, electron count, spin mode, temperature + smearing and the
-list of energy-term specs.  Host-side numpy; `PlaneWaveBasis` turns it
-into tensors.
+atoms + positions, electron count, spin mode, temperature + smearing, the
+list of energy-term specs and the crystal symmetries.  Host-side numpy;
+`PlaneWaveBasis` turns it into tensors.
 
-Symmetry is not ported yet: `symmetries` takes `False` or a list holding the
-identity only.  Symmetry detection, IBZ reduction and the density
-symmetrizer are the next slice (ROADMAP Queue 1, "Symmetry").
+`symmetries=True` (the default) detects the crystal's operations
+(`symmetry.py`), `False` keeps the identity, and an explicit list of
+operations (anything with integer W and fractional w) is taken as given.
+Magnetic moments are not ported yet (ROADMAP Queue 1, item 8).
 """
 import dataclasses
 import math
@@ -15,29 +16,9 @@ from typing import Any, List, Optional, Sequence
 
 import numpy as np
 
+from ..symmetry import SymOp, symmetry_operations
 from ..utils import lattice as lat
 from .smearing import FermiDirac, NoSmearing, SmearingFunction
-
-_SYMMETRY_TODO = ("symmetry detection, IBZ reduction and the density "
-                  "symmetrizer are not ported yet (ROADMAP Queue 1, "
-                  "'Symmetry'); build the model with symmetries=False")
-
-
-@dataclasses.dataclass(frozen=True)
-class SymOp:
-    """A crystal symmetry (W, w): r -> W r + w in reduced coordinates."""
-    W: tuple
-    w: tuple
-
-    @classmethod
-    def identity(cls):
-        return cls(W=((1, 0, 0), (0, 1, 0), (0, 0, 1)), w=(0.0, 0.0, 0.0))
-
-
-def _is_identity(op):
-    """True for an identity op given as anything with W and w attributes."""
-    return (np.array_equal(np.asarray(op.W), np.eye(3))
-            and np.allclose(np.asarray(op.w, dtype=float), 0))
 
 
 @dataclasses.dataclass
@@ -50,7 +31,7 @@ class Model:
     smearing: Optional[SmearingFunction] = None
     spin_polarization: str = "none"      # none | collinear | spinless
     term_types: Sequence[Any] = ()
-    symmetries: Any = True               # False, or a list of identity ops
+    symmetries: Any = True               # True/False or explicit list of SymOp
     magnetic_moments: Sequence[Any] = ()
     extra_charge: float = 0.0
 
@@ -78,18 +59,23 @@ class Model:
             self.smearing = NoSmearing() if self.temperature == 0 else FermiDirac()
         if self.spin_polarization not in ("none", "collinear", "spinless"):
             raise ValueError(f"spin_polarization {self.spin_polarization}")
-        if len(self.magnetic_moments) > 0 and self.spin_polarization == "none":
-            self.spin_polarization = "collinear"
+        if len(self.magnetic_moments) > 0:
+            raise NotImplementedError("magnetic moments are not ported yet (ROADMAP "
+                                      "Queue 1, item 8)")
 
         groups = {}
         for i, at in enumerate(self.atoms):
             groups.setdefault(at, []).append(i)
         self.atom_groups = list(groups.values())
 
-        if self.symmetries is True or (self.symmetries is not False and not all(
-                _is_identity(op) for op in self.symmetries)):
-            raise NotImplementedError(_SYMMETRY_TODO)
-        self.symmetries = [SymOp.identity()]
+        if self.symmetries is True:
+            self.symmetries = (symmetry_operations(self.lattice, self.atoms,
+                                                   self.positions)
+                               if len(self.atoms) else [SymOp.identity()])
+        elif self.symmetries is False:
+            self.symmetries = [SymOp.identity()]
+        else:
+            self.symmetries = [SymOp.make(op.W, op.w) for op in self.symmetries]
 
     @property
     def n_spin_components(self):

@@ -1,14 +1,22 @@
-"""Densities from orbitals, and the superposition guess density.
+"""Densities from orbitals, the superposition guess density, and the
+density symmetrizer.
 
-Port of `compute_density` and `guess_density` of `dftk_tpu/ops/density.py`
-(reference `src/densities.jl:13-57`, `src/density_methods.jl`):
+Port of `compute_density`, `guess_density`, `build_symmetrization_maps`
+and `make_symmetrizer` of `dftk_tpu/ops/density.py` (reference
+`src/densities.jl:13-57`, `src/density_methods.jl`,
+`src/symmetry.jl:282-360`):
 
     rho_sigma(r) = sum_{k in sigma} w_k sum_n f_kn |psi_kn(r)|^2
 
 as one batched inverse FFT (`torch.fft`) and a weighted reduction over
-(k, band).  No symmetrizer: the slice runs symmetry-free models.
+(k, band), and its symmetrization
+
+    rho_sym(G) = 1/|S| sum_s e^{-2 pi i G.tau_s} rho(S_s^{-1} G)
+
+with a low-pass mask dropping the G whose orbit leaves the grid.
 """
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -17,10 +25,11 @@ from . import fft as fftops
 
 
 def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin,
-                    band_chunk=None):
+                    band_chunk=None, symmetrizer=None):
     """rho [nspin, n1, n2, n3] from psi [nk, nb, nG], occupation [nk, nb];
     band_chunk bounds the bands transformed at once (the full-grid cubes of
-    a chunk are the largest temporaries)."""
+    a chunk are the largest temporaries); symmetrizer (`make_symmetrizer`)
+    is applied to the result when given."""
     N = int(np.prod(fft_size))
     w = basis_data.kweights[:, None] * occupation          # [nk, nb]
     nb = psi.shape[1]
@@ -33,9 +42,105 @@ def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin,
         dens_k = dens_k + torch.einsum("kn,knxyz->kxyz", w[:, i:i + step],
                                        psir.real ** 2 + psir.imag ** 2)
     if n_spin == 1:
-        return dens_k.sum(0)[None]
-    sel = torch.nn.functional.one_hot(basis_data.kspin, n_spin).to(dens_k.dtype)
-    return torch.einsum("ks,kxyz->sxyz", sel, dens_k)
+        rho = dens_k.sum(0)[None]
+    else:
+        sel = torch.nn.functional.one_hot(basis_data.kspin, n_spin).to(dens_k.dtype)
+        rho = torch.einsum("ks,kxyz->sxyz", sel, dens_k)
+    return rho if symmetrizer is None else symmetrizer(rho)
+
+
+# ---------------------------------------------------------------------------
+# Density symmetrization
+# ---------------------------------------------------------------------------
+
+# complex entries of one block of operations in the symmetrizer (128 MB)
+SYM_CHUNK_ELEMS = 2 ** 23
+
+
+class SymmetrizationMaps(NamedTuple):
+    """The gather maps of the basis' symmetries, on the host.  The map of
+    S^{-1} G depends on the rotation only, so it is kept once per distinct
+    rotation (Si54 has 1296 operations and 48 rotations)."""
+    rot_idx: np.ndarray    # [nrot, N] int64: flat index of S^{-1} G (N if off the grid)
+    op_rot: np.ndarray     # [nsym] int64: each operation's rotation
+    tau: np.ndarray        # [nsym, 3] translations
+    lowpass: np.ndarray    # [N] 0/1: G whose orbit stays on the grid
+
+    @property
+    def idx(self):
+        """[nsym, N]: each operation's map, as the JAX package stores it."""
+        return self.rot_idx[self.op_rot]
+
+
+def build_symmetrization_maps(basis):
+    """The per-rotation gather maps, vectorised over the G vectors: one
+    `index_G_vectors` of Gred @ invS^T for each distinct rotation."""
+    Gred = basis.G_cube.reshape(-1, 3)
+    N = Gred.shape[0]
+    rows, op_rot, lowpass = {}, [], np.ones(N)
+    for op in basis.symmetries:
+        if op.W not in rows:
+            S = op.S
+            invS = np.rint(np.linalg.inv(S)).astype(np.int64)
+            src = fftops.index_G_vectors(basis.fft_size, Gred @ invS.T)
+            rows[op.W] = (len(rows), np.where(src >= 0, src, N))
+            lowpass *= fftops.index_G_vectors(basis.fft_size, Gred @ S.T) >= 0
+        op_rot.append(rows[op.W][0])
+    return SymmetrizationMaps(
+        rot_idx=np.stack([row for _, row in rows.values()]),
+        op_rot=np.array(op_rot, dtype=np.int64),
+        tau=np.array([op.tau for op in basis.symmetries]).reshape(-1, 3),
+        lowpass=lowpass)
+
+
+def make_symmetrizer(basis):
+    """rho [nspin, n1, n2, n3] -> symmetrized rho on the basis' device, or
+    None where the basis has the identity only.
+
+    torch.fft.fftn, then over blocks of operations (at most
+    SYM_CHUNK_ELEMS complex entries a block): one gather per operation from
+    the zero-padded row of rho(G), its phase e^{-2 pi i G.tau} made for the
+    block, the sum; then the low-pass mask and ifftn.  The maps stay on the
+    device (no gradient flows through them).
+
+    Built once per basis and set of symmetries, and kept on the basis
+    instance (the SCF, the energy evaluation and the stresses all ask for
+    it; the host build of the maps takes seconds at Si54)."""
+    cache = basis.__dict__.setdefault("_symmetrizers", {})
+    key = tuple(basis.symmetries)
+    if key not in cache:
+        cache[key] = (None if all(op.is_identity() for op in basis.symmetries)
+                      else _build_symmetrizer(basis))
+    return cache[key]
+
+
+def _build_symmetrizer(basis):
+    maps = build_symmetrization_maps(basis)
+    dev = basis.device
+    rot_idx = torch.as_tensor(maps.rot_idx, device=dev)
+    op_rot = torch.as_tensor(maps.op_rot, device=dev)
+    tau = torch.as_tensor(maps.tau, dtype=torch.float64, device=dev)
+    Gred = torch.as_tensor(basis.G_cube.reshape(-1, 3), dtype=torch.float64, device=dev)
+    lowpass = torch.as_tensor(maps.lowpass, dtype=torch.float64, device=dev)
+    nsym, N = len(maps.op_rot), Gred.shape[0]
+    chunk = max(1, SYM_CHUNK_ELEMS // N)
+
+    def symmetrize(rho):
+        shape = rho.shape
+        rho_G = torch.fft.fftn(rho, dim=(-3, -2, -1)).reshape(shape[0], N)
+        rho_pad = torch.cat([rho_G, rho_G.new_zeros(shape[0], 1)], dim=1)
+        acc = torch.zeros_like(rho_G)
+        for s in range(0, nsym, chunk):
+            idx = rot_idx[op_rot[s:s + chunk]]                        # [c, N]
+            angle = (-2 * math.pi) * (tau[s:s + chunk] @ Gred.T)      # [c, N]
+            phase = torch.polar(torch.ones_like(angle), angle).to(rho_G.dtype)
+            gathered = rho_pad.index_select(1, idx.reshape(-1)).reshape(
+                shape[0], -1, N)
+            acc += torch.einsum("cg,scg->sg", phase, gathered)
+        acc *= lowpass.to(rho.dtype) / nsym
+        return torch.fft.ifftn(acc.reshape(shape), dim=(-3, -2, -1)).real
+
+    return symmetrize
 
 
 def guess_density(basis, n_electrons=None):

@@ -34,9 +34,9 @@ import torch
 from ..basis import BasisData, real_dtype
 from ..kernels.local_apply import LocalFactors, local_apply, round_bf16
 from ..scf.anderson import AndersonAcceleration
-from ..scf.mixing import KerkerMixing
+from ..scf.mixing import DielectricMixing, KerkerMixing
 from . import hamiltonian as hamops
-from .density import compute_density, guess_density
+from .density import compute_density, guess_density, make_symmetrizer
 from .eigen.chefsi import chefsi_step
 from .eigen.lobpcg import lobpcg, ortho_qr
 from .occupation import compute_occupation
@@ -154,14 +154,8 @@ def kerker_mix_split(delta_F, Gsq, kTF=KTF):
 
 def dielectric_mix(delta_F, eps_r, Gsq, kTF=KTF):
     """Model-dielectric preconditioner: the total channel screened by
-    (kTF^2 + G^2) / (eps_r kTF^2 + G^2), on torch.fft."""
-    factor = (kTF ** 2 + Gsq) / (eps_r * kTF ** 2 + Gsq)
-    total = torch.sum(delta_F, dim=0)
-    mixed = torch.fft.ifftn(factor * torch.fft.fftn(total)).real
-    if delta_F.shape[0] == 1:
-        return mixed[None]
-    spin = delta_F[0] - delta_F[1]
-    return torch.stack([(mixed + spin) / 2, (mixed - spin) / 2])
+    1 / eps(G) = (kTF^2 + G^2) / (eps_r kTF^2 + G^2) (`DielectricMixing`)."""
+    return DielectricMixing(eps_r, kTF).mix_density(delta_F, Gsq)
 
 
 def make_mix_step(mixer, m_hist):
@@ -285,6 +279,14 @@ def compact_filter_ops(ham, volume, precision="highest", filter_precisions=None,
     return enter, leave, applies if filter_precisions is not None else applies[0]
 
 
+def make_symmetrizer_split(basis, dtype=None):
+    """The split API's density symmetrizer (reference
+    `make_symmetrizer_split`): the complex `make_symmetrizer`, which works in
+    the density's own dtype (dtype is taken for the reference's
+    signature), or None where the basis has the identity only."""
+    return make_symmetrizer(basis)
+
+
 def _penn_eps_r(eigenvalues, n_electrons, filled, volume):
     """Penn-model eps_r ~ 1 + omega_p^2 / (mean direct gap)^2, clamped to
     the semiconductor range [2, 16] (from the first SCF spectrum)."""
@@ -300,7 +302,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                                 n_extra_bands=None, damping=0.8,
                                 anderson_depth=10, eigensolver_maxiter=60,
                                 diagtol_max=5e-3, diagtol_min=3e-5,
-                                use_kerker=None, dtype=None, seed=42,
+                                use_kerker=None, symmetrize=True, dtype=None, seed=42,
                                 callback=None, is_converged="energy",
                                 eigensolver="lobpcg", chebyshev_degree=10,
                                 chefsi_cycles=1, mixing_eps_r=None,
@@ -321,6 +323,9 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     dtype; None is the reference's spelling of it).  Rayleigh-Ritz and
     residuals are always exact.  The filter always applies H on the
     compact cube (`compact_filter_ops`).
+
+    symmetrize: symmetrize each output density over the basis' symmetries
+    (`make_symmetrizer_split`; no-op for the identity alone).
 
     mixing_eps_r: a model-dielectric eps_r, "auto" (the Penn model from the
     first spectrum; also the default for insulators of 12 atoms or more),
@@ -362,6 +367,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
             f"item 6) and 'tensor32' is a TPU workaround (ROADMAP 'Not to port')")
 
     sd = prepare_split_data(basis, dtype)
+    symmetrizer = make_symmetrizer_split(basis, dtype) if symmetrize else None
     bd = sd.basis_data
     cdt = sd.terms.data.P.dtype
     fft_size = basis.fft_size
@@ -423,7 +429,8 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                          maxiter=eigensolver_maxiter, n_conv=n_bands)
         occ, epsF = compute_occupation(res.eigenvalues, bd.kweights, model.n_electrons,
                                        filled, model.temperature, model.smearing)
-        rho_out = compute_density(bd, res.X, occ, fft_size, volume, nspin, band_chunk)
+        rho_out = compute_density(bd, res.X, occ, fft_size, volume, nspin, band_chunk,
+                                  symmetrizer=symmetrizer)
         _, energies = hamops.total_potential(sd.terms, rho_out, volume)
         energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
         return rho_out, res.X, res.eigenvalues, occ, epsF, energies

@@ -1,7 +1,8 @@
 """LDA exchange-correlation functionals as differentiable torch expressions.
 
 Port of the LDA set of `dftk_tpu/ops/xc/functionals.py` (names follow
-libxc): lda_x (Slater exchange), lda_c_vwn (VWN5), lda_c_pw (PW92).
+libxc): lda_x (Slater exchange), lda_c_vwn (VWN5), lda_c_pw (PW92) and
+lda_xc_teter93 (Teter's Pade fit of LDA exchange and correlation).
 Potentials come from `torch.autograd` through the energy
 (`ops/hamiltonian.py::total_potential`).  GGA and meta-GGA functionals come
 with a later slice (ROADMAP Queue 1, item 8).
@@ -104,6 +105,26 @@ def lda_c_pw_energy(rho, sigma=None):
                       + (eps_f - eps_p) * fz * z4)
 
 
+# Teter 93 combined XC (the Pade fit used alongside GTH psps; GTH96 appendix)
+_T93_A = (0.4581652932831429, 2.217058676663745, 0.7405551735357053,
+          0.01968227878617998)
+_T93_DA = (0.119086804055547, 0.6157402568883345, 0.1574201515892867,
+           0.003532336663397157)
+_T93_B = (1.0, 4.504130959426697, 1.110667363742916, 0.02359291751427506)
+_T93_DB = (0.0, 0.2673612973836267, 0.2052004607777787, 0.004200005045691381)
+
+
+def lda_xc_teter93_energy(rho, sigma=None):
+    rho_tot = _safe_rho(torch.sum(rho, dim=0))
+    rs = _rs_from_rho(rho_tot)
+    fz = 0.0 if rho.shape[0] == 1 else _f_zeta(_zeta(rho, rho_tot))
+    a = [ai + fz * dai for ai, dai in zip(_T93_A, _T93_DA)]
+    b = [bi + fz * dbi for bi, dbi in zip(_T93_B, _T93_DB)]
+    num = a[0] + rs * (a[1] + rs * (a[2] + rs * a[3]))
+    den = rs * (b[0] + rs * (b[1] + rs * (b[2] + rs * b[3])))
+    return rho_tot * (-num / den)
+
+
 @dataclasses.dataclass(frozen=True)
 class Functional:
     name: str
@@ -115,6 +136,7 @@ FUNCTIONALS = {
     "lda_x": Functional("lda_x", "lda", lda_x_energy),
     "lda_c_vwn": Functional("lda_c_vwn", "lda", lda_c_vwn_energy),
     "lda_c_pw": Functional("lda_c_pw", "lda", lda_c_pw_energy),
+    "lda_xc_teter93": Functional("lda_xc_teter93", "lda", lda_xc_teter93_energy),
 }
 
 # Named functional sets mirroring DFTK standard_models.jl:163-166

@@ -11,9 +11,8 @@ Forces are in reduced coordinates (covectors) from `compute_forces`;
 `compute_forces_cart` symmetrizes and converts them with inv(lattice)^T.
 
 Not ported (each raises NotImplementedError naming its ROADMAP item): the
-NLCC core-density and meta-GGA tau terms (item 8), classical pairwise
-forces (item 11) and symmetrization over crystal symmetries other than
-the identity (item 5a).
+NLCC core-density and meta-GGA tau terms (item 8) and classical pairwise
+forces (item 11).
 """
 import math
 
@@ -21,7 +20,6 @@ import numpy as np
 import torch
 
 from ..models.elements import ElementPsp
-from ..models.model import _is_identity
 from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
 from ..ops.terms import AtomicLocal, projector_form_factors
 
@@ -44,14 +42,6 @@ def check_supported(basis, scfres, what):
         raise NotImplementedError(
             f"{what} with classical pairwise terms are not ported yet (ROADMAP "
             f"Queue 1, item 11)")
-
-
-def check_identity_symmetries(basis):
-    """The port's models carry the identity only (models/model.py)."""
-    if not all(_is_identity(op) for op in basis.model.symmetries):
-        raise NotImplementedError(
-            "symmetrizing over crystal symmetries other than the identity "
-            "is not ported yet (ROADMAP Queue 1, item 5a, 'Symmetry')")
 
 
 def f64(basis, arr):
@@ -175,7 +165,29 @@ def compute_forces_cart(scfres, basis=None):
 
 
 def symmetrize_forces(basis, forces_red):
-    """Average the reduced forces over the model's symmetries: the identity
-    only in the port, so the forces come back as they are."""
-    check_identity_symmetries(basis)
-    return forces_red
+    """Average the reduced forces [n_atoms, 3] over the basis' symmetries
+    (reference symmetry.jl:392-421): atom i gets inv(W)^T F_j from the atom
+    j of its group that the operation maps onto it, W r_j + w = r_i (mod 1).
+    The preimages are found on the host; the sum runs on the forces'
+    device."""
+    positions = np.stack(basis.model.positions)
+    syms = basis.symmetries
+    tol = 1e-5
+    src = np.empty((len(syms), len(positions)), dtype=np.int64)
+    for s, op in enumerate(syms):
+        W, w = op.Wmat, op.wvec
+        targets = np.linalg.solve(W, (positions - w).T).T      # [n_atoms, 3]
+        for group in basis.model.atom_groups:
+            d = positions[group][None, :, :] - targets[group][:, None, :]
+            d -= np.round(d)
+            dist = np.abs(d).max(axis=2)                      # [target, source]
+            j = np.argmin(dist, axis=1)
+            if not np.all(dist[np.arange(len(group)), j] < 10 * tol):
+                raise ValueError("symmetrize_forces: an operation maps no atom "
+                                 "of the group onto an atom")
+            src[s, group] = np.asarray(group)[j]
+    invWt = np.stack([np.linalg.inv(op.Wmat.T) for op in syms])
+    F = torch.as_tensor(forces_red)
+    out = torch.einsum("sab,sib->ia", torch.as_tensor(invWt, dtype=F.dtype, device=F.device),
+                       F[torch.as_tensor(src, device=F.device)])
+    return out / len(syms)

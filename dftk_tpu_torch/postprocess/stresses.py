@@ -12,23 +12,25 @@ The density is rebuilt from psi by `torch.fft` once, outside the graph: at
 fixed coefficients psi(r) scales as 1/sqrt(Omega), so rho(L) = rho(L0)
 Omega0 / Omega(L), and no band cube is kept for the backward pass.
 
+The rebuilt density is symmetrized there too, as the SCF's is: the
+gather maps are lattice-independent, so symmetrizing at L0 and scaling
+commute, and the symmetrizer stays outside the lattice graph.
+
 Not ported (each raises NotImplementedError naming its ROADMAP item): the
-NLCC core-density and meta-GGA terms (item 8), classical pairwise terms
-(item 11) and symmetrization over crystal symmetries other than the
-identity (item 5a); the density symmetrizer is none while symmetry is not
-ported.
+NLCC core-density and meta-GGA terms (item 8) and classical pairwise terms
+(item 11).
 """
 import math
 
 import numpy as np
 import torch
 
-from ..ops.density import compute_density
+from ..ops.density import compute_density, make_symmetrizer
 from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
 from ..ops.hamiltonian import xc_energy
 from ..ops.terms import Hartree, projector_form_factors
-from .forces import (check_identity_symmetries, check_supported, f64, has_local,
-                     nonlocal_group_energy, psp_groups, structure_factor)
+from .forces import (check_supported, f64, has_local, nonlocal_group_energy,
+                     psp_groups, structure_factor)
 
 DENSITY_BAND_CHUNK = 64     # bands per batch of full-grid cubes in the density
 
@@ -67,7 +69,8 @@ def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
     bd64 = bd._replace(mask=mask, kweights=f64(basis, basis.kweights))
     with torch.no_grad():
         rho0 = compute_density(bd64, psi, occupation, fft_size, vol0,
-                               model.n_spin_components, DENSITY_BAND_CHUNK)
+                               model.n_spin_components, DENSITY_BAND_CHUNK,
+                               symmetrizer=make_symmetrizer(basis))
     rho = rho0 * (vol0 / vol)
     rho_G = torch.fft.fftn(rho.sum(0)) * (sqrt_vol / N)
 
@@ -133,7 +136,11 @@ def compute_stresses_cart(scfres, basis=None):
 
 
 def symmetrize_stresses(basis, stress):
-    """Average the Cartesian stress over the model's symmetries: the
-    identity only in the port, so the stress comes back as it is."""
-    check_identity_symmetries(basis)
-    return stress
+    """Average the Cartesian stress [3, 3] over the basis' symmetries:
+    the mean of Wc stress Wc^-1 with Wc = L W L^-1, on the stress' device."""
+    L = basis.model.lattice
+    Wc = np.stack([L @ op.Wmat @ np.linalg.inv(L) for op in basis.symmetries])
+    Wc_inv = np.linalg.inv(Wc)
+    stress = torch.as_tensor(stress)
+    t = lambda a: torch.as_tensor(a, dtype=stress.dtype, device=stress.device)
+    return torch.einsum("sab,bc,scd->ad", t(Wc), stress, t(Wc_inv)) / len(Wc)

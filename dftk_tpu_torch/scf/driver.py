@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import hamiltonian as hamops
-from ..ops.density import compute_density, guess_density
+from ..ops.density import compute_density, guess_density, make_symmetrizer
 from ..ops.eigen.lobpcg import lobpcg, ortho_qr
 from ..ops.occupation import compute_occupation
 from .anderson import AndersonAcceleration
@@ -118,6 +118,10 @@ def self_consistent_field(
     if diagtol_min is None:
         diagtol_min = max(tol / 100, 100 * torch.finfo(basis.rdtype).eps)
 
+    # rho is symmetrized (with the grid's low-pass) and V applied as it is,
+    # pointwise, as the JAX package and the reference do (see the note at
+    # dftk_tpu/scf/driver.py:190-199)
+    symmetrizer = make_symmetrizer(basis)
     bd = basis.data
     td = terms.data
     nspin = model.n_spin_components
@@ -132,7 +136,8 @@ def self_consistent_field(
         occ, epsF = compute_occupation(res.eigenvalues, bd.kweights,
                                        model.n_electrons, model.filled_occupation,
                                        model.temperature, model.smearing)
-        rho_out = compute_density(bd, res.X, occ, basis.fft_size, volume, nspin)
+        rho_out = compute_density(bd, res.X, occ, basis.fft_size, volume, nspin,
+                                  symmetrizer=symmetrizer)
         # energies at rho_out (consistent at convergence); the kinetic and
         # nonlocal parts of H do not depend on V, so `ham` serves for both
         V_out, energies = hamops.total_potential(terms, rho_out, volume)

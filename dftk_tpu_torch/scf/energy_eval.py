@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from ..ops import hamiltonian as hamops
-from ..ops.density import compute_density
+from ..ops.density import compute_density, make_symmetrizer
 
 
 def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
@@ -20,7 +20,8 @@ def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
     """Energies dict (incl. "total") of a fixed state in the basis' dtype.
 
     psi [nk, nb, nG] complex, occupation [nk, nb]; rho [nspin, grid] is
-    re-derived from psi (band_chunk bands at a time) unless given.
+    re-derived from psi (band_chunk bands at a time) and symmetrized unless
+    given.
     eigenvalues and epsF feed the entropy term of finite-temperature
     models, which are not ported yet (ROADMAP Queue 1, item 8)."""
     model = basis.model
@@ -34,7 +35,8 @@ def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
     occupation = torch.as_tensor(occupation, device=basis.device).to(basis.rdtype)
     if rho is None:
         rho = compute_density(bd, psi, occupation, basis.fft_size, volume,
-                              model.n_spin_components, band_chunk)
+                              model.n_spin_components, band_chunk,
+                              symmetrizer=make_symmetrizer(basis))
     else:
         rho = torch.as_tensor(rho, device=basis.device).to(basis.rdtype)
     V, energies = hamops.total_potential(terms, rho, volume)

@@ -18,7 +18,9 @@ Si54 and Si256 planes, both output layouts and planes near the first
 design's limit, kernel A at K and J that no tile divides and tall K, with
 the bf16 kernel B's shared-memory count held against the wrapper's.  The Si2 SCF and the Si2 split
 CheFSI SCF ("mixed" filter) on the GPU are held against the same SCFs on
-the CPU (1e-9 Ha); the forces and stresses of one Si2 state on the GPU
+the CPU (1e-9 Ha), and the symmetric Si2 SCF (48 operations) at 1e-10 Ha;
+the density symmetrizer against the CPU's (1e-13) and, at symmetric Si54's
+1296 operations, against a loop over the operations; the forces and stresses of one Si2 state on the GPU
 against the CPU's (1e-11), every op of both on the card.  The filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
 planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
@@ -120,7 +122,10 @@ def _close_c128(out, ref):
     (1, 2, 33, 33, 6, 70),      # 1089 rows: several blocks; J over two column tiles
     (1, 3, 32, 32, 32, 64),     # the Si54 shapes, fewer bands
     (1, 2, 6, 7, 160, 80),      # K of five chunks: F streams with the input
-    (1, 2, 9, 5, 200, 64)])     # K of seven chunks, streamed
+    (1, 2, 9, 5, 200, 64),      # K of seven chunks, streamed
+    (2, 2, 24, 24, 24, 33),     # the ABINIT golden's z axis (m 24, grid 33)
+    (1, 2, 24, 24, 24, 48),     # symmetric Si8's (grid 48)
+    (1, 2, 32, 32, 32, 72)])    # symmetric Si54's (grid 72)
 def test_cuda_c128_kernel_a_ragged(nk, nb, m1, m2, K, J, forward):
     """Kernel A in complex128 against its plain version; for backward the
     roles of K and J are those of the z axis back (K = n3 rows in, J out)."""
@@ -153,7 +158,11 @@ def _plane_case(rng, nk, nb, n3, m, n):
     (1, 2, 3, (64, 64), (120, 120), (None, 16)),      # Si256 planes: strips of 24, 16
     (1, 2, 2, (32, 32), (64, 64), (None, 24)),        # Si54 planes: strips of 32, 24
     (1, 2, 2, (136, 8), (144, 16), (None, 5)),        # 17 row tiles: out in device memory
-    (1, 1, 2, (64, 72), (128, 144), (None, 7))])      # 8 x 9 out tiles: out in device memory
+    (1, 1, 2, (64, 72), (128, 144), (None, 7)),       # 8 x 9 out tiles: out in device memory
+    (2, 2, 2, (24, 24), (33, 33), (None,)),           # the ABINIT golden's planes
+    (1, 2, 2, (24, 24), (48, 48), (None,)),           # symmetric Si8's
+    (1, 2, 2, (24, 24), (45, 45), (None,)),           # displaced Si8's
+    (1, 2, 2, (32, 32), (72, 72), (None,))])          # symmetric Si54's
 def test_cuda_c128_kernel_b_planes(nk, nb, n3, m, n, strips):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
@@ -212,6 +221,73 @@ def test_cuda_scf_matches_cpu(gpu_basis):
     res_g = dt.self_consistent_field(gpu_basis, psi=psi0.to("cuda"), **kw)
     assert res_c.converged and res_g.converged
     assert abs(res_g.total_energy - res_c.total_energy) < 1e-9
+    assert la.counts.launches["pruned_axis_dft"] > 0 and la.counts.launches["local_plane"] > 0
+    assert all(v == 0 for v in la.counts.plain.values())
+
+
+def _si2_symmetric(device):
+    """Si2 at Ecut 7 on MonkhorstPack (2, 2, 2) with the default symmetries
+    (48 operations, 3 irreducible k-points) and the basis' own FFT size."""
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    model = dt.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+                         functionals=["lda_x", "lda_c_vwn"])
+    return dt.PlaneWaveBasis(model, Ecut=7.0, kgrid=dt.MonkhorstPack((2, 2, 2)),
+                             device=device)
+
+
+@pytest.mark.cuda
+def test_cuda_symmetrizer_matches_cpu():
+    """The density symmetrizer on the card against the port's CPU one on a
+    seeded random density (1e-13), and at symmetric Si54's 1296 operations
+    on a 72^3 grid against a per-operation loop on the card (1e-13 of
+    max|rho|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from dftk_tpu_torch.ops.density import build_symmetrization_maps, make_symmetrizer
+    cpu, gpu = _si2_symmetric("cpu"), _si2_symmetric("cuda")
+    rho = torch.as_tensor(np.random.default_rng(40).random((1,) + cpu.fft_size))
+    out = make_symmetrizer(gpu)(rho.cuda())
+    assert out.device.type == "cuda"
+    assert float((out.cpu() - make_symmetrizer(cpu)(rho)).abs().max()) < 1e-13
+
+    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
+    m = build_bench_basis(3, 10.0, "cpu").model
+    si54 = dt.PlaneWaveBasis(dt.model_DFT(m.lattice, m.atoms, m.positions,
+                                          functionals=["lda_x", "lda_c_vwn"]),
+                             Ecut=10.0, kgrid=(1, 1, 1), device="cuda")
+    assert len(si54.symmetries) == 1296 and si54.fft_size == (72, 72, 72)
+    rho = torch.as_tensor(np.random.default_rng(41).random((1,) + si54.fft_size),
+                          device="cuda")
+    out = make_symmetrizer(si54)(rho)
+    maps = build_symmetrization_maps(si54)
+    Gred = torch.as_tensor(si54.G_cube.reshape(-1, 3), dtype=torch.float64, device="cuda")
+    rho_G = torch.fft.fftn(rho[0]).reshape(-1)
+    pad = torch.cat([rho_G, rho_G.new_zeros(1)])
+    acc = torch.zeros_like(rho_G)
+    for s, op in enumerate(si54.symmetries):
+        idx = torch.as_tensor(maps.rot_idx[maps.op_rot[s]], device="cuda")
+        tau = torch.as_tensor(op.tau, device="cuda")
+        acc += torch.exp(-2j * np.pi * (Gred @ tau)) * pad[idx]
+    acc *= torch.as_tensor(maps.lowpass, device="cuda") / len(si54.symmetries)
+    ref = torch.fft.ifftn(acc.reshape(si54.fft_size)).real
+    assert float((out[0] - ref).abs().max()) < 1e-13 * float(rho.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_symmetric_scf_matches_cpu():
+    """The symmetric Si2 SCF (48 operations, 3 irreducible k-points) on the
+    card against the same SCF on the CPU (1e-10 Ha), through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    cpu, gpu = _si2_symmetric("cpu"), _si2_symmetric("cuda")
+    assert len(gpu.symmetries) == 48 and gpu.n_kpoints == 3
+    kw = dict(tol=1e-10, n_bands=4, seed=7)
+    psi0 = dt.scf.driver.random_orbitals(cpu, 7, seed=7)
+    res_c = dt.self_consistent_field(cpu, psi=psi0, **kw)
+    la.counts.reset()
+    res_g = dt.self_consistent_field(gpu, psi=psi0.to("cuda"), **kw)
+    assert res_c.converged and res_g.converged
+    assert abs(res_g.total_energy - res_c.total_energy) < 1e-10
     assert la.counts.launches["pruned_axis_dft"] > 0 and la.counts.launches["local_plane"] > 0
     assert all(v == 0 for v in la.counts.plain.values())
 
@@ -321,7 +397,11 @@ def _margin(out, plain, highest):
     (1, 2, 2, (136, 8), (144, 16), (None, 5)),          # 9 row tiles of 16: out in device memory
     (1, 1, 2, (64, 72), (128, 144), (None, 7)),         # 4 x 10 out tiles: device memory
     (1, 1, 2, (100, 100), (120, 120), (None, 120)),     # large planes the first design ran
-    (1, 1, 2, (24, 94), (72, 282), (None, 278))])       # the first design's widest strip
+    (1, 1, 2, (24, 94), (72, 282), (None, 278)),        # the first design's widest strip
+    (2, 2, 2, (24, 24), (33, 33), (None,)),             # the ABINIT golden's planes
+    (1, 2, 2, (24, 24), (48, 48), (None,)),             # symmetric Si8's
+    (1, 2, 2, (24, 24), (45, 45), (None,)),             # displaced Si8's
+    (1, 2, 2, (32, 32), (72, 72), (None,))])            # symmetric Si54's
 def test_cuda_bf16_kernel_b_planes(nk, nb, n3, m, n, strips):
     """The bf16 kernel B against its plain version by the margin rule, at
     ragged planes, explicit strips, both output layouts, and (last case)
@@ -347,7 +427,9 @@ def test_cuda_bf16_kernel_b_planes(nk, nb, n3, m, n, strips):
     (1, 2, 33, 33, 6, 70),      # 1089 rows: several blocks; J over two column tiles
     (1, 3, 32, 32, 32, 64),     # the Si54 shapes, fewer bands
     (1, 2, 6, 7, 160, 80),      # tall K: five chunks (backward: n3 160, m3 80)
-    (1, 2, 9, 5, 200, 64)])     # K = 200: seven chunks
+    (1, 2, 9, 5, 200, 64),      # K = 200: seven chunks
+    (2, 2, 24, 24, 24, 33),     # the ABINIT golden's z axis (m 24, grid 33)
+    (1, 2, 32, 32, 32, 72)])    # symmetric Si54's (grid 72)
 def test_cuda_bf16_kernel_a_ragged(nk, nb, m1, m2, K, J, forward):
     """The bf16 kernel A against its plain version by the margin rule; for
     backward the roles of K and J are those of the z axis back."""

@@ -19,7 +19,8 @@ forces (1e-7 Ha/bohr) and the stresses (1e-8 Ha/bohr^3), and
 energy_at_lattice at the SCF lattice gives the port's SCF energy to 1e-10
 (tests/test_forces_stresses.py:52-58); the JAX SCF's values are recorded
 in tests/data/torch_port_si2_derivatives.json with the command that made
-them.  Unported cases raise.
+them.  Unported cases raise; the derivatives symmetrized over the
+displaced cell's four operations equal the JAX package's (1e-12).
 
 The JAX package's Ewald, compute_forces, energy_at_lattice and
 compute_stresses_cart gradients run here under jax.jit: called eagerly
@@ -38,6 +39,7 @@ import jax
 import jax.numpy as jnp
 
 import dftk_tpu as dftk
+from dftk_tpu import symmetry as jax_symmetry
 from dftk_tpu.ops import ewald as jax_ewald
 from dftk_tpu.ops.density import guess_density as jax_guess_density
 from dftk_tpu.ops.engine_split import prepare_split_data as jax_prepare_split_data
@@ -48,7 +50,7 @@ from dftk_tpu.postprocess import stresses as jax_stresses
 
 import dftk_tpu_torch as dt
 from dftk_tpu_torch.interop import state_from_numpy
-from dftk_tpu_torch.models.model import SymOp
+from dftk_tpu_torch.symmetry import symmetry_operations
 from dftk_tpu_torch.ops import ewald
 from dftk_tpu_torch.ops.engine_split import prepare_split_data
 from dftk_tpu_torch.ops.forces_split import compute_forces_split
@@ -259,7 +261,11 @@ class _CoreSi(dt.ElementPsp):
 @pytest.mark.parametrize("derivative", ["forces", "stresses"])
 @pytest.mark.parametrize("what", ["nlcc", "pairwise", "tau", "symmetry"])
 def test_unported_raise(state, what, derivative):
-    _, _, tb, ts = state
+    """Unported cases raise, naming their ROADMAP item.  The "symmetry" case
+    (item 5a, now ported) holds the derivatives symmetrized over the four
+    operations of the displaced Si2 (detected by the port) against the JAX
+    package's on the same basis, within 1e-12."""
+    jb, js, tb, ts = state
     basis, res = copy.copy(tb), copy.copy(ts)
     if what == "nlcc":
         Si = _CoreSi.from_symbol("Si", psp="lda/si-q4")
@@ -272,12 +278,22 @@ def test_unported_raise(state, what, derivative):
     elif what == "tau":
         res.tau = res.rho
     else:
-        basis.model = copy.copy(tb.model)
-        basis.model.symmetries = [SymOp.identity(),
-                                  SymOp(W=((-1, 0, 0), (0, -1, 0), (0, 0, -1)),
-                                        w=(0.0, 0.0, 0.0))]
-    item = {"nlcc": "item 8", "pairwise": "item 11", "tau": "item 8",
-            "symmetry": "item 5a"}[what]
+        Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+        basis.symmetries = symmetry_operations(SI_LATTICE, [Si, Si], POSITIONS)
+        jbs = copy.copy(jb)
+        jbs.symmetries = [jax_symmetry.SymOp.make(op.W, op.w) for op in basis.symmetries]
+        assert len(basis.symmetries) == 4
+        if derivative == "forces":
+            out = dt.compute_forces_cart(res, basis).numpy()
+            ref = jax_forces.symmetrize_forces(jbs, _jax_forces(jb, js)) \
+                @ np.linalg.inv(jb.model.lattice)
+        else:
+            out = dt.compute_stresses_cart(res, basis).numpy()
+            ref = _jax_stresses(jbs, js.psi, js.occupation)
+        print(f"symmetrized {derivative} vs JAX: {_max_diff(out, ref):.2e}")
+        assert _max_diff(out, ref) < BAR
+        return
+    item = {"nlcc": "item 8", "pairwise": "item 11", "tau": "item 8"}[what]
     fn = dt.compute_forces_cart if derivative == "forces" else dt.compute_stresses_cart
     with pytest.raises(NotImplementedError, match=item):
         fn(res, basis)

@@ -92,17 +92,18 @@ def test_basis_dtype_and_device(bases):
 
 
 def test_identity_symmetry_list_accepted():
+    """An explicit list of operations (the JAX package's or the port's) is
+    taken as given, as the JAX package's model takes it."""
     from dftk_tpu.symmetry import SymOp as JaxSymOp
     from dftk_tpu_torch.models.model import SymOp
     Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
     model = dt.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
                          functionals=["lda_x"], symmetries=[JaxSymOp.identity()])
     assert model.symmetries == [SymOp.identity()]
-    with pytest.raises(NotImplementedError):
-        dt.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
-                     functionals=["lda_x"],
-                     symmetries=[SymOp(W=((-1, 0, 0), (0, -1, 0), (0, 0, -1)),
-                                       w=(0.0, 0.0, 0.0))])
+    inversion = SymOp(W=((-1, 0, 0), (0, -1, 0), (0, 0, -1)), w=(0.0, 0.0, 0.0))
+    model = dt.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+                         functionals=["lda_x"], symmetries=[inversion])
+    assert model.symmetries == [inversion]
 
 
 @pytest.mark.parametrize("what", ["symmetries", "upf", "term", "functional"])
@@ -110,8 +111,9 @@ def test_unported_features_raise(what):
     Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
     args = (SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8])
     with pytest.raises(NotImplementedError):
-        if what == "symmetries":
-            dt.model_DFT(*args, functionals=["lda_x"], symmetries=True)
+        if what == "symmetries":   # symmetry detection with magnetic moments (item 8)
+            dt.model_DFT(*args, functionals=["lda_x"], symmetries=True,
+                         magnetic_moments=[1.0, 1.0])
         elif what == "upf":
             dt.ElementPsp.from_symbol("Si", psp="si.upf")
         elif what == "term":

@@ -273,10 +273,11 @@ def test_split_scf_refusals(si, what):
             model = _port_model(temperature=0.01)
             dt.self_consistent_field_split(
                 dt.PlaneWaveBasis(model, Ecut=6.0, device="cpu"), maxiter=1)
-        elif what == "symmetric":
+        elif what == "symmetric":   # symmetric runs; with magnetic moments (item 8) not
             Si = dt.ElementPsp.from_symbol("Si", psp=silicon["psp"])
             model = dt.model_DFT(silicon["lattice"], [Si, Si], silicon["positions"],
-                                 functionals=["lda_x"], symmetries=True)
+                                 functionals=["lda_x"], symmetries=True,
+                                 magnetic_moments=[1.0, 1.0])
             dt.self_consistent_field_split(
                 dt.PlaneWaveBasis(model, Ecut=6.0, device="cpu"), maxiter=1)
         elif what == "paired":
