@@ -131,13 +131,16 @@ Phases (any failure raises and exits non-zero):
      fft_size (1296 operations, grid 72, the numpy path of symmetry
      detection), the split CheFSI SCF ("mixed" filter, symmetrize=True) to
      1e-8 within 1e-7 Ha of the JAX package's energy, with its gap to the
-     symmetry-free E_ref printed; every run with kernels A and B launched
-     and no plain call, its wall time and peak device memory; the host
-     build of the symmetrization maps and one symmetrizer application
+     symmetry-free E_ref printed; before each run, kernels A and B (and
+     the A -> B -> A chain) against their plain versions on one band block
+     of that run at its own shapes (complex128 at 1e-11; j3 also bf16 by
+     the 10x margin); every run with kernels A and B launched and no plain
+     call, its wall time and peak device memory; the host build of the
+     symmetrization maps and one symmetrizer application
   5. print the kernels' JSON line (launches from phases c, e, f, g, h and j,
      times from phases 3, a, e, f, g and h, bounds from the shapes; the
-     main path's kernels also with their device time), then the result
-     line.
+     main path's kernels also with their device time and their
+     max_abs_err at each phase-j run's shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -1528,6 +1531,60 @@ def run_on_card(la, label, smi, fn):
     return out, launches
 
 
+def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False):
+    """Kernels A and B (and the A -> B -> A chain) against their plain
+    versions on one band block of the SCF at the basis' own shapes: in
+    complex128 at BARS, and in bf16 (where the path runs it) by the
+    BF16_MARGIN rule.  Called before run_on_card, whose counts start after
+    it.  Adds each kernel's max_abs_err at this path to errs[name][label]."""
+    import torch
+    pf, n = basis.pruned, basis.fft_size
+    rng = np.random.default_rng(20261017)
+    shape = (basis.n_kpoints, n_bands + max(3, n_bands // 10)) + pf.m_shape
+    xc_np = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    V_np = rng.normal(size=(basis.n_kpoints, n[2], n[0], n[1]))
+    for dtype, prec in ((torch.complex128, "highest"),) + (
+            ((torch.complex64, "default"),) if bf16 else ()):
+        fac = la.LocalFactors(fwd=tuple(f.to(dtype) for f in pf.factors.fwd),
+                              bwd=tuple(f.to(dtype) for f in pf.factors.bwd))
+        xc = torch.as_tensor(xc_np, device=basis.device).to(dtype)
+        V = torch.as_tensor(V_np, device=basis.device).to(
+            torch.float64 if dtype == torch.complex128 else torch.float32)
+        t = la.pruned_axis_dft_plain(xc, fac.fwd[2], True, prec).contiguous()
+        sfx = "" if prec == "highest" else "[bf16]"
+        cases = {
+            "pruned_axis_dft": (lambda: la.pruned_axis_dft(xc, fac.fwd[2], True, prec),
+                                lambda: la.pruned_axis_dft_plain(xc, fac.fwd[2], True, prec),
+                                lambda: la.pruned_axis_dft_plain(xc, fac.fwd[2], True)),
+            "local_plane": (lambda: la.local_plane(t, V, fac, precision=prec),
+                            lambda: la.local_plane_plain(t, V, fac, prec),
+                            lambda: la.local_plane_plain(t, V, fac)),
+            "local_apply": (lambda: la.local_apply(xc, V, fac, prec),
+                            lambda: la.local_apply_plain(xc, V, fac, prec),
+                            lambda: la.local_apply_plain(xc, V, fac)),
+        }
+        for name, (kern, plain, highest) in cases.items():
+            out, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            if prec == "highest":
+                scale = float(ref.abs().max())
+                print(f"[j] {label} {name}{sfx} at x {tuple(xc.shape)}, grid {n}: "
+                      f"max_abs_err={err:.3e} rel={err / scale:.3e} "
+                      f"bar={BARS['complex128']:.0e}", flush=True)
+                check(err <= BARS["complex128"] * scale,
+                      f"{label}: {name} within {BARS['complex128']}")
+            else:
+                rel, rounding = rel_frobenius(out, ref), rel_frobenius(ref, highest())
+                print(f"[j] {label} {name}{sfx} at x {tuple(xc.shape)}, grid {n}: "
+                      f"max_abs_err={err:.3e} rel={rel:.3e}; plain default vs highest "
+                      f"rel={rounding:.3e}", flush=True)
+                check(rel * BF16_MARGIN <= rounding,
+                      f"{label}: {name}{sfx} {BF16_MARGIN}x below default-vs-highest")
+            if name != "local_apply":
+                errs.setdefault(name + sfx, {})[label] = err
+
+
 def time_symmetrizer(basis, label, smi):
     """The symmetrizer's build (the maps on the host, then on the card) and
     one application on the card (CUDA-synchronised, the median of 5 after
@@ -1550,13 +1607,15 @@ def time_symmetrizer(basis, label, smi):
 def symmetry_phase(dt, la, device, smi):
     """Phase j: the default model's crystal symmetry on the card: the ABINIT
     golden, symmetric and displaced Si8 on a Monkhorst-Pack grid, and the
-    symmetric Si54 split SCF.  Returns the kernel launches of its runs."""
+    symmetric Si54 split SCF.  Returns the kernel launches of its runs and
+    each kernel's max_abs_err against its plain version at each run's
+    shapes."""
     import torch
     from dftk_tpu_torch.tools.run_si_big import build_bench_basis
     t_phase = time.time()
     with open(os.path.join(HERE, "tests", "data", "torch_port_symmetry.json")) as f:
         ref = json.load(f)
-    total = {}
+    total, errs = {}, {}
 
     def add(launches):
         for k, v in launches.items():
@@ -1572,6 +1631,7 @@ def symmetry_phase(dt, la, device, smi):
     basis = dt.PlaneWaveBasis(model, Ecut=25.0, kgrid=dt.ExplicitKpoints(*ab["kpoints"]),
                               fft_size=(33, 33, 33), device=device)
     print(f"[j1] {basis}, engine: {symmetry_engine(model)}", flush=True)
+    hold_kernels_at(la, basis, "j1", 8, errs)
     res, launches = run_on_card(la, "j1 golden LOBPCG SCF", smi, lambda: dt.self_consistent_field(
         basis, tol=1e-9, is_converged="energy", n_bands=8))
     add(launches)
@@ -1599,6 +1659,7 @@ def symmetry_phase(dt, la, device, smi):
               and np.array_equal(basis.kweights, np.array(r["kweights"])),
               f"j2 {key}: k-points, weights, symmetries and FFT size equal the JAX package's")
         time_symmetrizer(basis, f"j2 {key}", smi)
+        hold_kernels_at(la, basis, f"j2 {key}", model.default_n_bands(), errs)
         res, launches = run_on_card(la, f"j2 {key} LOBPCG SCF", smi,
                                     lambda: dt.self_consistent_field(basis, tol=1e-10))
         add(launches)
@@ -1637,6 +1698,7 @@ def symmetry_phase(dt, la, device, smi):
     check(len(basis.symmetries) == r["n_symmetries"] and list(basis.fft_size) == r["fft_size"],
           "j3: symmetries and FFT size equal the JAX package's")
     time_symmetrizer(basis, "j3 Si54", smi)
+    hold_kernels_at(la, basis, "j3", model.default_n_bands(), errs, bf16=True)
     res, launches = run_on_card(la, "j3 Si54 split CheFSI SCF", smi,
                                 lambda: dt.self_consistent_field_split(
         basis, tol=1e-8, maxiter=60, eigensolver="chefsi", chebyshev_degree=10,
@@ -1653,7 +1715,7 @@ def symmetry_phase(dt, la, device, smi):
           f"j3: |E - E_JAX| < {E_TOL}")
     check(all(v > 0 for v in launches.values()), "j3: every kernel launched")
     print(f"[j] phase j took {time.time() - t_phase:.1f} s; launches {total}", flush=True)
-    return total
+    return total, errs
 
 
 def main():
@@ -1755,7 +1817,8 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- j. crystal symmetry: the default model on the card --------------------
-    for name, count in symmetry_phase(dt, la, device, smi).items():
+    sym_launches, sym_errs = symmetry_phase(dt, la, device, smi)
+    for name, count in sym_launches.items():
         launches[name] += count
 
     # ---- 5. results ---------------------------------------------------------
@@ -1773,7 +1836,8 @@ def main():
                             ms=timings[name]["ms"], plain_ms=timings[name]["plain_ms"],
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=timings[name].get("library_ms"),
-                            device_ms=timings[name]["device_ms"]))
+                            device_ms=timings[name]["device_ms"],
+                            max_abs_err_phase_j=sym_errs[name]))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

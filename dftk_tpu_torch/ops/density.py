@@ -53,10 +53,6 @@ def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin,
 # Density symmetrization
 # ---------------------------------------------------------------------------
 
-# complex entries of one block of operations in the symmetrizer (128 MB)
-SYM_CHUNK_ELEMS = 2 ** 23
-
-
 class SymmetrizationMaps(NamedTuple):
     """The gather maps of the basis' symmetries, on the host.  The map of
     S^{-1} G depends on the rotation only, so it is kept once per distinct
@@ -97,15 +93,19 @@ def make_symmetrizer(basis):
     """rho [nspin, n1, n2, n3] -> symmetrized rho on the basis' device, or
     None where the basis has the identity only.
 
-    torch.fft.fftn, then over blocks of operations (at most
-    SYM_CHUNK_ELEMS complex entries a block): one gather per operation from
-    the zero-padded row of rho(G), its phase e^{-2 pi i G.tau} made for the
-    block, the sum; then the low-pass mask and ifftn.  The maps stay on the
-    device (no gradient flows through them).
+    The operations that share a rotation gather from the same map, so
+
+        rho_sym(G) = lowpass(G) / |S| sum_r P_r(G) rho(S_r^{-1} G),
+        P_r(G) = sum_{s: S_s = S_r} e^{-2 pi i G.tau_s},
+
+    with P_r (the low-pass mask and 1/|S| folded in) built once: each
+    application is torch.fft.fftn, one gather of all rotations' maps from
+    the zero-padded row of rho(G), one product with P, ifftn.  P and the
+    maps stay on the device (no gradient flows through them).
 
     Built once per basis and set of symmetries, and kept on the basis
     instance (the SCF, the energy evaluation and the stresses all ask for
-    it; the host build of the maps takes seconds at Si54)."""
+    it)."""
     cache = basis.__dict__.setdefault("_symmetrizers", {})
     key = tuple(basis.symmetries)
     if key not in cache:
@@ -117,28 +117,23 @@ def make_symmetrizer(basis):
 def _build_symmetrizer(basis):
     maps = build_symmetrization_maps(basis)
     dev = basis.device
-    rot_idx = torch.as_tensor(maps.rot_idx, device=dev)
-    op_rot = torch.as_tensor(maps.op_rot, device=dev)
-    tau = torch.as_tensor(maps.tau, dtype=torch.float64, device=dev)
+    nrot, N = maps.rot_idx.shape
+    rot_idx = torch.as_tensor(maps.rot_idx.reshape(-1), device=dev)    # [nrot * N]
     Gred = torch.as_tensor(basis.G_cube.reshape(-1, 3), dtype=torch.float64, device=dev)
-    lowpass = torch.as_tensor(maps.lowpass, dtype=torch.float64, device=dev)
-    nsym, N = len(maps.op_rot), Gred.shape[0]
-    chunk = max(1, SYM_CHUNK_ELEMS // N)
+    phase_sum = torch.empty((nrot, N), dtype=torch.complex128, device=dev)
+    for r in range(nrot):
+        tau = torch.as_tensor(maps.tau[maps.op_rot == r], dtype=torch.float64, device=dev)
+        angle = (-2 * math.pi) * (tau @ Gred.T)                          # [ops of r, N]
+        phase_sum[r] = torch.polar(torch.ones_like(angle), angle).sum(0)
+    phase_sum *= torch.as_tensor(maps.lowpass, device=dev) / len(maps.op_rot)
 
     def symmetrize(rho):
         shape = rho.shape
         rho_G = torch.fft.fftn(rho, dim=(-3, -2, -1)).reshape(shape[0], N)
         rho_pad = torch.cat([rho_G, rho_G.new_zeros(shape[0], 1)], dim=1)
-        acc = torch.zeros_like(rho_G)
-        for s in range(0, nsym, chunk):
-            idx = rot_idx[op_rot[s:s + chunk]]                        # [c, N]
-            angle = (-2 * math.pi) * (tau[s:s + chunk] @ Gred.T)      # [c, N]
-            phase = torch.polar(torch.ones_like(angle), angle).to(rho_G.dtype)
-            gathered = rho_pad.index_select(1, idx.reshape(-1)).reshape(
-                shape[0], -1, N)
-            acc += torch.einsum("cg,scg->sg", phase, gathered)
-        acc *= lowpass.to(rho.dtype) / nsym
-        return torch.fft.ifftn(acc.reshape(shape), dim=(-3, -2, -1)).real
+        gathered = rho_pad.index_select(1, rot_idx).reshape(shape[0], nrot, N)
+        out = torch.einsum("rg,srg->sg", phase_sum.to(rho_G.dtype), gathered)
+        return torch.fft.ifftn(out.reshape(shape), dim=(-3, -2, -1)).real
 
     return symmetrize
 

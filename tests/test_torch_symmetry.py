@@ -183,13 +183,15 @@ def test_symmetrize_forces_stresses_match(cell):
 
 def test_silicon_golden_small(reference):
     """The ABINIT golden at Ecut 7 through the port (tests/test_silicon_scf.py::
-    test_silicon_lda_small's problem), to a density residual of 1e-10."""
+    test_silicon_lda_small's problem), to a density residual of 1e-8 (the
+    energy's error is second order in it: 1.4e-14 from the JAX value, as
+    at 1e-10)."""
     abinit = reference["abinit_silicon_lda"]
     basis = dt.PlaneWaveBasis(_model(dt, "si2"), Ecut=7.0,
                               kgrid=dt.ExplicitKpoints(*abinit["kpoints"]),
                               fft_size=(17, 17, 17), device="cpu")
     assert len(basis.symmetries) == reference["golden_ecut7"]["n_symmetries"]
-    res = dt.self_consistent_field(basis, tol=1e-10, n_bands=8)
+    res = dt.self_consistent_field(basis, tol=1e-8, n_bands=8)
     assert res.converged
     assert np.abs(res.eigenvalues[:, :8] - np.array(abinit["eigenvalues"])).max() < 0.03
     assert abs(res.total_energy - abinit["total_energy"]) < 0.03
@@ -212,12 +214,14 @@ def test_abinit_copy_matches(reference):
 
 
 def test_split_scf_symmetric_si2(reference):
+    """The symmetric Gamma-only Si2 split SCF to a density residual of 1e-8
+    (12 iterations; 1.5e-12 Ha from the JAX value converged to 1e-10)."""
     ref = reference["si2_split_symmetric"]
     basis = dt.PlaneWaveBasis(_model(dt, "si2"), Ecut=7.0, kgrid=(1, 1, 1), device="cpu")
     assert list(basis.fft_size) == ref["fft_size"]
     assert len(basis.symmetries) == ref["n_symmetries"]
-    res = dt.self_consistent_field_split(basis, tol=1e-10, is_converged="density",
-                                         symmetrize=True, maxiter=100)
+    res = dt.self_consistent_field_split(basis, tol=1e-8, is_converged="density",
+                                         symmetrize=True)
     dE = abs(res["energies"]["total"] - ref["total_energy"])
     print(f"symmetric Si2 split SCF: E - E_JAX = {dE:.2e}")
     assert res["converged"] and dE < 1e-9
