@@ -137,10 +137,35 @@ Phases (any failure raises and exits non-zero):
      the 10x margin); every run with kernels A and B launched and no plain
      call, its wall time and peak device memory; the host build of the
      symmetrization maps and one symmetrizer application
-  5. print the kernels' JSON line (launches from phases c, e, f, g, h and j,
-     times from phases 3, a, e, f, g and h, bounds from the shapes; the
-     main path's kernels also with their device time and their
-     max_abs_err at each phase-j run's shapes), then the result line.
+  k. metals, collinear spin and GGA against tests/data/torch_port_metals.json
+     (the JAX package's CPU float64 values, and the ABINIT goldens'): k1 the
+     iron LDA golden (teter93, Ecut 15, fft 20, MonkhorstPack (4, 4, 4) +
+     1/2, FermiDirac 0.01, moment 4; LOBPCG to 1e-8) within 1e-5 of ABINIT
+     with its magnetisation in (2.3, 2.7), and the iron PBE golden (Ecut 20,
+     to 1e-12) with its 12 (k, spin) eigenvalue rows matched onto ABINIT's
+     within 5e-6; k2 the silicon PBE golden (Ecut 25, grid 33) within 1e-5
+     of ABINIT's energy and k = 0 eigenvalues; k3 Al4 under Marzari-
+     Vanderbilt smearing (0.01) with LdosMixing, 12 electrons within 1e-8;
+     each within 1e-8 Ha of the JAX energy; k4 bcc Fe2 with atom 1 moved,
+     PBE, moments (4, 4), MonkhorstPack (3, 3, 3), Ecut 15: the LOBPCG SCF
+     to 1e-10 within 1e-8 Ha, its forces within 1e-7 Ha/bohr and stresses
+     within 1e-8 Ha/bohr^3 of the JAX values, then the split CheFSI SCF
+     ("mixed") whose split adapters equal the complex path on its state
+     within 1e-11 and the JAX values within 1e-6; k5 ferromagnetic bcc Fe16
+     and Fe54 (moment 4 an atom, PBE, Gamma, Ecut 15, default symmetries):
+     the split CheFSI SCF with the "mixed" filter and AdaptiveBands to
+     1e-7, converged, 1e-8 on the electron count, every kernel
+     instantiation launched, Fe16 within 1e-7 Ha of the JAX energy; Fe54
+     from fewer bands than it occupies, so that AdaptiveBands grows the
+     block; before
+     each run kernels A and B against their plain versions at its shapes
+     (bf16 too in k4 and k5), and each run's wall, iterations and peak
+     device memory beside the card's name and power limit
+  5. print the kernels' JSON line (launches from phases c, e, f, g, h, j
+     and k, times from phases 3, a, e, f, g and h, bounds from the shapes;
+     the main path's kernels also with their device time and their
+     max_abs_err at each phase-j and phase-k run's shapes), then the
+     result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -225,6 +250,23 @@ SI8_DISPLACEMENT, SI8_E_TOL, SI8_ZERO_FORCE_TOL = 0.004, 1e-8, 1e-8
 DISPLACEMENT = (0.004, -0.002, 0.001)
 FORCE_TOL, STRESS_TOL = 1e-7, 1e-8
 SPLIT_TOL, ADAPTER_TOL, SUM_RULE_TOL = 1e-6, 1e-11, 1e-5
+# phase k: metals, collinear spin and GGA; the cells of
+# tests/data/make_torch_port_metals.py, whose values (the JAX package's CPU
+# float64 ones, and the ABINIT goldens' copied from tests/test_metals_spin.py
+# and tests/test_silicon_pbe.py) are in tests/data/torch_port_metals.json
+A_FE = 5.42352                # bcc iron, the conventional cube (bohr)
+FE_PRIMITIVE = 2.71176 * np.array([[-1, 1, 1], [1, -1, 1], [1, 1, -1]], dtype=float)
+AL_LATTICE = np.diag([4 * 7.6324708938577865, 7.6324708938577865, 7.6324708938577865])
+AL_POSITIONS = [np.array([0, 0, 0]), np.array([0, 1 / 2, 1 / 2]),
+                np.array([1 / 8, 0, 1 / 2]), np.array([1 / 8, 1 / 2, 0])]
+AL_SMEARING_WIDTH = 0.01      # Marzari-Vanderbilt width (Ha) of phase k3
+FE2_DISPLACEMENT = (0.004, -0.002, 0.001)
+METAL_ABINIT_TOL, IRON_EIG_TOL, IRON_MAGN_TOL = 1e-5, 5e-6, 5e-4
+METAL_E_TOL, N_ELECTRONS_TOL, FE_SPLIT_E_TOL = 1e-8, 1e-8, 1e-7
+# bands to start (each spin row) of Fe16 and Fe54: the JAX Fe16 run occupies
+# 98 bands above 1e-6; Fe54 starts short of its ~330, so that AdaptiveBands
+# grows the block on the card
+FE_SPLIT_N_BANDS = {2: 96, 3: 280}
 
 
 def check(ok, what):
@@ -1508,7 +1550,7 @@ def si8_model(dt, displacement=0.0):
                         functionals=["lda_x", "lda_c_vwn"])
 
 
-def run_on_card(la, label, smi, fn):
+def run_on_card(la, label, smi, fn, tag="j"):
     """fn() with the counts set to 0 just before it, its wall time
     (CUDA-synchronised) and peak device memory; checks that kernels A and
     B launched and that no plain version was called.  Returns (result,
@@ -1522,7 +1564,7 @@ def run_on_card(la, label, smi, fn):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, plain = dict(la.counts.launches), dict(la.counts.plain)
-    print(f"[j] {label}: wall {wall:.2f} s, peak device memory "
+    print(f"[{tag}] {label}: wall {wall:.2f} s, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB ({smi}); "
           f"launches={launches} plain_calls={plain}", flush=True)
     check(launches["pruned_axis_dft"] > 0 and launches["local_plane"] > 0,
@@ -1531,12 +1573,14 @@ def run_on_card(la, label, smi, fn):
     return out, launches
 
 
-def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False):
+def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j"):
     """Kernels A and B (and the A -> B -> A chain) against their plain
-    versions on one band block of the SCF at the basis' own shapes: in
-    complex128 at BARS, and in bf16 (where the path runs it) by the
-    BF16_MARGIN rule.  Called before run_on_card, whose counts start after
-    it.  Adds each kernel's max_abs_err at this path to errs[name][label]."""
+    versions on one band block of the SCF at the basis' own shapes, with a
+    seeded potential of its own on every k row (under collinear spin the
+    two halves of the rows differ as the spin channels do): in complex128
+    at BARS, and in bf16 (where the path runs it) by the BF16_MARGIN rule.
+    Called before run_on_card, whose counts start after it.  Adds each
+    kernel's max_abs_err at this path to errs[name][label]."""
     import torch
     pf, n = basis.pruned, basis.fft_size
     rng = np.random.default_rng(20261017)
@@ -1569,14 +1613,14 @@ def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False):
             err = float((out - ref).abs().max())
             if prec == "highest":
                 scale = float(ref.abs().max())
-                print(f"[j] {label} {name}{sfx} at x {tuple(xc.shape)}, grid {n}: "
+                print(f"[{tag}] {label} {name}{sfx} at x {tuple(xc.shape)}, grid {n}: "
                       f"max_abs_err={err:.3e} rel={err / scale:.3e} "
                       f"bar={BARS['complex128']:.0e}", flush=True)
                 check(err <= BARS["complex128"] * scale,
                       f"{label}: {name} within {BARS['complex128']}")
             else:
                 rel, rounding = rel_frobenius(out, ref), rel_frobenius(ref, highest())
-                print(f"[j] {label} {name}{sfx} at x {tuple(xc.shape)}, grid {n}: "
+                print(f"[{tag}] {label} {name}{sfx} at x {tuple(xc.shape)}, grid {n}: "
                       f"max_abs_err={err:.3e} rel={rel:.3e}; plain default vs highest "
                       f"rel={rounding:.3e}", flush=True)
                 check(rel * BF16_MARGIN <= rounding,
@@ -1585,7 +1629,7 @@ def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False):
                 errs.setdefault(name + sfx, {})[label] = err
 
 
-def time_symmetrizer(basis, label, smi):
+def time_symmetrizer(basis, label, smi, tag="j"):
     """The symmetrizer's build (the maps on the host, then on the card) and
     one application on the card (CUDA-synchronised, the median of 5 after
     one warm-up).  The basis keeps it for the SCF."""
@@ -1599,7 +1643,7 @@ def time_symmetrizer(basis, label, smi):
     rho = torch.rand((1,) + basis.fft_size, dtype=torch.float64, device=basis.device,
                      generator=torch.Generator(basis.device).manual_seed(3))
     ms = cuda_ms(lambda: sym(rho), reps=5, warmup=1)
-    print(f"[j] {label} symmetrizer: {len(basis.symmetries)} operations, "
+    print(f"[{tag}] {label} symmetrizer: {len(basis.symmetries)} operations, "
           f"{len({op.W for op in basis.symmetries})} rotations, grid {basis.fft_size}: "
           f"built in {t_build:.2f} s, one application {ms:.3f} ms ({smi})", flush=True)
 
@@ -1718,6 +1762,272 @@ def symmetry_phase(dt, la, device, smi):
     return total, errs
 
 
+def fe_bcc_cell(n, displacement=None):
+    """The bcc iron conventional cube repeated n times along each axis:
+    lattice and fractional positions (the corner atom then the body centre
+    of each cube, cubes in i, j, k order); atom 1 moved by displacement (the
+    cells of tests/data/make_torch_port_metals.py)."""
+    pos = []
+    for i in range(n):
+        for j in range(n):
+            for k in range(n):
+                c = np.array([i, j, k], dtype=float)
+                pos += [c / n, (c + 0.5) / n]
+    if displacement is not None:
+        pos[1] = pos[1] + np.array(displacement)
+    return A_FE * n * np.eye(3), pos
+
+
+def fe_model(dt, lattice, positions, functionals):
+    """Iron (HGH lda/fe-q8) with moment 4 on each atom, FermiDirac T = 0.01."""
+    Fe = dt.ElementPsp.from_symbol("Fe", psp="lda/fe-q8")
+    return dt.model_DFT(lattice, [Fe] * len(positions), positions, functionals=functionals,
+                        temperature=0.01, smearing=dt.Smearing.FermiDirac(),
+                        magnetic_moments=[4.0] * len(positions))
+
+
+def spin_summary(dt, basis, rho, occupation):
+    """(magnetisation, electrons in rho, electrons in the occupations)."""
+    import torch
+    occ = torch.as_tensor(occupation, device=basis.device)
+    w = torch.as_tensor(basis.kweights, device=basis.device)
+    return (float(dt.spin_density(rho).sum()) * basis.dvol, float(rho.sum()) * basis.dvol,
+            float(torch.sum(w[:, None] * occ)))
+
+
+def match_rows(ev, ref):
+    """The largest deviation of the rows of ev [n, nb] matched one to one
+    onto the rows of ref, each to the closest unused one (the ABINIT table's
+    k-point order differs: tests/test_metals_spin.py::test_iron_pbe_golden)."""
+    dev = np.abs(ev[:, None, :] - ref[None, :, :]).max(-1)
+    used, worst = set(), 0.0
+    for i in range(len(ev)):
+        j = int(np.argmin([np.inf if c in used else dev[i, c] for c in range(len(ref))]))
+        used.add(j)
+        worst = max(worst, dev[i, j])
+    return worst if len(used) == len(ref) else np.inf
+
+
+def metals_phase(dt, la, device, smi):
+    """Phase k: metals, collinear spin and GGA on the card: the ABINIT iron
+    LDA and PBE and silicon PBE goldens, aluminium under cold smearing with
+    LdosMixing, the derivatives of a displaced magnetic Fe2 cell, and the
+    ferromagnetic Fe16 and Fe54 split SCFs.  Returns the kernel launches of
+    its runs and each kernel's max_abs_err at each run's shapes."""
+    import types
+    import torch
+    from dftk_tpu_torch.ops.engine_split import prepare_split_data
+    from dftk_tpu_torch.ops.forces_split import compute_forces_split
+    from dftk_tpu_torch.ops.stresses_split import compute_stresses_split
+    from dftk_tpu_torch.scf.energy_eval import split_state_to_complex
+    t_phase = time.time()
+    with open(os.path.join(HERE, "tests", "data", "torch_port_metals.json")) as f:
+        ref = json.load(f)
+    total, errs = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def scf_line(label, basis, res, r):
+        E = res.total_energy if hasattr(res, "total_energy") else res["energies"]["total"]
+        rho = res.rho if hasattr(res, "rho") else res["rho"]
+        occ = res.occupation if hasattr(res, "occupation") else res["occupation"]
+        n_iter = res.n_iter if hasattr(res, "n_iter") else res["n_iter"]
+        conv = res.converged if hasattr(res, "converged") else res["converged"]
+        magn, n_rho, n_occ = spin_summary(dt, basis, rho, occ)
+        dE = E - r["total_energy"]
+        print(f"[{label}] converged={conv} n_iter={n_iter} E={E:.12f} E - E_JAX={dE:.3e}; "
+              f"magnetisation {magn:.8f} (JAX {r.get('magnetisation', 0.0):.8f}); electrons "
+              f"{n_rho:.12f} in rho, {n_occ:.12f} in the occupations ({smi})", flush=True)
+        check(conv and np.isfinite(E), f"{label}: converged to a finite energy")
+        check(abs(dE) < METAL_E_TOL, f"{label}: |E - E_JAX| < {METAL_E_TOL}")
+        return E, magn, n_rho, n_occ
+
+    # k1: the ABINIT iron goldens, LOBPCG (tests/test_metals_spin.py)
+    kgrid = dt.MonkhorstPack((4, 4, 4), (0.5, 0.5, 0.5))
+    Fe = dt.ElementPsp.from_symbol("Fe", psp="lda/fe-q8")
+    model = dt.model_DFT(FE_PRIMITIVE, [Fe], [np.zeros(3)], functionals=("lda_xc_teter93",),
+                         temperature=0.01, magnetic_moments=[4.0],
+                         smearing=dt.Smearing.FermiDirac())
+    basis = dt.PlaneWaveBasis(model, Ecut=15.0, fft_size=(20, 20, 20), kgrid=kgrid,
+                              device=device)
+    print(f"[k1] iron LDA: {basis}", flush=True)
+    hold_kernels_at(la, basis, "k1", 8, errs, tag="k1")
+    res, launches = run_on_card(la, "k1 iron LDA golden LOBPCG SCF", smi, lambda: (
+        dt.self_consistent_field(basis, tol=1e-8, rho=dt.guess_density(basis, [4.0]),
+                                 n_bands=8, maxiter=60)), tag="k1")
+    add(launches)
+    E, magn, _, _ = scf_line("k1 iron LDA", basis, res, ref["iron_lda_golden"])
+    ab = ref["abinit_iron_lda"]["total_energy"]
+    print(f"[k1] iron LDA: E - E_ABINIT={E - ab:.3e}", flush=True)
+    check(abs(E - ab) < METAL_ABINIT_TOL and 2.3 < magn < 2.7,
+          f"k1 iron LDA: E within {METAL_ABINIT_TOL} of ABINIT, magnetisation in (2.3, 2.7)")
+    del res, basis
+
+    model = dt.model_DFT(FE_PRIMITIVE, [Fe], [np.zeros(3)], functionals="PBE",
+                         temperature=0.01, spin_polarization="collinear")
+    basis = dt.PlaneWaveBasis(model, Ecut=20.0, fft_size=(20, 20, 20), kgrid=kgrid,
+                              device=device)
+    print(f"[k1] iron PBE: {basis}", flush=True)
+    hold_kernels_at(la, basis, "k1 PBE", 10, errs, tag="k1")
+    res, launches = run_on_card(la, "k1 iron PBE golden LOBPCG SCF", smi, lambda: (
+        dt.self_consistent_field(basis, tol=1e-12, rho=dt.guess_density(basis, [4.0]),
+                                 n_bands=10, maxiter=100)), tag="k1")
+    add(launches)
+    E, magn, _, _ = scf_line("k1 iron PBE", basis, res, ref["iron_pbe_golden"])
+    ab = ref["abinit_iron_pbe"]
+    worst = match_rows(np.sort(res.eigenvalues[:, :10], axis=1), np.array(ab["eigenvalues"]))
+    print(f"[k1] iron PBE: E - E_ABINIT={E - ab['total_energy']:.3e}, magnetisation - "
+          f"reference={magn - ab['magnetisation']:.3e}; 12 (k, spin) rows matched onto ABINIT's: "
+          f"max deviation {worst:.3e}", flush=True)
+    check(res.eigenvalues.shape[0] == 12 and worst < IRON_EIG_TOL,
+          f"k1 iron PBE: every (k, spin) eigenvalue row within {IRON_EIG_TOL} of ABINIT's")
+    check(abs(E - ab["total_energy"]) < METAL_ABINIT_TOL
+          and abs(magn - ab["magnetisation"]) < IRON_MAGN_TOL,
+          f"k1 iron PBE: E within {METAL_ABINIT_TOL} of ABINIT, magnetisation within "
+          f"{IRON_MAGN_TOL}")
+    del res, basis
+
+    # k2: the ABINIT silicon PBE golden (tests/test_silicon_pbe.py)
+    ab = ref["abinit_silicon_pbe"]
+    Si = dt.ElementPsp.from_symbol("Si", psp="pbe/si-q4")
+    lattice = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
+    model = dt.model_DFT(lattice, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+                         functionals="PBE")
+    basis = dt.PlaneWaveBasis(model, Ecut=25.0, kgrid=dt.ExplicitKpoints(*ab["kpoints"]),
+                              fft_size=(33, 33, 33), device=device)
+    print(f"[k2] silicon PBE: {basis}", flush=True)
+    hold_kernels_at(la, basis, "k2", 8, errs, tag="k2")
+    res, launches = run_on_card(la, "k2 silicon PBE golden LOBPCG SCF", smi, lambda: (
+        dt.self_consistent_field(basis, tol=1e-9, n_bands=8, is_converged="energy")), tag="k2")
+    add(launches)
+    E, _, _, _ = scf_line("k2 silicon PBE", basis, res, ref["silicon_pbe_golden"])
+    dev = np.abs(res.eigenvalues[0][:8] - np.array(ab["eigenvalues_k0"])).max()
+    print(f"[k2] silicon PBE: E - E_ABINIT={E - ab['total_energy']:.3e}, max|k=0 eigenvalue "
+          f"- ABINIT|={dev:.3e}", flush=True)
+    check(abs(E - ab["total_energy"]) < METAL_ABINIT_TOL and dev < METAL_ABINIT_TOL,
+          f"k2 silicon PBE: energy and k = 0 eigenvalues within {METAL_ABINIT_TOL} of ABINIT")
+    del res, basis
+
+    # k3: Al4 under Marzari-Vanderbilt smearing with LdosMixing
+    Al = dt.ElementPsp.from_symbol("Al", psp="lda/al-q3")
+    model = dt.model_DFT(AL_LATTICE, [Al] * 4, AL_POSITIONS, functionals=["lda_x", "lda_c_pw"],
+                         temperature=AL_SMEARING_WIDTH,
+                         smearing=dt.Smearing.MarzariVanderbilt())
+    basis = dt.PlaneWaveBasis(model, Ecut=7.0, kgrid=dt.MonkhorstPack((1, 3, 3)), device=device)
+    print(f"[k3] aluminium: {basis}", flush=True)
+    hold_kernels_at(la, basis, "k3", model.default_n_bands(), errs, tag="k3")
+    res, launches = run_on_card(la, "k3 Al4 cold smearing LdosMixing LOBPCG SCF", smi, lambda: (
+        dt.self_consistent_field(basis, tol=1e-10, mixing=dt.LdosMixing(), maxiter=100)),
+        tag="k3")
+    add(launches)
+    _, _, n_rho, n_occ = scf_line("k3 Al4", basis, res, ref["aluminium_mv_ldos"])
+    check(abs(n_occ - 12) < N_ELECTRONS_TOL and abs(n_rho - 12) < N_ELECTRONS_TOL,
+          f"k3 Al4: 12 electrons within {N_ELECTRONS_TOL}")
+    del res, basis
+
+    # k4: forces and stresses of the displaced magnetic Fe2 cell, PBE
+    r = ref["fe2_pbe_derivatives"]
+    agree = r["two_runs_agree"]
+    bar_F = min(max(FORCE_TOL, 10 * agree["forces"]), SPLIT_TOL)
+    bar_S = min(max(STRESS_TOL, 10 * agree["stresses"]), SPLIT_TOL)
+    lattice, pos = fe_bcc_cell(1, FE2_DISPLACEMENT)
+    model = fe_model(dt, lattice, pos, "PBE")
+    basis = dt.PlaneWaveBasis(model, Ecut=15.0, kgrid=dt.MonkhorstPack((3, 3, 3)), device=device)
+    print(f"[k4] Fe2: {basis}; bars {bar_F:.1e} Ha/bohr, {bar_S:.1e} Ha/bohr^3 (two JAX SCFs "
+          f"agree to {agree['forces']:.1e} and {agree['stresses']:.1e})", flush=True)
+    hold_kernels_at(la, basis, "k4", model.default_n_bands(), errs, bf16=True, tag="k4")
+    F_ref, S_ref = np.array(r["forces_cart"]), np.array(r["stresses_cart"])
+    res, launches = run_on_card(la, "k4 Fe2 LOBPCG SCF", smi, lambda: (
+        dt.self_consistent_field(basis, tol=1e-10, rho=dt.guess_density(basis, [4.0, 4.0]),
+                                 maxiter=100)), tag="k4")
+    add(launches)
+    scf_line("k4 Fe2", basis, res, r)
+    F, F_ms, F_mib = timed_on_card(lambda: dt.compute_forces_cart(res))
+    S, S_ms, S_mib = timed_on_card(lambda: dt.compute_stresses_cart(res))
+    dF = np.abs(F.cpu().numpy() - F_ref).max()
+    dS = np.abs(S.cpu().numpy() - S_ref).max()
+    print(f"[k4] LOBPCG: forces {F_ms[0]:.1f} ms (again {F_ms[1]:.1f}), peak {F_mib:.1f} MiB, "
+          f"max|F - F_JAX|={dF:.3e}; stresses {S_ms[0]:.1f} ms (again {S_ms[1]:.1f}), peak "
+          f"{S_mib:.1f} MiB, max|S - S_JAX|={dS:.3e} ({smi})", flush=True)
+    check(F.device.type == "cuda" and bool(torch.isfinite(F).all() and torch.isfinite(S).all()),
+          "k4: finite derivatives on the card")
+    check(dF < bar_F and dS < bar_S, f"k4: forces within {bar_F:.1e}, stresses within "
+          f"{bar_S:.1e} of the JAX package's")
+    del res
+    sres, launches = run_on_card(la, "k4 Fe2 split CheFSI SCF", smi, lambda: (
+        dt.self_consistent_field_split(
+            basis, tol=1e-8, maxiter=80, eigensolver="chefsi", chebyshev_degree=10,
+            chefsi_cycles=2, is_converged="density", filter_precision="mixed",
+            rho0=dt.guess_density(basis, [4.0, 4.0]))), tag="k4")
+    add(launches)
+    print(f"[k4] split: converged={sres['converged']} n_iter={sres['n_iter']} "
+          f"E={sres['energies']['total']:.12f} E - E_JAX="
+          f"{sres['energies']['total'] - r['total_energy']:.3e}", flush=True)
+    check(sres["converged"] and abs(sres["energies"]["total"] - r["total_energy"]) < FE_SPLIT_E_TOL,
+          f"k4 split SCF converged within {FE_SPLIT_E_TOL} of the JAX energy")
+    sd = prepare_split_data(basis)
+    U, occ, rho = sres["U"], sres["occupation"], sres["rho"]
+    Fs = compute_forces_split(basis, sd, U, occ, rho)
+    Ss = compute_stresses_split(basis, sd, U, occ)
+    psi, occ_c = split_state_to_complex(basis, U, occ)
+    state = types.SimpleNamespace(psi=psi, occupation=occ_c, rho=rho)
+    dFc = float((Fs - dt.compute_forces(state, basis)).abs().max())
+    dSc = float((Ss - dt.compute_stresses_cart(state, basis)).abs().max())
+    Fs_cart = (Fs @ torch.as_tensor(np.linalg.inv(lattice), device=Fs.device)).cpu().numpy()
+    dFs, dSs = np.abs(Fs_cart - F_ref).max(), np.abs(Ss.cpu().numpy() - S_ref).max()
+    print(f"[k4] split adapters against the complex path on the same state: forces {dFc:.3e}, "
+          f"stresses {dSc:.3e}; against the JAX values: {dFs:.3e}, {dSs:.3e}", flush=True)
+    check(dFc < ADAPTER_TOL and dSc < ADAPTER_TOL,
+          f"k4: split adapters within {ADAPTER_TOL} of the complex path")
+    check(dFs < SPLIT_TOL and dSs < SPLIT_TOL, f"k4: split derivatives within {SPLIT_TOL} of JAX's")
+    del sres, basis, sd, U, psi, state
+    torch.cuda.empty_cache()
+
+    # k5: ferromagnetic bcc iron, the split CheFSI SCF with the "mixed"
+    # filter and AdaptiveBands: Fe16 against the JAX package, then Fe54 (the
+    # JAX package's Fe54 is out of a host's reach: PERF.md section 7)
+    for label, n, key in (("k5 Fe16", 2, "fe16_split"), ("k5 Fe54", 3, None)):
+        lattice, pos = fe_bcc_cell(n)
+        model = fe_model(dt, lattice, pos, "PBE")
+        t0 = time.time()
+        basis = dt.PlaneWaveBasis(model, Ecut=15.0, kgrid=(1, 1, 1), device=device)
+        print(f"[k5] {basis}, {model.n_electrons} electrons, set up in "
+              f"{time.time() - t0:.2f} s", flush=True)
+        time_symmetrizer(basis, label, smi, tag="k5")
+        n_bands = FE_SPLIT_N_BANDS[n]
+        hold_kernels_at(la, basis, label, n_bands, errs, bf16=True, tag="k5")
+        growth = []
+        sres, launches = run_on_card(la, f"{label} split CheFSI SCF, {n_bands} bands to start",
+                                     smi, lambda: dt.self_consistent_field_split(
+            basis, tol=1e-7, maxiter=80, n_bands=n_bands, eigensolver="chefsi",
+            chebyshev_degree=10, chefsi_cycles=2, is_converged="density",
+            filter_precision="mixed", rho0=dt.guess_density(basis, [4.0] * len(pos)),
+            callback=lambda i: growth.append(i["adaptive_bands"])
+            if "adaptive_bands" in i else None), tag="k5")
+        add(launches)
+        E = sres["energies"]["total"]
+        magn, n_rho, n_occ = spin_summary(dt, basis, sres["rho"], sres["occupation"])
+        print(f"[k5] {label}: converged={sres['converged']} n_iter={sres['n_iter']} E={E:.12f} "
+              f"({E / len(pos):.12f} per atom); magnetisation {magn:.6f} ({magn / len(pos):.6f} "
+              f"per atom); electrons {n_rho:.12f} in rho, {n_occ:.12f} in the occupations; "
+              f"AdaptiveBands grew to {growth}, {sres['occupation'].shape[1]} bands", flush=True)
+        check(sres["converged"] and np.isfinite(E), f"{label}: converged")
+        check(abs(n_occ - model.n_electrons) < N_ELECTRONS_TOL,
+              f"{label}: electron count within {N_ELECTRONS_TOL}")
+        check(all(v > 0 for v in launches.values()), f"{label}: every kernel launched")
+        if key is not None:
+            dE = E - ref[key]["total_energy"]
+            print(f"[k5] {label}: E - E_JAX={dE:.3e} (JAX magnetisation "
+                  f"{ref[key]['magnetisation']:.6f})", flush=True)
+            check(abs(dE) < FE_SPLIT_E_TOL, f"{label}: |E - E_JAX| < {FE_SPLIT_E_TOL}")
+        del sres, basis
+        torch.cuda.empty_cache()
+    print(f"[k] phase k took {time.time() - t_phase:.1f} s; launches {total}", flush=True)
+    return total, errs
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -1820,6 +2130,12 @@ def main():
     sym_launches, sym_errs = symmetry_phase(dt, la, device, smi)
     for name, count in sym_launches.items():
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # ---- k. metals, collinear spin and GGA ---------------------------------------
+    metal_launches, metal_errs = metals_phase(dt, la, device, smi)
+    for name, count in metal_launches.items():
+        launches[name] += count
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -1837,7 +2153,8 @@ def main():
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=timings[name].get("library_ms"),
                             device_ms=timings[name]["device_ms"],
-                            max_abs_err_phase_j=sym_errs[name]))
+                            max_abs_err_phase_j=sym_errs[name],
+                            max_abs_err_phase_k=metal_errs[name]))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

@@ -1,7 +1,9 @@
 """dftk_tpu_torch: the PyTorch and CUDA port of dftk_tpu.
 
-Plane-wave Kohn-Sham DFT with HGH pseudopotentials and LDA functionals,
-solved self-consistently on complex tensors on the CUDA card, or on the
+Plane-wave Kohn-Sham DFT with HGH pseudopotentials and LDA or GGA (PBE,
+PBEsol) functionals, for insulators and metals (smearing, Entropy),
+without spin or with collinear spin (magnetic moments), solved
+self-consistently on complex tensors on the CUDA card, or on the
 CPU when the caller asks (`PlaneWaveBasis(..., device="cpu")`), complex128
 by default.  Two SCF loops: `self_consistent_field` (batched LOBPCG) and
 `self_consistent_field_split` (the large-cell path: CheFSI with the
@@ -14,8 +16,10 @@ CUDA device (`kernels/local_apply.py`).  The JAX package `dftk_tpu` is the
 reference this port is held against; this package never imports it or jax.
 
 Crystal symmetry is on by default (`symmetries=True`): IBZ k-points and
-symmetrized densities, forces and stresses.  This covers the
-zero-temperature LDA SCF without spin; see ROADMAP.md for the rest.
+symmetrized densities, forces and stresses.  Mixings: Simple, Kerker,
+dielectric and the LDOS-based LdosMixing, KerkerDosMixing and
+HybridMixing; band counts: FixedBands and AdaptiveBands.  UPF, NLCC and
+meta-GGA are ROADMAP Queue 1 item 8b; see ROADMAP.md for the rest.
 """
 import torch
 
@@ -27,18 +31,25 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .basis import PlaneWaveBasis  # noqa: E402
 from .bzmesh import ExplicitKpoints, MonkhorstPack  # noqa: E402
+from .models import smearing as Smearing  # noqa: E402
 from .models.elements import ElementPsp  # noqa: E402
-from .models.standard import LDA, model_DFT  # noqa: E402
-from .ops.density import guess_density  # noqa: E402
+from .models.standard import LDA, PBE, PBEsol, model_DFT  # noqa: E402
+from .ops.density import guess_density, spin_density, total_density  # noqa: E402
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
 from .postprocess.forces import compute_forces, compute_forces_cart  # noqa: E402
 from .postprocess.stresses import compute_stresses_cart  # noqa: E402
 from .scf.driver import SCFResult, self_consistent_field  # noqa: E402
 from .scf.energy_eval import evaluate_total_energy, refine_split_energy  # noqa: E402
+from .scf.mixing import (DielectricMixing, HybridMixing, KerkerDosMixing,  # noqa: E402
+                         KerkerMixing, LdosMixing, SimpleMixing)
+from .scf.nbands import AdaptiveBands, FixedBands  # noqa: E402
 from .supercell import create_supercell  # noqa: E402
 
-__all__ = ["model_DFT", "LDA", "ElementPsp", "PlaneWaveBasis", "MonkhorstPack",
-           "ExplicitKpoints", "self_consistent_field", "SCFResult",
-           "guess_density", "self_consistent_field_split", "create_supercell",
+__all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "Smearing",
+           "PlaneWaveBasis", "MonkhorstPack", "ExplicitKpoints",
+           "self_consistent_field", "SCFResult", "guess_density", "total_density",
+           "spin_density", "self_consistent_field_split", "create_supercell",
            "refine_split_energy", "evaluate_total_energy", "compute_forces",
-           "compute_forces_cart", "compute_stresses_cart"]
+           "compute_forces_cart", "compute_stresses_cart", "SimpleMixing",
+           "KerkerMixing", "DielectricMixing", "LdosMixing", "KerkerDosMixing",
+           "HybridMixing", "FixedBands", "AdaptiveBands"]

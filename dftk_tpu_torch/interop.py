@@ -39,7 +39,17 @@ def basis_arrays_from_numpy(*, Gidx, mask, kin, Gpk_cart, kweights, kspin,
 
 def state_from_numpy(psi=None, rho=None, device="cuda", dtype=torch.complex128):
     """Orbitals psi [nk, nb, nG] (complex) and density rho [nspin, n1, n2, n3]
-    (real) as tensors; either may be None."""
+    (real; two channels, up and down, under collinear spin) as tensors;
+    either may be None."""
     out_psi = None if psi is None else _t(psi, dtype, device)
     out_rho = None if rho is None else _t(rho, real_dtype(dtype), device)
     return out_psi, out_rho
+
+
+def split_state_from_numpy(U=None, rho=None, occupation=None, device="cuda",
+                           dtype=torch.float64):
+    """A split SCF's state: realified orbitals U [nk, nb, 2nG] (rows [x; y],
+    as the JAX split SCF returns them, and as `self_consistent_field_split`
+    takes `U0`), the density rho [nspin, n1, n2, n3] (`rho0`) and the
+    occupations [nk, nb], as real tensors of `dtype`; any may be None."""
+    return tuple(None if a is None else _t(a, dtype, device) for a in (U, rho, occupation))

@@ -8,7 +8,9 @@ list of energy-term specs and the crystal symmetries.  Host-side numpy;
 `symmetries=True` (the default) detects the crystal's operations
 (`symmetry.py`), `False` keeps the identity, and an explicit list of
 operations (anything with integer W and fractional w) is taken as given.
-Magnetic moments are not ported yet (ROADMAP Queue 1, item 8).
+Magnetic moments (one per atom: a number, or a vector whose last entry is
+the collinear moment) switch the model to collinear spin and split the
+atoms by moment in the symmetry detection.
 """
 import dataclasses
 import math
@@ -59,9 +61,8 @@ class Model:
             self.smearing = NoSmearing() if self.temperature == 0 else FermiDirac()
         if self.spin_polarization not in ("none", "collinear", "spinless"):
             raise ValueError(f"spin_polarization {self.spin_polarization}")
-        if len(self.magnetic_moments) > 0:
-            raise NotImplementedError("magnetic moments are not ported yet (ROADMAP "
-                                      "Queue 1, item 8)")
+        if len(self.magnetic_moments) > 0 and self.spin_polarization == "none":
+            self.spin_polarization = "collinear"
 
         groups = {}
         for i, at in enumerate(self.atoms):
@@ -69,8 +70,10 @@ class Model:
         self.atom_groups = list(groups.values())
 
         if self.symmetries is True:
+            magmoms = self.magnetic_moments if len(self.magnetic_moments) else None
             self.symmetries = (symmetry_operations(self.lattice, self.atoms,
-                                                   self.positions)
+                                                   self.positions,
+                                                   magnetic_moments=magmoms)
                                if len(self.atoms) else [SymOp.identity()])
         elif self.symmetries is False:
             self.symmetries = [SymOp.identity()]

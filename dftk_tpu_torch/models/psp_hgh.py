@@ -4,7 +4,7 @@ Port of `dftk_tpu/models/psp_hgh.py` (reference `src/pseudo/PspHgh.jl`):
 the same published closed forms (GTH96 eq. (1)-(8), HGH98 eq. (1)-(15)),
 evaluated in numpy on the host while the basis is set up, and as torch
 functions of p^2 (`*_sq`) inside the stresses' graph.  Only the built-in
-HGH tables are supported; UPF files come with a later slice.
+HGH tables are supported; UPF files come with ROADMAP Queue 1 item 8b.
 
 Conventions:
   * `local_fourier(p)` is the Fourier transform of the local potential with
@@ -168,12 +168,12 @@ def parse_hgh(text: str, identifier: str = "") -> PspHgh:
 def load_psp_hgh(key: str) -> PspHgh:
     """Load a built-in HGH psp by key, e.g. "lda/si-q4" or "Si" (semicore).
 
-    UPF files are not supported yet (ROADMAP Queue 1, "UPF pseudopotentials").
+    UPF files are not supported yet (ROADMAP Queue 1, item 8b).
     """
     if key.endswith(".upf") or key.endswith(".UPF"):
         raise NotImplementedError(
             "UPF pseudopotentials are not ported yet (ROADMAP Queue 1, "
-            "'UPF pseudopotentials'); use a built-in HGH table such as "
+            "item 8b); use a built-in HGH table such as "
             "'lda/si-q4'")
     if key.startswith("hgh/"):
         key = key[4:]

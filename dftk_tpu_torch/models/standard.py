@@ -1,6 +1,7 @@
 """Standard model constructors (reference `src/standard_models.jl`).
 
-Port of `model_DFT` and `LDA` from `dftk_tpu/models/standard.py`.
+Port of `model_DFT`, `LDA`, `PBE` and `PBEsol` from
+`dftk_tpu/models/standard.py`.
 """
 from ..ops.terms import (AtomicLocal, AtomicNonlocal, Entropy, Ewald, Hartree,
                          Kinetic, PspCorrection, Xc)
@@ -32,3 +33,11 @@ def _as_names(functionals):
 
 def LDA(lattice, atoms, positions, **kwargs):
     return model_DFT(lattice, atoms, positions, functionals="LDA", **kwargs)
+
+
+def PBE(lattice, atoms, positions, **kwargs):
+    return model_DFT(lattice, atoms, positions, functionals="PBE", **kwargs)
+
+
+def PBEsol(lattice, atoms, positions, **kwargs):
+    return model_DFT(lattice, atoms, positions, functionals="PBEsol", **kwargs)

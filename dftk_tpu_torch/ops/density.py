@@ -1,8 +1,9 @@
 """Densities from orbitals, the superposition guess density, and the
 density symmetrizer.
 
-Port of `compute_density`, `guess_density`, `build_symmetrization_maps`
-and `make_symmetrizer` of `dftk_tpu/ops/density.py` (reference
+Port of `compute_density`, `guess_density` (with magnetic moments),
+`total_density`, `spin_density`, `build_symmetrization_maps` and
+`make_symmetrizer` of `dftk_tpu/ops/density.py` (reference
 `src/densities.jl:13-57`, `src/density_methods.jl`,
 `src/symmetry.jl:282-360`):
 
@@ -138,31 +139,70 @@ def _build_symmetrizer(basis):
     return symmetrize
 
 
-def guess_density(basis, n_electrons=None):
+def guess_density(basis, magnetic_moments=None, n_electrons=None):
     """Superposition of Gaussian atomic valence densities, renormalised to
-    the electron count; rho [nspin, n1, n2, n3] on the basis' device."""
-    from ..models.elements import atom_decay_length
+    the electron count; rho [nspin, n1, n2, n3] on the basis' device.
+
+    Under collinear spin the magnetisation density is the superposition
+    weighted by each atom's moment over its valence charge (a number, or a
+    vector whose last entry is the collinear moment), zero without
+    moments."""
     model = basis.model
     if n_electrons is None:
         n_electrons = model.n_electrons
+    rho_tot = _gaussian_superposition(basis, [1.0] * len(model.atoms))
+    if model.n_spin_components == 1:
+        rho = rho_tot[None]
+    else:
+        if magnetic_moments is None or len(magnetic_moments) == 0:
+            rho_spin = np.zeros_like(rho_tot)
+        else:
+            coeffs = []
+            for at, m in zip(model.atoms, magnetic_moments):
+                mz = float(np.atleast_1d(m)[-1])
+                nval = at.n_elec_valence()
+                if abs(mz) > nval:
+                    raise ValueError(f"magnetic moment {mz} exceeds the {nval} "
+                                     f"valence electrons of {at}")
+                coeffs.append(mz / nval)
+            rho_spin = _gaussian_superposition(basis, coeffs)
+        rho = np.stack([(rho_tot + rho_spin) / 2, (rho_tot - rho_spin) / 2])
+    Ncur = rho.sum() * basis.dvol
+    if Ncur > 0 and n_electrons is not None:
+        rho = rho * (n_electrons / Ncur)
+    return basis.tensor(rho)
+
+
+def _gaussian_superposition(basis, coefficients):
+    """sum_a c_a rho_a(r - r_a) of Gaussian valence densities (Z_ion
+    e^{-(|G| l_a)^2} in Fourier space, l_a the element's decay length) on
+    the basis' grid, numpy."""
+    from ..models.elements import atom_decay_length
+    model = basis.model
     Gnorm = basis.G_cube_cart_norm.reshape(-1)
     Gred = basis.G_cube.reshape(-1, 3).astype(float)
     rho_G = np.zeros(Gnorm.shape, dtype=np.complex128)
     ff_cache = {}
     for i, at in enumerate(model.atoms):
+        if coefficients[i] == 0:
+            continue
         if at not in ff_cache:
             ff_cache[at] = at.charge_ionic() * np.exp(-((Gnorm * atom_decay_length(at)) ** 2))
         phase = np.exp(-2j * math.pi * (Gred @ np.asarray(model.positions[i])))
-        rho_G += ff_cache[at] * phase
+        rho_G += coefficients[i] * ff_cache[at] * phase
     rho_G /= math.sqrt(model.unit_cell_volume)
     N = np.prod(basis.fft_size)
-    rho_tot = np.fft.ifftn(rho_G.reshape(basis.fft_size)).real \
+    return np.fft.ifftn(rho_G.reshape(basis.fft_size)).real \
         * (N / math.sqrt(model.unit_cell_volume))
-    if model.n_spin_components == 1:
-        rho = rho_tot[None]
-    else:
-        rho = np.stack([rho_tot / 2, rho_tot / 2])
-    Ncur = rho.sum() * basis.dvol
-    if Ncur > 0:
-        rho = rho * (n_electrons / Ncur)
-    return basis.tensor(rho)
+
+
+def total_density(rho):
+    """rho_up + rho_down of rho [nspin, grid]."""
+    return torch.sum(rho, dim=0)
+
+
+def spin_density(rho):
+    """rho_up - rho_down of rho [nspin, grid] (zero without spin)."""
+    if rho.shape[0] == 1:
+        return torch.zeros_like(rho[0])
+    return rho[0] - rho[1]

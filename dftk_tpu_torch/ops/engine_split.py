@@ -15,13 +15,19 @@ the hand-written kernels A -> B -> A (`kernels/local_apply.py`), and the
 default `filter_precision="mixed"` runs bf16 filter cycles while the
 density residual is far out and exact ones to finish.
 
+Metals and magnets run here too: finite-temperature occupations with the
+Entropy term, Kerker mixing by default at T > 0, collinear spin (each k row
+applies its own spin's potential), GGA functionals, and AdaptiveBands,
+which grows the band block with random orthonormalised vectors while the
+top computed band is occupied.
+
 Not ported here (each raises NotImplementedError naming its ROADMAP item):
 `build_sandwich`/`apply_local_sandwich` (XLA's form of the same local
-chain), finite temperature and AdaptiveBands (item 8), the k-point mesh
-(item 13), exact exchange and Hubbard (item 11), meta-GGA (item 8), an
-all-bf16 filter (`filter_precision="default"`, item 6), and the realified
-band representations ("paired", csplit), which are TPU workarounds
-(ROADMAP, "Not to port").  The filter always runs on the compact cube.
+chain), the k-point mesh (item 13), exact exchange and Hubbard (item 11),
+meta-GGA (item 8b), an all-bf16 filter (`filter_precision="default"`, item
+8b), and the realified band representations ("paired", csplit), which are
+TPU workarounds (ROADMAP, "Not to port").  The filter always runs on the
+compact cube.
 """
 import dataclasses
 import math
@@ -39,7 +45,7 @@ from . import hamiltonian as hamops
 from .density import compute_density, guess_density, make_symmetrizer
 from .eigen.chefsi import chefsi_step
 from .eigen.lobpcg import lobpcg, ortho_qr
-from .occupation import compute_occupation
+from .occupation import compute_occupation, entropy_energy
 from .pruned import PrunedFFT, compact_to_sphere, sphere_to_compact
 
 KTF = 0.8            # Thomas-Fermi screening wavevector of Kerker/dielectric
@@ -86,7 +92,8 @@ def prepare_split_data(basis, dtype=None):
     bd = BasisData(*[cast(t) for t in basis.data])
     td = basis.terms.data._replace(**{
         f: cast(getattr(basis.terms.data, f))
-        for f in ("vloc_static", "hartree_coeffs", "P", "D", "Gsq_cart")})
+        for f in ("vloc_static", "hartree_coeffs", "P", "D", "Gsq_cart", "G_cart")
+        if getattr(basis.terms.data, f) is not None})
     pf = basis.pruned._replace(factors=LocalFactors(
         fwd=tuple(f.to(dtype) for f in basis.pruned.factors.fwd),
         bwd=tuple(f.to(dtype) for f in basis.pruned.factors.bwd)))
@@ -113,7 +120,7 @@ def apply_H_split(ham, U, fft_size, volume, band_chunk=None, precision=None):
         raise NotImplementedError(
             f"apply_H_split precision={precision!r}: the sphere apply is exact; "
             f"the bf16 filter apply is the compact one (compact_filter_ops; "
-            f"ROADMAP Queue 1, item 6)")
+            f"ROADMAP Queue 1, item 8b)")
     X = _complex(U).to(ham.P.dtype)
     return _realified(_apply_chunked(lambda x: hamops.apply_H(ham, x), X, band_chunk))
 
@@ -308,7 +315,8 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                                 chefsi_cycles=1, mixing_eps_r=None,
                                 band_chunk=None, filter_precision="mixed",
                                 mesh=None, band_repr="complex", rho0=None,
-                                U0=None, adaptive_bands=None, stall_patience=None):
+                                U0=None, adaptive_bands=None, occupation_threshold=1e-6,
+                                stall_patience=None):
     """The split SCF loop (reference `self_consistent_field_split`), on
     complex tensors in `dtype` (complex128 or complex64; default the
     basis' dtype) on the basis' device.
@@ -332,6 +340,12 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     or None.  damping backs off (x0.7, floor 0.2) after two energy rises in
     a row.  rho0/U0 warm-start (U0 realified, [nk, nb, 2nG]).
 
+    adaptive_bands (default: on at T > 0): while the top computed band is
+    occupied above occupation_threshold on some k row, the block grows by
+    max(3, nb / 8) random orthonormalised bands drawn from the run's
+    generator; an iteration that grows cannot count as converged, and
+    neither it nor its residual enters the best-iterate or stall tracking.
+
     stall_patience: exit with the best iterate (stalled=True) once the best
     density residual since the last depth boost or filter latch has not
     improved for this many iterations, unless the residual fell over the
@@ -350,10 +364,6 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         raise NotImplementedError(
             f"band_repr={band_repr!r}: the realified band representations are "
             f"TPU workarounds the port does not carry (ROADMAP, 'Not to port')")
-    if model.temperature > 0 or adaptive_bands:
-        raise NotImplementedError(
-            "finite temperature and AdaptiveBands are not ported yet (ROADMAP "
-            "Queue 1, item 8)")
     if eigensolver not in ("lobpcg", "chefsi"):
         raise ValueError(f"eigensolver must be 'lobpcg' or 'chefsi', got {eigensolver!r}")
     if is_converged not in ("density", "energy"):
@@ -364,7 +374,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         raise NotImplementedError(
             f"filter_precision={filter_precision!r}: the port has 'mixed' and "
             f"'highest'; an all-bf16 filter is not ported (ROADMAP Queue 1, "
-            f"item 6) and 'tensor32' is a TPU workaround (ROADMAP 'Not to port')")
+            f"item 8b) and 'tensor32' is a TPU workaround (ROADMAP 'Not to port')")
 
     sd = prepare_split_data(basis, dtype)
     symmetrizer = make_symmetrizer_split(basis, dtype) if symmetrize else None
@@ -380,6 +390,10 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         n_bands = model.default_n_bands()
     if n_extra_bands is None:
         n_extra_bands = max(3, n_bands // 10)
+    if adaptive_bands is None:
+        # metals need the safety net: too few bands silently under-converge
+        # the occupations; insulators keep a fixed window
+        adaptive_bands = model.temperature > 0
     nbr = n_bands + n_extra_bands
     mask = bd.mask
 
@@ -433,6 +447,10 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                                   symmetrizer=symmetrizer)
         _, energies = hamops.total_potential(sd.terms, rho_out, volume)
         energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
+        if sd.terms.has_entropy:
+            energies["Entropy"] = entropy_energy(res.eigenvalues, bd.kweights, epsF,
+                                                 model.temperature, model.smearing,
+                                                 filled)
         return rho_out, res.X, res.eigenvalues, occ, epsF, energies
 
     if use_kerker is None:
@@ -505,16 +523,24 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
             n_E_up = 0
         E_prev = E_total
         info = (rho_out, eigvals, occ, epsF, energies)
+        # AdaptiveBands (reference src/scf/nbands_algorithm.jl:20-90): an
+        # occupied top band means the window is too small; a window that
+        # small can reach a self-consistent but wrong state, so the growth
+        # gates convergence too
+        grew_bands = (adaptive_bands
+                      and float(occ[:, -1].max()) >= occupation_threshold)
+        if grew_bands:
+            converged = False
         # near the noise floor drho oscillates: keep the lowest-residual state
-        if best_info is None or drho < best_drho:
+        if not grew_bands and (best_info is None or drho < best_drho):
             best_drho, best_info, best_X = drho, info, X
-        if drho < stall_best:
+        if not grew_bands and drho < stall_best:
             stall_best, stall_it = drho, it
         if converged:
             break
         dlast3 = [h[1] for h in history[-3:]]
         descending = len(dlast3) == 3 and dlast3[2] < dlast3[1] < dlast3[0]
-        if (stall_patience is not None and not descending
+        if (stall_patience is not None and not grew_bands and not descending
                 and it - stall_it >= stall_patience):
             stalled = True
             if callback:
@@ -522,8 +548,17 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
             break
         rho = rho_mixed
         diagtol = min(diagtol, max(0.2 * drho, diagtol_min))
+        if grew_bands:
+            add = max(3, nbr // 8)
+            extra = torch.randn((basis.n_kpoints, add, basis.nG_max), dtype=cdt,
+                                device=device, generator=generator)
+            X = ortho_qr(torch.cat([X, extra * mask[:, None, :]], dim=1))
+            nbr, n_bands = nbr + add, n_bands + add
+            stall_best, stall_it = np.inf, it
+            if callback:
+                callback(dict(n_iter=it + 1, adaptive_bands=nbr))
 
-    if not converged:
+    if not converged and best_info is not None:
         info, X = best_info, best_X
     rho_out, eigvals, occ, epsF, energies = info
     energies_out = {k: float(v) for k, v in energies.items()}

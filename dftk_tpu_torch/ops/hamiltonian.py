@@ -1,6 +1,7 @@
 """Hamiltonian assembly and application (the hot path).
 
-Port of `dftk_tpu/ops/hamiltonian.py` for the LDA path.  One batched
+Port of `dftk_tpu/ops/hamiltonian.py` for the semilocal (LDA and GGA)
+path.  One batched
 function applies H to all k-points and bands at once:
 
     H psi = kin .* psi  +  local(V) psi  +  P D P^dag psi
@@ -12,7 +13,9 @@ sphere.  Kinetic and nonlocal parts are torch ops (the nonlocal part is two
 GEMMs over the G axis), as XLA computed them in the JAX package.
 
 The total local potential V fuses AtomicLocal + Hartree(rho) + Xc(rho); the
-XC potential is the `torch.autograd` gradient of the XC energy.
+XC potential is the `torch.autograd` gradient of the XC energy.  Under
+collinear spin V has one channel per spin, and each k-point row applies
+its own spin's channel (`basis_data.kspin`).
 """
 from typing import NamedTuple
 
@@ -64,12 +67,32 @@ def apply_H(ham: Ham, psi):
 # Density-dependent potential assembly + energies
 # ---------------------------------------------------------------------------
 
-def xc_energy(functionals, rho, volume, scaling=1.0):
-    """Total XC energy of rho [nspin, n1, n2, n3] (LDA functionals)."""
+def density_gradient_sigma(rho, G_cart):
+    """The contracted density gradients of rho [nspin, n1, n2, n3]: sigma
+    [1, grid] (|grad rho|^2), or [3, grid] (aa, ab, bb) under spin; the
+    gradient is spectral, i G rho(G), with G_cart [n1, n2, n3, 3] (2 pi
+    included), so autograd through it gives the GGA divergence term and,
+    with G_cart built from the lattice, the GGA stress."""
+    rho_G = torch.fft.fftn(rho, dim=(-3, -2, -1))
+    grads = torch.stack([torch.fft.ifftn(1j * G_cart[..., a] * rho_G, dim=(-3, -2, -1)).real
+                         for a in range(3)], dim=-1)          # [nspin, grid, 3]
+    if rho.shape[0] == 1:
+        return torch.sum(grads * grads, dim=-1)
+    return torch.stack([torch.sum(grads[0] * grads[0], dim=-1),
+                        torch.sum(grads[0] * grads[1], dim=-1),
+                        torch.sum(grads[1] * grads[1], dim=-1)])
+
+
+def xc_energy(functionals, rho, volume, scaling=1.0, G_cart=None):
+    """Total XC energy of rho [nspin, n1, n2, n3]; G_cart [n1, n2, n3, 3]
+    (Cartesian G of the cube) is needed by GGA functionals."""
     if not functionals:
         return torch.zeros((), dtype=rho.dtype, device=rho.device)
     dvol = volume / rho[0].numel()
-    E = sum(fscale * torch.sum(f.energy(rho)) for f, fscale in functionals)
+    sigma = None
+    if any(f.family == "gga" for f, _ in functionals):
+        sigma = density_gradient_sigma(rho, G_cart.to(rho.dtype))
+    E = sum(fscale * torch.sum(f.energy(rho, sigma)) for f, fscale in functionals)
     return scaling * E * dvol
 
 
@@ -92,7 +115,7 @@ def total_potential(terms, rho, volume):
     if terms.xc:
         with torch.enable_grad():
             r = rho.detach().requires_grad_(True)
-            exc = xc_energy(terms.xc, r, volume, terms.xc_scaling)
+            exc = xc_energy(terms.xc, r, volume, terms.xc_scaling, td.G_cart)
             (Vxc,) = torch.autograd.grad(exc, r)
         energies["Xc"] = exc.detach()
         V = V + Vxc / dvol

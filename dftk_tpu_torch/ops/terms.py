@@ -1,10 +1,11 @@
 """Energy terms and their instantiation on a PlaneWaveBasis.
 
-Port of `dftk_tpu/ops/terms.py::instantiate_terms` for the terms of the LDA
-path: Kinetic, AtomicLocal, AtomicNonlocal, Hartree, Xc, Ewald and
-PspCorrection.  Density-independent data (the local pseudopotential, the
-Hartree kernel, the nonlocal projectors P and couplings D, the Ewald and psp
-correction energies) are built once on the host (the projectors' form
+Port of `dftk_tpu/ops/terms.py::instantiate_terms` for the terms of the
+semilocal DFT path: Kinetic, AtomicLocal, AtomicNonlocal, Hartree, Xc (LDA
+and GGA), Ewald, PspCorrection and Entropy.  Density-independent data (the
+local pseudopotential, the Hartree kernel, the nonlocal projectors P and
+couplings D, the Ewald and psp correction energies, the Cartesian G of the
+cube for GGA gradients) are built once on the host (the projectors' form
 factors by `projector_form_factors`, a torch function that the stresses
 also trace through the lattice) and held as tensors on the basis' device
 in `Terms.data`; the density-dependent potentials are assembled each SCF
@@ -70,8 +71,9 @@ class PspCorrection:
 
 @dataclasses.dataclass(frozen=True)
 class Entropy:
-    """Smearing entropy; declared so that models mirror the JAX package,
-    not instantiable yet (ROADMAP Queue 1, item 8: metals)."""
+    """The smearing entropy -T S of finite-temperature models; its energy
+    needs the eigenvalues and the Fermi level, so the SCF loops add it
+    (`ops/occupation.py::entropy_energy`)."""
 
 
 class TermsData(NamedTuple):
@@ -82,6 +84,7 @@ class TermsData(NamedTuple):
     D: torch.Tensor               # [nproj, nproj] couplings
     Gsq_cart: torch.Tensor        # [n1,n2,n3] |G|^2 Cartesian (Kerker mixing)
     kinetic_scale: float
+    G_cart: Optional[torch.Tensor] = None   # [n1,n2,n3,3] Cartesian G (GGA gradients)
 
 
 @dataclasses.dataclass
@@ -92,6 +95,7 @@ class Terms:
     xc: Sequence[Any]
     xc_scaling: float
     data: TermsData
+    has_entropy: bool = False
 
 
 def instantiate_terms(basis) -> Terms:
@@ -106,6 +110,7 @@ def instantiate_terms(basis) -> Terms:
     xc_functionals = []
     xc_scaling = 1.0
     kinetic_scale = 1.0
+    has_entropy = False
     Gsq = basis.G_cube_cart_norm ** 2
 
     for term in model.term_types:
@@ -132,18 +137,22 @@ def instantiate_terms(basis) -> Terms:
                                              device=basis.device))
         elif isinstance(term, PspCorrection):
             E_psp = _energy_psp_correction(model)
+        elif isinstance(term, Entropy):
+            has_entropy = True
         else:
             raise NotImplementedError(
-                f"Term {term} is not ported yet: this slice has Kinetic, "
-                f"AtomicLocal, AtomicNonlocal, Hartree, Xc, Ewald and "
-                f"PspCorrection (see ROADMAP Queue 1 for the rest)")
+                f"Term {term} is not ported yet: the port has Kinetic, "
+                f"AtomicLocal, AtomicNonlocal, Hartree, Xc, Ewald, "
+                f"PspCorrection and Entropy (exact exchange, Hubbard and the "
+                f"other terms: ROADMAP Queue 1, item 11)")
 
     data = TermsData(
         vloc_static=basis.tensor(vloc), hartree_coeffs=basis.tensor(hartree_coeffs),
         P=basis.tensor(P, basis.dtype), D=basis.tensor(D),
-        Gsq_cart=basis.tensor(Gsq), kinetic_scale=float(kinetic_scale))
+        Gsq_cart=basis.tensor(Gsq), kinetic_scale=float(kinetic_scale),
+        G_cart=basis.tensor(basis.G_cube_cart))
     return Terms(E_ewald=E_ewald, E_psp_correction=E_psp, xc=xc_functionals,
-                 xc_scaling=xc_scaling, data=data)
+                 xc_scaling=xc_scaling, data=data, has_entropy=has_entropy)
 
 
 def _atomic_local_potential(basis):

@@ -1,14 +1,24 @@
-"""LDA exchange-correlation functionals as differentiable torch expressions.
+"""LDA and GGA exchange-correlation functionals as differentiable torch
+expressions.
 
-Port of the LDA set of `dftk_tpu/ops/xc/functionals.py` (names follow
-libxc): lda_x (Slater exchange), lda_c_vwn (VWN5), lda_c_pw (PW92) and
-lda_xc_teter93 (Teter's Pade fit of LDA exchange and correlation).
-Potentials come from `torch.autograd` through the energy
-(`ops/hamiltonian.py::total_potential`).  GGA and meta-GGA functionals come
-with a later slice (ROADMAP Queue 1, item 8).
+Port of the LDA and GGA sets of `dftk_tpu/ops/xc/functionals.py` (names
+follow libxc): lda_x (Slater exchange), lda_c_vwn (VWN5), lda_c_pw (PW92),
+lda_xc_teter93 (Teter's Pade fit of LDA exchange and correlation),
+gga_x_pbe, gga_c_pbe, gga_x_pbe_sol and gga_c_pbe_sol, and the sets LDA,
+PBE and PBEsol.  Potentials come from `torch.autograd` through the energy
+(`ops/hamiltonian.py::total_potential`), the GGA divergence term included,
+since the density gradient is taken spectrally inside the graph.  Meta-GGA
+and TB09 come with ROADMAP Queue 1 item 8b, gga_x_wpbeh with item 11.
 
-rho has shape [nspin, ...] with nspin in {1, 2}; each functional returns an
-energy density per unit volume.
+rho has shape [nspin, ...] with nspin in {1, 2}; sigma, the contracted
+gradients, [1, ...] for nspin 1 and [3, ...] (aa, ab, bb) for nspin 2;
+each functional returns an energy density per unit volume.
+
+The floors keep autograd finite: densities under _RHO_EPS are clamped (no
+gradient flows below it), zeta is clipped inside (-1, 1), and the squared
+denominators of s^2 and t^2 have a floor whose inverse square stays finite
+in the working dtype (`_den_floor`), so no branch sees sqrt(0), 0^(-1/3)
+or 0/0.
 """
 import dataclasses
 import math
@@ -21,6 +31,13 @@ _RHO_EPS = 1e-14        # libxc-style density threshold
 
 def _safe_rho(rho):
     return torch.clamp(rho, min=_RHO_EPS)
+
+
+def _den_floor(x):
+    """Floor of squared denominators such as (2 kF rho)^2: 1/floor^2 enters
+    the gradient of sigma/denominator, so it must stay finite in the
+    working dtype (1e-40 in float64; its square underflows in float32)."""
+    return torch.clamp(x, min=1e-15 if torch.finfo(x.dtype).bits <= 32 else 1e-40)
 
 
 def _rs_from_rho(rho):
@@ -90,19 +107,25 @@ _PW_FERRO = (0.015545, 0.20548, 14.1189, 6.1977, 3.3662, 0.62517)
 _PW_STIFF = (0.016887, 0.11125, 10.357, 3.6231, 0.88026, 0.49671)
 
 
-def lda_c_pw_energy(rho, sigma=None):
-    rho_tot = _safe_rho(torch.sum(rho, dim=0))
-    rs = _rs_from_rho(rho_tot)
+def _pw_eps(rs, zeta=None):
+    """PW92 correlation energy per electron, unpolarised (zeta None) or at
+    spin polarisation zeta."""
     eps_p = _pw_G(rs, *_PW_PARA)
-    if rho.shape[0] == 1:
-        return rho_tot * eps_p
-    zeta = _zeta(rho, rho_tot)
+    if zeta is None:
+        return eps_p
     eps_f = _pw_G(rs, *_PW_FERRO)
     alpha = -_pw_G(rs, *_PW_STIFF)   # fit is for -alpha_c
     fz = _f_zeta(zeta)
     z4 = zeta ** 4
-    return rho_tot * (eps_p + alpha * fz / _FZ_DD0 * (1 - z4)
-                      + (eps_f - eps_p) * fz * z4)
+    return eps_p + alpha * fz / _FZ_DD0 * (1 - z4) + (eps_f - eps_p) * fz * z4
+
+
+def lda_c_pw_energy(rho, sigma=None):
+    rho_tot = _safe_rho(torch.sum(rho, dim=0))
+    rs = _rs_from_rho(rho_tot)
+    if rho.shape[0] == 1:
+        return rho_tot * _pw_eps(rs)
+    return rho_tot * _pw_eps(rs, _zeta(rho, rho_tot))
 
 
 # Teter 93 combined XC (the Pade fit used alongside GTH psps; GTH96 appendix)
@@ -125,10 +148,76 @@ def lda_xc_teter93_energy(rho, sigma=None):
     return rho_tot * (-num / den)
 
 
+# PBE exchange and correlation (Perdew-Burke-Ernzerhof 1996), and the
+# PBEsol constants (2008)
+_PBE_KAPPA = 0.8040
+_PBE_MU = 0.2195149727645171          # beta * pi^2 / 3
+_PBESOL_MU = 10 / 81
+_PBE_BETA = 0.06672455060314922
+_PBESOL_BETA = 0.046
+_PBE_GAMMA = (1 - math.log(2.0)) / math.pi ** 2
+
+
+def _pbe_x_unpol(rho, sigma, mu, kappa):
+    r = _safe_rho(rho)
+    kf = (3 * math.pi ** 2 * r) ** (1 / 3)
+    s2 = sigma / _den_floor((2 * kf * r) ** 2)
+    Fx = 1 + kappa - kappa / (1 + mu * s2 / kappa)
+    return _CX * r ** (4 / 3) * Fx
+
+
+def _gga_x_energy(rho, sigma, mu, kappa):
+    if rho.shape[0] == 1:
+        return _pbe_x_unpol(rho[0], sigma[0], mu, kappa)
+    # exact spin scaling: E_x[ra, rb] = (E_x[2 ra] + E_x[2 rb]) / 2
+    ea = _pbe_x_unpol(2 * rho[0], 4 * sigma[0], mu, kappa)
+    eb = _pbe_x_unpol(2 * rho[1], 4 * sigma[2], mu, kappa)
+    return (ea + eb) / 2
+
+
+def gga_x_pbe_energy(rho, sigma):
+    return _gga_x_energy(rho, sigma, _PBE_MU, _PBE_KAPPA)
+
+
+def gga_x_pbe_sol_energy(rho, sigma):
+    return _gga_x_energy(rho, sigma, _PBESOL_MU, _PBE_KAPPA)
+
+
+def _gga_c_pbe(rho, sigma, beta):
+    rho_tot = _safe_rho(torch.sum(rho, dim=0))
+    rs = _rs_from_rho(rho_tot)
+    if rho.shape[0] == 1:
+        zeta = torch.zeros_like(rho_tot)
+        sig = sigma[0]
+        eps_lda = _pw_eps(rs)
+    else:
+        zeta = _zeta(rho, rho_tot)
+        sig = sigma[0] + 2 * sigma[1] + sigma[2]
+        eps_lda = _pw_eps(rs, zeta)
+    phi = ((1 + zeta) ** (2 / 3) + (1 - zeta) ** (2 / 3)) / 2
+    kf = (3 * math.pi ** 2 * rho_tot) ** (1 / 3)
+    ks = torch.sqrt(4 * kf / math.pi)
+    t2 = sig / _den_floor((2 * phi * ks * rho_tot) ** 2)
+    phi3 = phi ** 3
+    A = beta / _PBE_GAMMA / _den_floor(torch.exp(-eps_lda / (_PBE_GAMMA * phi3)) - 1)
+    num = 1 + A * t2
+    H = _PBE_GAMMA * phi3 * torch.log1p(beta / _PBE_GAMMA * t2 * num
+                                        / (num + (A * t2) ** 2))
+    return rho_tot * (eps_lda + H)
+
+
+def gga_c_pbe_energy(rho, sigma):
+    return _gga_c_pbe(rho, sigma, _PBE_BETA)
+
+
+def gga_c_pbe_sol_energy(rho, sigma):
+    return _gga_c_pbe(rho, sigma, _PBESOL_BETA)
+
+
 @dataclasses.dataclass(frozen=True)
 class Functional:
     name: str
-    family: str                        # "lda" in this slice
+    family: str                        # "lda" | "gga"
     energy: Callable = None            # (rho, sigma) -> energy/volume
 
 
@@ -137,10 +226,20 @@ FUNCTIONALS = {
     "lda_c_vwn": Functional("lda_c_vwn", "lda", lda_c_vwn_energy),
     "lda_c_pw": Functional("lda_c_pw", "lda", lda_c_pw_energy),
     "lda_xc_teter93": Functional("lda_xc_teter93", "lda", lda_xc_teter93_energy),
+    "gga_x_pbe": Functional("gga_x_pbe", "gga", gga_x_pbe_energy),
+    "gga_c_pbe": Functional("gga_c_pbe", "gga", gga_c_pbe_energy),
+    "gga_x_pbe_sol": Functional("gga_x_pbe_sol", "gga", gga_x_pbe_sol_energy),
+    "gga_c_pbe_sol": Functional("gga_c_pbe_sol", "gga", gga_c_pbe_sol_energy),
 }
 
 # Named functional sets mirroring DFTK standard_models.jl:163-166
-FUNCTIONAL_SETS = {"LDA": ("lda_x", "lda_c_pw")}
+FUNCTIONAL_SETS = {
+    "LDA": ("lda_x", "lda_c_pw"),
+    "PBE": ("gga_x_pbe", "gga_c_pbe"),
+    "PBEsol": ("gga_x_pbe_sol", "gga_c_pbe_sol"),
+}
+# what the JAX package has and the port does not yet, with its ROADMAP item
+_NOT_PORTED = {"gga_x_wpbeh": "item 11 (with exact exchange)"}
 
 
 def resolve_functionals(functionals):
@@ -158,9 +257,9 @@ def resolve_functionals(functionals):
         elif name in FUNCTIONALS:
             fun = FUNCTIONALS[name]
         else:
+            item = _NOT_PORTED.get(name, "item 8b (meta-GGA, TB09)")
             raise NotImplementedError(
-                f"functional {name!r} is not ported yet; this slice has "
-                f"{sorted(FUNCTIONALS)} (GGA and meta-GGA: ROADMAP Queue 1, "
-                f"item 8)")
+                f"functional {name!r} is not ported yet; the port has "
+                f"{sorted(FUNCTIONALS)} (ROADMAP Queue 1, {item})")
         out.append((fun, float(scale)))
     return out

@@ -10,8 +10,12 @@ derivative.  Everything runs in float64 on the basis' device.
 Forces are in reduced coordinates (covectors) from `compute_forces`;
 `compute_forces_cart` symmetrizes and converts them with inv(lattice)^T.
 
+Collinear spin, GGA and finite temperature need nothing more: without a
+core density no XC term depends on the positions, and the occupations are
+held fixed.
+
 Not ported (each raises NotImplementedError naming its ROADMAP item): the
-NLCC core-density and meta-GGA tau terms (item 8) and classical pairwise
+NLCC core-density and meta-GGA tau terms (item 8b) and classical pairwise
 forces (item 11).
 """
 import math
@@ -33,11 +37,11 @@ def check_supported(basis, scfres, what):
            for at in basis.model.atoms):
         raise NotImplementedError(
             f"{what} with NLCC core densities are not ported yet (ROADMAP "
-            f"Queue 1, item 8)")
+            f"Queue 1, item 8b)")
     if getattr(scfres, "tau", None) is not None:
         raise NotImplementedError(
             f"{what} of meta-GGA models (tau) are not ported yet (ROADMAP "
-            f"Queue 1, item 8)")
+            f"Queue 1, item 8b)")
     if getattr(basis.terms, "pairwise_forces", None) is not None:
         raise NotImplementedError(
             f"{what} with classical pairwise terms are not ported yet (ROADMAP "

@@ -16,9 +16,14 @@ The rebuilt density is symmetrized there too, as the SCF's is: the
 gather maps are lattice-independent, so symmetrizing at L0 and scaling
 commute, and the symmetrizer stays outside the lattice graph.
 
+Collinear spin, GGA functionals and finite-temperature states go through
+the same function: the density keeps its spin channels, the GGA gradient
+is built from the lattice-traced G, and the occupations are held fixed
+(the entropy does not depend on the lattice at fixed eigenvalues).
+
 Not ported (each raises NotImplementedError naming its ROADMAP item): the
-NLCC core-density and meta-GGA terms (item 8) and classical pairwise terms
-(item 11).
+NLCC core-density and meta-GGA terms (item 8b) and classical pairwise
+terms (item 11).
 """
 import math
 
@@ -88,7 +93,10 @@ def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
             coeffs * (rho_G.real ** 2 + rho_G.imag ** 2).reshape(-1))
 
     if terms.xc:
-        E = E + xc_energy(terms.xc, rho, vol, terms.xc_scaling)
+        # GGA: sigma from i G rho(G) with G built from the lattice in the
+        # graph, so the gradient terms' strain dependence is traced too
+        E = E + xc_energy(terms.xc, rho, vol, terms.xc_scaling,
+                          G_cart.reshape(tuple(fft_size) + (3,)))
 
     # AtomicLocal: p^2 form factors keep the graph smooth at G = 0
     if has_local(model):

@@ -7,14 +7,18 @@ one SCF step
     rho_in -> V(rho_in) -> LOBPCG (warm-started) -> occupations / Fermi level
            -> rho_out -> energies at rho_out
 
-with Anderson-accelerated, Simple/Kerker-preconditioned density updates and
-an adaptive eigensolver tolerance (AdaptiveDiagtol, scf_callbacks.jl:191-230).
-The JAX package jit-compiles the step; here it runs eagerly on the basis'
-device.
+with Anderson-accelerated, preconditioned density updates (Simple, Kerker,
+dielectric, or the LDOS-based LdosMixing, KerkerDosMixing and HybridMixing,
+which get the LDOS at the Fermi level of each iteration) and an adaptive
+eigensolver tolerance (AdaptiveDiagtol, scf_callbacks.jl:191-230).  At
+finite temperature the occupations come from the smearing and the energy
+carries the Entropy term; `nbandsalg` (`scf/nbands.py`) sets the band
+counts and grows them between iterations.  The JAX package jit-compiles
+the step; here it runs eagerly on the basis' device.
 
-Not ported in this slice, and refused when requested: exact exchange,
-Hubbard, meta-GGA (their terms do not instantiate), LDOS-based mixings and
-adaptive band growth (`nbandsalg`).
+Not ported, and refused when requested: exact exchange, Hubbard, meta-GGA
+(their terms do not instantiate) and Chi0Mixing (ROADMAP Queue 1, item
+10).
 """
 import dataclasses
 import math
@@ -27,7 +31,7 @@ import torch
 from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, guess_density, make_symmetrizer
 from ..ops.eigen.lobpcg import lobpcg, ortho_qr
-from ..ops.occupation import compute_occupation
+from ..ops.occupation import compute_occupation, entropy_energy
 from .anderson import AndersonAcceleration
 from .mixing import KerkerMixing, SimpleMixing
 
@@ -72,6 +76,24 @@ def default_mixing(model):
     return KerkerMixing() if model.temperature > 0 else SimpleMixing()
 
 
+def ldos_at(basis, psi, eigenvalues, epsF):
+    """The local density of states at the Fermi level, [1, n1, n2, n3]:
+
+        ldos(r) = sum_kn w_k (-filled / T) f'((e_kn - epsF) / T) |psi_kn(r)|^2
+
+    summed over both spins, with the model's smearing (a Fermi-Dirac of
+    T = 1e-3 at zero temperature), f' by torch.autograd."""
+    model = basis.model
+    T = model.temperature if model.temperature > 0 else 1e-3
+    occupation = (model.smearing.occupation if model.temperature > 0
+                  else lambda t: torch.sigmoid(-t))
+    with torch.enable_grad():
+        x = ((eigenvalues - epsF) / T).detach().requires_grad_(True)
+        (docc,) = torch.autograd.grad(occupation(x).sum(), x)
+    w = -model.filled_occupation / T * docc
+    return compute_density(basis.data, psi, w, basis.fft_size, model.unit_cell_volume, 1)
+
+
 @torch.no_grad()
 def self_consistent_field(
         basis,
@@ -98,23 +120,26 @@ def self_consistent_field(
     t0 = time.time()
     model = basis.model
     terms = basis.terms
-    if nbandsalg is not None:
-        raise NotImplementedError("adaptive band growth (nbandsalg) is not "
-                                  "ported yet (ROADMAP Queue 1, item 6)")
     if mixing is None:
         mixing = default_mixing(model)
-    if getattr(mixing, "needs_ldos", False) or getattr(mixing, "needs_state", False):
-        raise NotImplementedError("LDOS- and chi0-based mixings are not ported "
-                                  "yet (ROADMAP Queue 1, item 8)")
-    if n_bands is None:
-        n_bands = model.default_n_bands()
-    if n_extra_bands is None:
-        n_extra_bands = max(3, n_bands // 10)
+    if getattr(mixing, "needs_state", False):
+        raise NotImplementedError("Chi0Mixing needs the response module, which "
+                                  "is not ported yet (ROADMAP Queue 1, item 10)")
+    needs_ldos = getattr(mixing, "needs_ldos", False)
+    if nbandsalg is not None:
+        n_bands, nb_total = nbandsalg.bands(model)
+        n_extra_bands = nb_total - n_bands
+    else:
+        if n_bands is None:
+            n_bands = model.default_n_bands()
+        if n_extra_bands is None:
+            n_extra_bands = max(3, n_bands // 10)
     if rho is None:
         rho = guess_density(basis)
+    if generator is None:
+        generator = torch.Generator(device=basis.device).manual_seed(seed)
     if psi is None:
-        psi = random_orbitals(basis, n_bands + n_extra_bands, seed=seed,
-                              generator=generator)
+        psi = random_orbitals(basis, n_bands + n_extra_bands, generator=generator)
     if diagtol_min is None:
         diagtol_min = max(tol / 100, 100 * torch.finfo(basis.rdtype).eps)
 
@@ -142,6 +167,10 @@ def self_consistent_field(
         # nonlocal parts of H do not depend on V, so `ham` serves for both
         V_out, energies = hamops.total_potential(terms, rho_out, volume)
         energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
+        if terms.has_entropy:
+            energies["Entropy"] = entropy_energy(
+                res.eigenvalues, bd.kweights, epsF, model.temperature,
+                model.smearing, model.filled_occupation)
         return rho_out, res, occ, epsF, energies, V_out
 
     anderson = AndersonAcceleration(m=anderson_depth)
@@ -172,10 +201,28 @@ def self_consistent_field(
         else:
             converged = E_prev is not None and abs(E_total - E_prev) < tol
         E_prev = E_total
-        if converged or (maxtime is not None and time.time() - t0 > maxtime):
+        if maxtime is not None and time.time() - t0 > maxtime:
+            break
+        # band growth (AdaptiveBands): random orthonormalised bands join the
+        # block while the top computed bands are occupied
+        if nbandsalg is not None and not converged:
+            grown = nbandsalg.update(occ, None)
+            if grown is not None:
+                n_bands, nb_total_new = grown
+                extra = nb_total_new - psi.shape[1]
+                if extra > 0:
+                    pad = random_orbitals(basis, extra, generator=generator)
+                    psi = ortho_qr(torch.cat([psi, pad], dim=1))
+        if converged:
             break
         # density update: precondition + Anderson + damping
-        rho = anderson(rho, mixing.mix_density(delta_F, td.Gsq_cart), damping)
+        if needs_ldos:
+            delta_rho = mixing.mix_density(
+                delta_F, td.Gsq_cart, ldos=ldos_at(basis, res.X, res.eigenvalues, epsF),
+                dvol=dvol, volume=volume)
+        else:
+            delta_rho = mixing.mix_density(delta_F, td.Gsq_cart)
+        rho = anderson(rho, delta_rho, damping)
         # adaptive eigensolver tolerance, tightening with the density residual
         diagtol = min(diagtol, max(diagtol_ratio * drho, diagtol_min))
 

@@ -13,6 +13,7 @@ import torch
 
 from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, make_symmetrizer
+from ..ops.occupation import entropy_energy
 
 
 def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
@@ -22,12 +23,10 @@ def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
     psi [nk, nb, nG] complex, occupation [nk, nb]; rho [nspin, grid] is
     re-derived from psi (band_chunk bands at a time) and symmetrized unless
     given.
-    eigenvalues and epsF feed the entropy term of finite-temperature
-    models, which are not ported yet (ROADMAP Queue 1, item 8)."""
+    eigenvalues [nk, nb] and epsF feed the Entropy term of finite-temperature
+    models, which is left out where either is None (as in the JAX
+    package)."""
     model = basis.model
-    if model.temperature > 0:
-        raise NotImplementedError("finite-temperature energies are not ported "
-                                  "yet (ROADMAP Queue 1, item 8)")
     terms = basis.terms
     bd = basis.data
     volume = model.unit_cell_volume
@@ -42,6 +41,10 @@ def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
     V, energies = hamops.total_potential(terms, rho, volume)
     ham = hamops.build_ham(bd, terms.data, V, basis.pruned)
     energies.update(hamops.psi_energies(ham, psi, occupation, bd.kweights))
+    if terms.has_entropy and eigenvalues is not None and epsF is not None:
+        eig = torch.as_tensor(eigenvalues, device=basis.device).to(basis.rdtype)
+        energies["Entropy"] = entropy_energy(eig, bd.kweights, epsF, model.temperature,
+                                             model.smearing, model.filled_occupation)
     energies = {k: float(v) for k, v in energies.items()}
     energies["Ewald"] = float(terms.E_ewald)
     energies["PspCorrection"] = float(terms.E_psp_correction)

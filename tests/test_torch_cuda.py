@@ -21,7 +21,10 @@ CheFSI SCF ("mixed" filter) on the GPU are held against the same SCFs on
 the CPU (1e-9 Ha), and the symmetric Si2 SCF (48 operations) at 1e-10 Ha;
 the density symmetrizer against the CPU's (1e-13) and, at symmetric Si54's
 1296 operations, against a loop over the operations; the forces and stresses of one Si2 state on the GPU
-against the CPU's (1e-11), every op of both on the card.  The filter-stage probe kernels (`kernels/filter_stages.py`)
+against the CPU's (1e-11), every op of both on the card.  Kernels A and B,
+complex128 and bf16, at the collinear-spin paths' shapes (iron, Fe2,
+Fe16, Fe54), with the up and down potentials on the two halves of the k
+rows.  The filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
 planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
 the margin rule above, the copy at 1e-6.  The planar chain (`probe_planar`,
@@ -443,6 +446,56 @@ def test_cuda_bf16_kernel_a_ragged(nk, nb, m1, m2, K, J, forward):
     assert _margin(out, la.pruned_axis_dft_plain(x, F, forward, "default"),
                    la.pruned_axis_dft_plain(x, F, forward))
     assert la.counts.launches["pruned_axis_dft[bf16]"] == 1
+
+
+def _spin_potential(rng, nk, n3, n1, n2):
+    """V [nk, n3, n1, n2] of a collinear-spin basis: the first half of the k
+    rows applies the up channel, the second half the down one, as
+    `ops/hamiltonian.py::build_ham` gathers V[kspin]."""
+    V2 = torch.as_tensor(rng.normal(size=(2, n3, n1, n2)), device="cuda")
+    return V2[torch.arange(nk, device="cuda") // (nk // 2)].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk, nb, m, n", [
+    (12, 11, (16, 16, 16), (20, 20, 20)),   # the iron goldens (6 k-points x 2 spins)
+    (28, 21, (16, 16, 16), (24, 24, 24)),   # displaced Fe2 on MP (3, 3, 3)
+    (2, 106, (24, 24, 24), (40, 40, 40)),   # Fe16, Gamma, both spins
+    (2, 330, (32, 32, 32), (60, 60, 60))])  # Fe54
+def test_cuda_kernels_at_spin_shapes(nk, nb, m, n):
+    """Kernels A and B and the A -> B -> A chain at the collinear-spin
+    paths' shapes, the two halves of the k rows under different potentials:
+    complex128 at 1e-11 of max|out|, bf16 by the margin rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(36)
+    x = _c128(rng, (nk, nb) + m)
+    V = _spin_potential(rng, nk, n[2], n[0], n[1])
+    assert float((V[0] - V[-1]).abs().max()) > 0
+    fac = la.LocalFactors(
+        fwd=tuple(_c128(rng, (a, b), a ** -0.5) for a, b in zip(m, n)),
+        bwd=tuple(_c128(rng, (b, a), b ** -0.5) for a, b in zip(m, n)))
+    t = la.pruned_axis_dft_plain(x, fac.fwd[2], True).contiguous()
+    la.counts.reset()
+    assert _close_c128(la.pruned_axis_dft(x, fac.fwd[2], True),
+                       la.pruned_axis_dft_plain(x, fac.fwd[2], True))
+    assert _close_c128(la.local_plane(t, V, fac), la.local_plane_plain(t, V, fac))
+    assert _close_c128(la.local_apply(x, V, fac), la.local_apply_plain(x, V, fac))
+    c64 = lambda f: f.to(torch.complex64)
+    x64, t64, V32 = c64(x), c64(t), V.float()
+    fac64 = la.LocalFactors(fwd=tuple(map(c64, fac.fwd)), bwd=tuple(map(c64, fac.bwd)))
+    for kern, plain in (
+            (lambda p: la.pruned_axis_dft(x64, fac64.fwd[2], True, p),
+             lambda p: la.pruned_axis_dft_plain(x64, fac64.fwd[2], True, p)),
+            (lambda p: la.local_plane(t64, V32, fac64, precision=p),
+             lambda p: la.local_plane_plain(t64, V32, fac64, p)),
+            (lambda p: la.local_apply(x64, V32, fac64, p),
+             lambda p: la.local_apply_plain(x64, V32, fac64, p))):
+        assert _margin(kern("default"), plain("default"), plain("highest"))
+    assert la.counts.launches["pruned_axis_dft"] == 3
+    assert la.counts.launches["local_plane"] == 2
+    assert la.counts.launches["pruned_axis_dft[bf16]"] == 3
+    assert la.counts.launches["local_plane[bf16]"] == 2
 
 
 @pytest.mark.cuda

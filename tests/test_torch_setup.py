@@ -108,21 +108,29 @@ def test_identity_symmetry_list_accepted():
 
 @pytest.mark.parametrize("what", ["symmetries", "upf", "term", "functional"])
 def test_unported_features_raise(what):
+    """What the port refuses: UPF files and meta-GGA (ROADMAP Queue 1 item
+    8b), terms it does not have (exact exchange, item 11).  Symmetry
+    detection with magnetic moments, refused before item 8a, now splits the
+    atoms by moment as the JAX package does; that case checks it."""
     Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
     args = (SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8])
+    if what == "symmetries":
+        model = dt.model_DFT(*args, functionals=["lda_x"], symmetries=True,
+                             magnetic_moments=[1.0, -1.0])
+        ref = dftk.model_DFT(*args, functionals=["lda_x"], symmetries=True,
+                             magnetic_moments=[1.0, -1.0])
+        assert model.spin_polarization == "collinear"
+        assert len(model.symmetries) == len(ref.symmetries) == 24
+        return
     with pytest.raises(NotImplementedError):
-        if what == "symmetries":   # symmetry detection with magnetic moments (item 8)
-            dt.model_DFT(*args, functionals=["lda_x"], symmetries=True,
-                         magnetic_moments=[1.0, 1.0])
-        elif what == "upf":
+        if what == "upf":
             dt.ElementPsp.from_symbol("Si", psp="si.upf")
         elif what == "term":
-            from dftk_tpu_torch.ops.terms import Entropy
             model = dt.model_DFT(*args, functionals=["lda_x"], symmetries=False,
-                                 extra_terms=[Entropy()])
+                                 extra_terms=[dftk.ExactExchange()])
             dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
         else:
-            model = dt.model_DFT(*args, functionals=["gga_x_pbe"], symmetries=False)
+            model = dt.model_DFT(*args, functionals=["mgga_x_scan"], symmetries=False)
             dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
 
 

@@ -267,20 +267,25 @@ def test_split_scf_warm_restart(si):
 @pytest.mark.parametrize("what", ["temperature", "symmetric", "paired", "mesh",
                                   "bf16_filter"])
 def test_split_scf_refusals(si, what):
+    """What the split SCF refuses: the realified band representation, the
+    k-point mesh (item 13) and the all-bf16 filter (item 8b).  Finite
+    temperature and symmetric runs with magnetic moments, refused before
+    item 8a, now run; those two cases check one iteration of each."""
     tb = si[1]
+    if what in ("temperature", "symmetric"):
+        Si = dt.ElementPsp.from_symbol("Si", psp=silicon["psp"])
+        kw = (dict(symmetries=False, temperature=0.01) if what == "temperature"
+              else dict(symmetries=True, magnetic_moments=[1.0, 1.0]))
+        model = dt.model_DFT(silicon["lattice"], [Si, Si], silicon["positions"],
+                             functionals=["lda_x"], **kw)
+        res = dt.self_consistent_field_split(
+            dt.PlaneWaveBasis(model, Ecut=6.0, device="cpu"), maxiter=1)
+        assert np.isfinite(res["energies"]["total"])
+        assert ("Entropy" in res["energies"]) == (what == "temperature")
+        assert res["rho"].shape[0] == (2 if what == "symmetric" else 1)
+        return
     with pytest.raises(NotImplementedError):
-        if what == "temperature":
-            model = _port_model(temperature=0.01)
-            dt.self_consistent_field_split(
-                dt.PlaneWaveBasis(model, Ecut=6.0, device="cpu"), maxiter=1)
-        elif what == "symmetric":   # symmetric runs; with magnetic moments (item 8) not
-            Si = dt.ElementPsp.from_symbol("Si", psp=silicon["psp"])
-            model = dt.model_DFT(silicon["lattice"], [Si, Si], silicon["positions"],
-                                 functionals=["lda_x"], symmetries=True,
-                                 magnetic_moments=[1.0, 1.0])
-            dt.self_consistent_field_split(
-                dt.PlaneWaveBasis(model, Ecut=6.0, device="cpu"), maxiter=1)
-        elif what == "paired":
+        if what == "paired":
             dt.self_consistent_field_split(tb, maxiter=1, band_repr="paired")
         elif what == "bf16_filter":
             dt.self_consistent_field_split(tb, maxiter=1, filter_precision="default",

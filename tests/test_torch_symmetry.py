@@ -122,14 +122,18 @@ def test_symmetry_operations_match(cell, engine, monkeypatch):
 
 def test_model_symmetries_default_and_explicit():
     """model_DFT's default detects the operations; an explicit list is taken
-    as given; magnetic moments are refused (ROADMAP Queue 1, item 8)."""
+    as given; magnetic moments split the atoms by moment in the detection
+    (antiparallel moments on Si2: the operations that swap the two atoms
+    drop out), as in the JAX package."""
     model, ref = _model(dt, "si2_111"), _model(dftk, "si2_111")
     _same_ops(model.symmetries, ref.symmetries)
     inversion = jax_symmetry.SymOp.make(-np.eye(3, dtype=int), np.zeros(3))
     explicit = _model(dt, "si2", symmetries=[inversion])
     assert explicit.symmetries == [symmetry.SymOp.make(-np.eye(3, dtype=int), np.zeros(3))]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _model(dt, "si2", magnetic_moments=[1.0, 1.0])
+    magnetic, ref = (_model(pkg, "si2", magnetic_moments=[1.0, -1.0]) for pkg in (dt, dftk))
+    assert magnetic.spin_polarization == "collinear"
+    assert len(magnetic.symmetries) == 24
+    _same_ops(magnetic.symmetries, ref.symmetries)
 
 
 @pytest.fixture(scope="module", params=["unshifted", "shifted"])
