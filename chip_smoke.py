@@ -161,11 +161,37 @@ Phases (any failure raises and exits non-zero):
      each run kernels A and B against their plain versions at its shapes
      (bf16 too in k4 and k5), and each run's wall, iterations and peak
      device memory beside the card's name and power limit
-  5. print the kernels' JSON line (launches from phases c, e, f, g, h, j
-     and k, times from phases 3, a, e, f, g and h, bounds from the shapes;
-     the main path's kernels also with their device time and their
-     max_abs_err at each phase-j and phase-k run's shapes), then the
-     result line.
+  l. UPF pseudopotentials, NLCC and meta-GGA against
+     tests/data/torch_port_mgga.json (the JAX package's CPU float64 values
+     and DFTK's SCAN silicon golden): l1 the SCAN golden (pbe/si-q4, Ecut
+     15, grid 27, the silicon k-set, 8 bands, LOBPCG to an energy
+     tolerance of 1e-9) within 5e-5 of DFTK's energy and k = 0 eigenvalues
+     and 1e-8 Ha of JAX's; l2 silicon PBE from gth/Si.pbe-hgh.upf (Ecut 7,
+     grid 17) within 1e-8 Ha of JAX's and 5e-4 of the HGH run, TPSS and
+     r2SCAN within 1e-8 Ha, TB09 in both loops (the split one with
+     LOBPCG), the loops within 5e-7 and the eigenvalues within 1e-8 of
+     JAX's; l3 SCAN + NLCC diamond (C_m.upf, Ecut 10, grid 18, Gamma), the
+     LOBPCG and split SCFs (the "mixed" sphere filter) within 1e-8 Ha,
+     then with atom 0 moved the forces within 1e-7 Ha/bohr and stresses
+     within 1e-8 Ha/bohr^3 of JAX's and the split adapters within 1e-11
+     of the complex path; l4 Si54 SCAN (bench.py's cell with pbe/si-q4,
+     Ecut 10, grid 64, compact 32^3): LOBPCG to 1e-8, the split CheFSI SCF
+     with the "mixed" sphere filter within 1e-7 Ha of it, the all-bf16
+     ("default") filter within 1e-4 Ha per atom of the mixed run (15
+     iterations, its residual floor), and phase c's LDA Si54 with the
+     compact and the sphere filter (compact_filter=False) in turn, twice
+     each, every run within 1e-9 Ha of phase c's energy, and the two
+     filters' walls per iteration; before each run kernels A and B
+     against their plain versions at its shapes, the meta-GGA runs on the
+     band block and on the stacked DivAgrad batch (3 x the block's
+     bands), bf16 where the run filters in bf16; every run with the
+     kernels launched (bf16 too where it filters in bf16) and no plain
+     call, its wall, iterations and peak device memory
+  5. print the kernels' JSON line (launches from phases c, e, f, g, h, j,
+     k and l, times from phases 3, a, e, f, g and h, bounds from the
+     shapes; the main path's kernels also with their device time and their
+     max_abs_err at each phase-j, phase-k and phase-l run's shapes), then
+     the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -533,7 +559,7 @@ def filter_chain_phase(dt, la, basis, device, n_short=25, n_long=100):
                                ("complex64 highest", torch.complex64, "highest"),
                                ("bf16 default", torch.complex128, "default")):
         sd = es.prepare_split_data(basis, dtype)
-        V, _ = es.total_potential_split(basis.terms, sd, rho.to(sd.basis_data.kin.dtype),
+        V, _, _ = es.total_potential_split(basis.terms, sd, rho.to(sd.basis_data.kin.dtype),
                                         volume)
         enter, leave, apply_c = es.compact_filter_ops(es.make_split_ham(sd, V), volume,
                                                       precision=prec)
@@ -590,7 +616,7 @@ def split_scf_phase(dt, la, basis, E_ref):
           and bool(torch.isfinite(res["rho"]).all()), "finite density of grid shape")
     check(all(v > 0 for v in launches.values()), "every kernel launched in the split SCF")
     check(all(v == 0 for v in plain.values()), "no plain version called in the split SCF")
-    return launches
+    return launches, E
 
 
 def si256_phase(dt, la, device, n_iter=3):
@@ -1573,18 +1599,20 @@ def run_on_card(la, label, smi, fn, tag="j"):
     return out, launches
 
 
-def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j"):
+def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j", stack=1):
     """Kernels A and B (and the A -> B -> A chain) against their plain
     versions on one band block of the SCF at the basis' own shapes, with a
     seeded potential of its own on every k row (under collinear spin the
     two halves of the rows differ as the spin channels do): in complex128
     at BARS, and in bf16 (where the path runs it) by the BF16_MARGIN rule.
-    Called before run_on_card, whose counts start after it.  Adds each
-    kernel's max_abs_err at this path to errs[name][label]."""
+    stack: the block's bands times this (3: a meta-GGA's DivAgrad batch,
+    the three p_a-scaled copies of the block in one apply).  Called before
+    run_on_card, whose counts start after it.  Adds each kernel's
+    max_abs_err at this path to errs[name][label]."""
     import torch
     pf, n = basis.pruned, basis.fft_size
     rng = np.random.default_rng(20261017)
-    shape = (basis.n_kpoints, n_bands + max(3, n_bands // 10)) + pf.m_shape
+    shape = (basis.n_kpoints, stack * (n_bands + max(3, n_bands // 10))) + pf.m_shape
     xc_np = rng.normal(size=shape) + 1j * rng.normal(size=shape)
     V_np = rng.normal(size=(basis.n_kpoints, n[2], n[0], n[1]))
     for dtype, prec in ((torch.complex128, "highest"),) + (
@@ -2028,6 +2056,270 @@ def metals_phase(dt, la, device, smi):
     return total, errs
 
 
+# phase l: UPF, NLCC and meta-GGA; the cells of tests/data/make_torch_port_mgga.py,
+# whose values (the JAX package's CPU float64 ones, and DFTK's SCAN silicon
+# golden) are in tests/data/torch_port_mgga.json
+SI_KPOINTS = ([[0, 0, 0], [1 / 3, 0, 0], [1 / 3, 1 / 3, 0], [-1 / 3, 1 / 3, 0]],
+              [1 / 27, 8 / 27, 6 / 27, 12 / 27])
+C_LATTICE = 6.74 / 2 * np.array([[0.0, 1, 1], [1, 0, 1], [1, 1, 0]])
+C_POSITIONS = [np.ones(3) / 8, -np.ones(3) / 8]
+C_DISPLACED = [np.array([0.128, 0.124, 0.122]), -np.ones(3) / 8]
+C_UPF = os.path.join("tests", "data", "pseudos", "C_m.upf")
+SI_UPF = os.path.join("tests", "data", "pseudos", "gth", "Si.pbe-hgh.upf")
+MGGA_E_TOL, SCAN_GOLDEN_TOL, UPF_HGH_TOL = 1e-8, 5e-5, 5e-4
+TB09_LOOPS_TOL, TB09_EIG_TOL = 5e-7, 1e-8
+# Si54 SCAN: the LOBPCG and split SCFs agree (no JAX value at that size:
+# PERF.md section 7); the all-bf16 filter's residual floor, per atom, from
+# the CPU measurement written in PERF.md section 6 before the card's run;
+# the sphere filter against phase c's compact one on the same LDA problem
+SI54_LOOPS_TOL, DEFAULT_FILTER_TOL_PER_ATOM, SPHERE_COMPACT_TOL = 1e-7, 1e-4, 1e-9
+
+
+def l_silicon(dt, psp, functionals, Ecut, fft, kgrid, device):
+    Si = dt.ElementPsp.from_symbol("Si", psp=os.path.join(HERE, psp) if psp.endswith(".upf")
+                                   else psp)
+    lattice = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
+    model = dt.model_DFT(lattice, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+                         functionals=functionals)
+    return dt.PlaneWaveBasis(model, Ecut=Ecut, kgrid=kgrid, fft_size=(fft,) * 3, device=device)
+
+
+def l_carbon(dt, positions, device):
+    C = dt.ElementPsp.from_symbol("C", psp=os.path.join(HERE, C_UPF))
+    model = dt.model_DFT(C_LATTICE, [C, C], positions, functionals="SCAN")
+    return dt.PlaneWaveBasis(model, Ecut=10.0, kgrid=(1, 1, 1), fft_size=(18, 18, 18),
+                             device=device)
+
+
+def l_si54(dt, functionals, psp, device):
+    """bench.py's Si54 (tools/run_si_big.py::build_bench_basis) with
+    another psp and functional."""
+    from dftk_tpu_torch.tools.run_si_big import A_PRIM
+    lattice = np.array([[0.0, A_PRIM, A_PRIM], [A_PRIM, 0.0, A_PRIM],
+                        [A_PRIM, A_PRIM, 0.0]]) * 3
+    Si = dt.ElementPsp.from_symbol("Si", psp=psp)
+    positions = [(b + np.array([i, j, k])) / 3 for i in range(3) for j in range(3)
+                 for k in range(3) for b in (np.ones(3) / 8, -np.ones(3) / 8)]
+    model = dt.model_DFT(lattice, [Si] * len(positions), positions, functionals=functionals,
+                         symmetries=False)
+    return dt.PlaneWaveBasis(model, Ecut=10.0, kgrid=(1, 1, 1), device=device)
+
+
+def mgga_phase(dt, la, device, smi, E_c):
+    """Phase l: UPF pseudopotentials, NLCC and meta-GGA on the card: DFTK's
+    SCAN silicon golden, silicon from a UPF file and under TPSS, r2SCAN and
+    TB09, SCAN + NLCC diamond (both SCF loops, forces and stresses), and
+    Si54 under SCAN through LOBPCG and the split SCF with the "mixed" and
+    the all-bf16 ("default") sphere filter, and Si54 LDA with the compact
+    and the sphere filter in turn against phase c's energy (E_c).  Returns
+    the kernel launches of its runs and each kernel's max_abs_err at each
+    run's shapes."""
+    import types
+    import torch
+    from dftk_tpu_torch.ops.forces_split import compute_forces_split
+    from dftk_tpu_torch.ops.stresses_split import compute_stresses_split
+    t_phase = time.time()
+    with open(os.path.join(HERE, "tests", "data", "torch_port_mgga.json")) as f:
+        ref = json.load(f)
+    total, errs = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def run(label, tag, fn, bf16=False):
+        out, launches = run_on_card(la, label, smi, fn, tag=tag)
+        if bf16:
+            check(launches["pruned_axis_dft[bf16]"] > 0 and launches["local_plane[bf16]"] > 0,
+                  f"{label}: every bf16 kernel launched")
+        add(launches)
+        return out
+
+    def energy_line(label, E, r, n_iter, converged, tol=MGGA_E_TOL):
+        dE = E - r["total_energy"]
+        print(f"[{label.split()[0]}] {label}: converged={converged} n_iter={n_iter} E={E:.12f} "
+              f"E - E_JAX={dE:.3e} ({smi})", flush=True)
+        check(converged and np.isfinite(E), f"{label}: converged to a finite energy")
+        check(abs(dE) < tol, f"{label}: |E - E_JAX| < {tol}")
+
+    # l1: DFTK's SCAN silicon golden (test/silicon_scan.jl), LOBPCG
+    r = ref["silicon_scan_golden"]
+    basis = l_silicon(dt, "pbe/si-q4", "SCAN", 15.0, 27, dt.ExplicitKpoints(*SI_KPOINTS),
+                      device)
+    print(f"[l1] SCAN silicon golden: {basis}", flush=True)
+    hold_kernels_at(la, basis, "l1", 8, errs, tag="l1")
+    hold_kernels_at(la, basis, "l1 DivAgrad", 8, errs, tag="l1", stack=3)
+    res = run("l1 SCAN golden LOBPCG SCF", "l1", lambda: dt.self_consistent_field(
+        basis, tol=1e-9, is_converged="energy", maxiter=40, n_bands=8))
+    energy_line("l1 SCAN golden", res.total_energy, r, res.n_iter, res.converged)
+    dev = np.abs(res.eigenvalues[0][:8] - np.array(r["golden"]["eigenvalues_k0"])).max()
+    dg = res.total_energy - r["golden"]["total_energy"]
+    print(f"[l1] E - E_DFTK={dg:.3e}, max|k=0 eigenvalue - DFTK|={dev:.3e}", flush=True)
+    check(abs(dg) < SCAN_GOLDEN_TOL and dev < SCAN_GOLDEN_TOL,
+          f"l1: energy and k = 0 eigenvalues within {SCAN_GOLDEN_TOL} of DFTK's SCAN golden")
+    del res, basis
+
+    # l2: silicon from the GTH UPF file (PBE), TPSS, r2SCAN; TB09 in both loops
+    for key, psp, fun in (("si_upf_pbe", SI_UPF, "PBE"), ("si_tpss", "pbe/si-q4", "TPSS"),
+                          ("si_r2scan", "pbe/si-q4", "r2SCAN")):
+        basis = l_silicon(dt, psp, fun, 7.0, 17, dt.ExplicitKpoints(*SI_KPOINTS), device)
+        label = f"l2 {key}"
+        hold_kernels_at(la, basis, label, basis.model.default_n_bands(), errs, tag="l2")
+        if fun != "PBE":
+            hold_kernels_at(la, basis, f"{label} DivAgrad", basis.model.default_n_bands(), errs,
+                            tag="l2", stack=3)
+        res = run(f"{label} LOBPCG SCF", "l2",
+                  lambda: dt.self_consistent_field(basis, tol=1e-10, maxiter=60))
+        energy_line(label, res.total_energy, ref[key], res.n_iter, res.converged)
+        if key == "si_upf_pbe":
+            dh = res.total_energy - ref["si_hgh_pbe"]["total_energy"]
+            print(f"[l2] UPF against the HGH table: E - E_JAX(HGH)={dh:.3e}", flush=True)
+            check(abs(dh) < UPF_HGH_TOL, f"l2: UPF within {UPF_HGH_TOL} of the HGH run")
+        del res, basis
+    r = ref["si_tb09"]
+    basis = l_silicon(dt, "lda/si-q4", "TB09", 8.0, 18, (2, 2, 2), device)
+    hold_kernels_at(la, basis, "l2 TB09", 6, errs, tag="l2")
+    res = run("l2 TB09 LOBPCG SCF", "l2", lambda: dt.self_consistent_field(
+        basis, tol=1e-9, maxiter=60, n_bands=6, is_converged="density"))
+    sres = run("l2 TB09 split SCF", "l2", lambda: dt.self_consistent_field_split(
+        basis, tol=1e-9, maxiter=100, n_bands=6, eigensolver="lobpcg", is_converged="density",
+        diagtol_min=1e-11))
+    ev, evs = np.sort(res.eigenvalues[:, :6], axis=1), sres["eigenvalues"][:, :6]
+    d_loops = np.abs(ev - evs).max()
+    d_jax = max(np.abs(ev - np.sort(np.array(r["eigenvalues"])[:, :6], axis=1)).max(),
+                np.abs(evs - np.array(r["split"]["eigenvalues"])[:, :6]).max())
+    print(f"[l2] TB09: converged {res.converged} ({res.n_iter} iterations) and "
+          f"{sres['converged']} ({sres['n_iter']}); the loops' eigenvalues {d_loops:.3e} apart, "
+          f"{d_jax:.3e} from the JAX package's ({smi})", flush=True)
+    check(res.converged and sres["converged"], "l2 TB09: both loops converged")
+    check(d_loops < TB09_LOOPS_TOL and d_jax < TB09_EIG_TOL,
+          f"l2 TB09: loops within {TB09_LOOPS_TOL}, eigenvalues within {TB09_EIG_TOL} of JAX")
+    del res, sres, basis
+
+    # l3: SCAN + NLCC diamond (C_m.upf): both loops, then the displaced cell's
+    # forces and stresses
+    r = ref["c2_scan_nlcc"]
+    basis = l_carbon(dt, C_POSITIONS, device)
+    print(f"[l3] C2 SCAN + NLCC: {basis}", flush=True)
+    hold_kernels_at(la, basis, "l3", 4, errs, bf16=True, tag="l3")
+    hold_kernels_at(la, basis, "l3 DivAgrad", 4, errs, bf16=True, tag="l3", stack=3)
+    res = run("l3 C2 LOBPCG SCF", "l3",
+              lambda: dt.self_consistent_field(basis, tol=1e-10, maxiter=80))
+    energy_line("l3 C2 LOBPCG", res.total_energy, r, res.n_iter, res.converged)
+    sres = run("l3 C2 split CheFSI SCF (sphere filter, mixed)", "l3",
+               lambda: dt.self_consistent_field_split(
+                   basis, tol=1e-10, maxiter=100, eigensolver="chefsi", chebyshev_degree=10,
+                   chefsi_cycles=2, is_converged="density", filter_precision="mixed"),
+               bf16=True)
+    energy_line("l3 C2 split", sres["energies"]["total"], r["split"], sres["n_iter"],
+                sres["converged"])
+    del res, sres, basis
+    r = ref["c2_scan_nlcc_derivatives"]
+    agree = r["two_runs_agree"]
+    basis = l_carbon(dt, C_DISPLACED, device)
+    print(f"[l3] displaced C2: {basis}; two JAX SCFs agree to {agree['forces']:.1e} Ha/bohr, "
+          f"{agree['stresses']:.1e} Ha/bohr^3", flush=True)
+    check(agree["forces"] < FORCE_TOL / 10 and agree["stresses"] < STRESS_TOL / 10,
+          "l3: two JAX SCFs agree well inside the bars")
+    res = run("l3 displaced C2 LOBPCG SCF", "l3",
+              lambda: dt.self_consistent_field(basis, tol=1e-11, maxiter=80))
+    energy_line("l3 displaced C2", res.total_energy, r, res.n_iter, res.converged)
+    F, F_ms, F_mib = timed_on_card(lambda: dt.compute_forces_cart(res))
+    S, S_ms, S_mib = timed_on_card(lambda: dt.compute_stresses_cart(res))
+    dF = np.abs(F.cpu().numpy() - np.array(r["forces_cart"])).max()
+    dS = np.abs(S.cpu().numpy() - np.array(r["stresses_cart"])).max()
+    print(f"[l3] forces {F_ms[0]:.1f} ms (again {F_ms[1]:.1f}), peak {F_mib:.1f} MiB, "
+          f"max|F - F_JAX|={dF:.3e}; stresses {S_ms[0]:.1f} ms (again {S_ms[1]:.1f}), peak "
+          f"{S_mib:.1f} MiB, max|S - S_JAX|={dS:.3e} ({smi})", flush=True)
+    check(F.device.type == "cuda" and dF < FORCE_TOL and dS < STRESS_TOL,
+          f"l3: forces within {FORCE_TOL}, stresses within {STRESS_TOL} of the JAX package's")
+    U = torch.cat([res.psi.real, res.psi.imag], dim=-1)
+    occ = torch.as_tensor(res.occupation, device=basis.device)
+    state = types.SimpleNamespace(psi=res.psi, occupation=occ, rho=res.rho)
+    dFc = float((compute_forces_split(basis, None, U, occ, res.rho)
+                 - dt.compute_forces(state, basis)).abs().max())
+    dSc = float((compute_stresses_split(basis, None, U, occ)
+                 - dt.compute_stresses_cart(state, basis)).abs().max())
+    print(f"[l3] split adapters (tau from the orbitals) against the complex path: forces "
+          f"{dFc:.3e}, stresses {dSc:.3e}", flush=True)
+    check(dFc < ADAPTER_TOL and dSc < ADAPTER_TOL, f"l3: split adapters within {ADAPTER_TOL}")
+    del res, basis, state, U
+    torch.cuda.empty_cache()
+
+    # l4: Si54 under SCAN (bench.py's cell, pbe/si-q4): LOBPCG, the split SCF
+    # with the "mixed" sphere filter and with the all-bf16 one; then phase c's
+    # LDA Si54 with the sphere filter
+    t0 = time.time()
+    basis = l_si54(dt, "SCAN", "pbe/si-q4", device)
+    n_bands = basis.model.default_n_bands()
+    print(f"[l4] Si54 SCAN: {basis}, set up in {time.time() - t0:.2f} s", flush=True)
+    hold_kernels_at(la, basis, "l4", n_bands, errs, bf16=True, tag="l4")
+    hold_kernels_at(la, basis, "l4 DivAgrad", n_bands, errs, bf16=True, tag="l4", stack=3)
+
+    def show(tag):
+        return lambda i: print(f"[{tag}] it={i['n_iter']:3d} E={i['E']:.12f} "
+                               f"drho={i['drho']:.3e}", flush=True) if "E" in i else None
+
+    res = run("l4 Si54 SCAN LOBPCG SCF", "l4", lambda: dt.self_consistent_field(
+        basis, tol=1e-8, maxiter=60, callback=show("l4 LOBPCG")))
+    E_lobpcg = res.total_energy
+    print(f"[l4] LOBPCG: converged={res.converged} n_iter={res.n_iter} E={E_lobpcg:.12f}",
+          flush=True)
+    check(res.converged and np.isfinite(E_lobpcg), "l4 LOBPCG: converged")
+    del res
+    split = dict(eigensolver="chefsi", chebyshev_degree=10, chefsi_cycles=2,
+                 is_converged="density")
+    sres = run("l4 Si54 SCAN split SCF, mixed", "l4", lambda: dt.self_consistent_field_split(
+        basis, tol=1e-8, maxiter=60, filter_precision="mixed", callback=show("l4 mixed"),
+        **split), bf16=True)
+    E_mixed = sres["energies"]["total"]
+    print(f"[l4] mixed: converged={sres['converged']} n_iter={sres['n_iter']} E={E_mixed:.12f} "
+          f"E - E_LOBPCG={E_mixed - E_lobpcg:.3e}", flush=True)
+    check(sres["converged"] and abs(E_mixed - E_lobpcg) < SI54_LOOPS_TOL,
+          f"l4: the split SCF within {SI54_LOOPS_TOL} of LOBPCG")
+    del sres
+    sres = run("l4 Si54 SCAN split SCF, default", "l4", lambda: dt.self_consistent_field_split(
+        basis, tol=1e-8, maxiter=15, filter_precision="default", callback=show("l4 default"),
+        **split), bf16=True)
+    E_default = sres["energies"]["total"]
+    bar = DEFAULT_FILTER_TOL_PER_ATOM * len(basis.model.atoms)
+    print(f"[l4] default: n_iter={sres['n_iter']} E={E_default:.12f} E - E_mixed="
+          f"{E_default - E_mixed:.3e} (bar {bar:.1e}); best density residual "
+          f"{min(h[1] for h in sres['history']):.3e}", flush=True)
+    check(np.isfinite(E_default) and abs(E_default - E_mixed) < bar,
+          f"l4: the all-bf16 filter within {bar:.1e} of the mixed run")
+    del sres, basis
+    torch.cuda.empty_cache()
+    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
+    basis = build_bench_basis(3, 10.0, device)
+    # the two filters on the same LDA problem, timed in turn: compact,
+    # sphere, compact, sphere
+    walls = {True: [], False: []}
+    for compact in (True, False, True, False):
+        name = "compact" if compact else "sphere"
+        t0 = time.time()
+        sres = run(f"l4 Si54 LDA split SCF, {name} filter", "l4",
+                   lambda: dt.self_consistent_field_split(
+                       basis, tol=1e-8, maxiter=60, filter_precision="mixed",
+                       compact_filter=compact, **split), bf16=True)
+        walls[compact].append((time.time() - t0) / sres["n_iter"])
+        E = sres["energies"]["total"]
+        print(f"[l4] LDA Si54, {name} filter: converged={sres['converged']} "
+              f"n_iter={sres['n_iter']} E={E:.12f} E - E_compact(phase c)={E - E_c:.3e}",
+              flush=True)
+        check(sres["converged"] and abs(E - E_c) < SPHERE_COMPACT_TOL,
+              f"l4: the {name} filter within {SPHERE_COMPACT_TOL} of phase c's compact one")
+        del sres
+    print(f"[l4] LDA Si54 wall per iteration: compact filter "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls[True])} ms, sphere filter "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls[False])} ms; sphere / compact "
+          f"{sum(walls[False]) / sum(walls[True]):.3f} ({smi})", flush=True)
+    del basis
+    torch.cuda.empty_cache()
+    print(f"[l] phase l took {time.time() - t_phase:.1f} s; launches {total}", flush=True)
+    return total, errs
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -2102,7 +2394,7 @@ def main():
     filter_chain_phase(dt, la, basis, device)
 
     # ---- c. the split CheFSI SCF on Si54 (this slice's main path) -------------
-    launches = split_scf_phase(dt, la, basis, E_ref)
+    launches, E_c = split_scf_phase(dt, la, basis, E_ref)
     del basis
     torch.cuda.empty_cache()
 
@@ -2136,6 +2428,12 @@ def main():
     metal_launches, metal_errs = metals_phase(dt, la, device, smi)
     for name, count in metal_launches.items():
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # ---- l. UPF, NLCC and meta-GGA -------------------------------------------------
+    mgga_launches, mgga_errs = mgga_phase(dt, la, device, smi, E_c)
+    for name, count in mgga_launches.items():
+        launches[name] += count
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -2154,7 +2452,8 @@ def main():
                             library_ms=timings[name].get("library_ms"),
                             device_ms=timings[name]["device_ms"],
                             max_abs_err_phase_j=sym_errs[name],
-                            max_abs_err_phase_k=metal_errs[name]))
+                            max_abs_err_phase_k=metal_errs[name],
+                            max_abs_err_phase_l=mgga_errs[name]))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

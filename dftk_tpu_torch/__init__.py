@@ -1,7 +1,9 @@
 """dftk_tpu_torch: the PyTorch and CUDA port of dftk_tpu.
 
-Plane-wave Kohn-Sham DFT with HGH pseudopotentials and LDA or GGA (PBE,
-PBEsol) functionals, for insulators and metals (smearing, Entropy),
+Plane-wave Kohn-Sham DFT with HGH or UPF pseudopotentials (with nonlinear
+core corrections) and LDA, GGA (PBE, PBEsol) or meta-GGA (SCAN, r2SCAN,
+TPSS, and the potential-only TB09) functionals, for insulators and metals
+(smearing, Entropy),
 without spin or with collinear spin (magnetic moments), solved
 self-consistently on complex tensors on the CUDA card, or on the
 CPU when the caller asks (`PlaneWaveBasis(..., device="cpu")`), complex128
@@ -18,8 +20,9 @@ reference this port is held against; this package never imports it or jax.
 Crystal symmetry is on by default (`symmetries=True`): IBZ k-points and
 symmetrized densities, forces and stresses.  Mixings: Simple, Kerker,
 dielectric and the LDOS-based LdosMixing, KerkerDosMixing and
-HybridMixing; band counts: FixedBands and AdaptiveBands.  UPF, NLCC and
-meta-GGA are ROADMAP Queue 1 item 8b; see ROADMAP.md for the rest.
+HybridMixing; band counts: FixedBands and AdaptiveBands.  A meta-GGA's H
+adds the DivAgrad term through the same kernels, and its split SCF filters
+with the sphere apply.  See ROADMAP.md for what is still to port.
 """
 import torch
 
@@ -32,7 +35,10 @@ torch.backends.cudnn.allow_tf32 = False
 from .basis import PlaneWaveBasis  # noqa: E402
 from .bzmesh import ExplicitKpoints, MonkhorstPack  # noqa: E402
 from .models import smearing as Smearing  # noqa: E402
-from .models.elements import ElementPsp  # noqa: E402
+from .models.elements import (ElementCohenBergstresser, ElementCoulomb,  # noqa: E402
+                              ElementGaussian, ElementPsp)
+from .models.psp_lincomb import PspLinComb, virtual_crystal_approximation  # noqa: E402
+from .models.psp_upf import PspUpf, load_psp_upf, parse_upf  # noqa: E402
 from .models.standard import LDA, PBE, PBEsol, model_DFT  # noqa: E402
 from .ops.density import guess_density, spin_density, total_density  # noqa: E402
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
@@ -45,7 +51,9 @@ from .scf.mixing import (DielectricMixing, HybridMixing, KerkerDosMixing,  # noq
 from .scf.nbands import AdaptiveBands, FixedBands  # noqa: E402
 from .supercell import create_supercell  # noqa: E402
 
-__all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "Smearing",
+__all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "ElementCoulomb",
+           "ElementGaussian", "ElementCohenBergstresser", "PspUpf", "load_psp_upf",
+           "parse_upf", "PspLinComb", "virtual_crystal_approximation", "Smearing",
            "PlaneWaveBasis", "MonkhorstPack", "ExplicitKpoints",
            "self_consistent_field", "SCFResult", "guess_density", "total_density",
            "spin_density", "self_consistent_field_split", "create_supercell",

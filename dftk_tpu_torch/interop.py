@@ -23,7 +23,7 @@ def basis_arrays_from_numpy(*, Gidx, mask, kin, Gpk_cart, kweights, kspin,
                             dtype=torch.complex128):
     """The JAX package's `basis.data` and `basis.terms.data` arrays as the
     port's (BasisData, TermsData) on `device`, complex `dtype` and its real
-    counterpart."""
+    counterpart (NLCC core densities: `mgga_from_numpy`)."""
     rdt = real_dtype(dtype)
     bd = BasisData(Gidx=_t(Gidx, torch.int64, device), mask=_t(mask, rdt, device),
                    kin=_t(kin, rdt, device), Gpk_cart=_t(Gpk_cart, rdt, device),
@@ -44,6 +44,17 @@ def state_from_numpy(psi=None, rho=None, device="cuda", dtype=torch.complex128):
     out_psi = None if psi is None else _t(psi, dtype, device)
     out_rho = None if rho is None else _t(rho, real_dtype(dtype), device)
     return out_psi, out_rho
+
+
+def mgga_from_numpy(tau=None, Vtau=None, rho_core=None, tau_core=None, device="cuda",
+                    dtype=torch.float64):
+    """A meta-GGA state's and an NLCC model's grid arrays: the kinetic-energy
+    density tau and the potential Vtau [nspin, n1, n2, n3] (an SCF's, or
+    `total_potential`'s), and the terms' core density and core kinetic-
+    energy density [n1, n2, n3], as real tensors of `dtype`; any may be
+    None."""
+    return tuple(None if a is None else _t(a, dtype, device)
+                 for a in (tau, Vtau, rho_core, tau_core))
 
 
 def split_state_from_numpy(U=None, rho=None, occupation=None, device="cuda",

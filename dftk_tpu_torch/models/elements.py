@@ -1,10 +1,23 @@
 """Chemical elements as potential generators (host-side numpy).
 
-Port of the `ElementPsp` part of `dftk_tpu/models/elements.py` (reference
-`src/elements.jl`): an atom carrying an HGH pseudopotential.  The other
-element kinds (Coulomb, Gaussian, Cohen-Bergstresser) come with later slices.
+Port of `dftk_tpu/models/elements.py` (reference `src/elements.jl:8-269`):
+  * ElementPsp      - an atom with a norm-conserving pseudopotential (the
+                      built-in HGH tables, a UPF file, or a PspLinComb)
+  * ElementCoulomb  - the all-electron -Z/r potential
+  * ElementGaussian - a model Gaussian attractive potential
+  * ElementCohenBergstresser - the empirical Si/Ge/Sn form factors
+
+Each implements `local_potential_fourier(p)` (numpy over Cartesian |p|)
+and `local_potential_fourier_sq(p^2)`, which also takes a torch tensor (the
+stresses trace it through the lattice), and gives its charges for Ewald
+and the electron count.
 """
 import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
 
 from .psp_hgh import PspHgh, load_psp_hgh
 
@@ -26,8 +39,46 @@ def atomic_symbol(z):
     return ATOMIC_SYMBOLS[z]
 
 
+def _xp(a):
+    """The array module of `a`: torch for a tensor, else numpy."""
+    return torch if torch.is_tensor(a) else np
+
+
+class Element:
+    """Base class: an atom species generating potentials."""
+
+    def charge_nuclear(self):
+        return 0
+
+    def charge_ionic(self):
+        """The charge the valence electrons see (Ewald)."""
+        return self.charge_nuclear()
+
+    def n_elec_valence(self):
+        return self.charge_ionic()
+
+    def n_elec_core(self):
+        return self.charge_nuclear() - self.charge_ionic()
+
+    def local_potential_fourier(self, p):
+        raise NotImplementedError
+
+    def local_potential_fourier_sq(self, psq):
+        """The local potential in Fourier space as a function of p^2."""
+        return self.local_potential_fourier(_xp(psq).sqrt(psq))
+
+    def has_valence_density(self):
+        return False
+
+    def has_core_density(self):
+        return False
+
+    def has_core_tau(self):
+        return False
+
+
 @dataclasses.dataclass(frozen=True)
-class ElementPsp:
+class ElementPsp(Element):
     symbol: str
     Z: int
     psp: PspHgh
@@ -45,20 +96,39 @@ class ElementPsp:
                 psp = load_psp_hgh(f"{family.lower()}/{symbol.lower()}"
                                    f"-q{DEFAULT_Q_SEMICORE[symbol]}")
         elif isinstance(psp, str):
-            psp = load_psp_hgh(psp)
+            if psp.endswith(".upf") or psp.endswith(".UPF"):
+                from .psp_upf import load_psp_upf
+                psp = load_psp_upf(psp)
+            else:
+                psp = load_psp_hgh(psp)
         return cls(symbol=symbol, Z=Z, psp=psp)
+
+    def has_valence_density(self):
+        return getattr(self.psp, "has_valence_density", lambda: False)()
+
+    def has_core_density(self):
+        return getattr(self.psp, "has_core_density", lambda: False)()
+
+    def has_core_tau(self):
+        """A core kinetic-energy density is present (meta-GGA NLCC;
+        reference has_core_kinetic_energy_density,
+        src/density_methods.jl:225)."""
+        return getattr(self.psp, "has_core_tau", lambda: False)()
+
+    def valence_density_fourier(self, p):
+        return self.psp.valence_density_fourier(p)
+
+    def core_density_fourier(self, p):
+        return self.psp.core_density_fourier(p)
+
+    def core_tau_fourier(self, p):
+        return self.psp.core_tau_fourier(p)
 
     def charge_nuclear(self):
         return self.Z
 
     def charge_ionic(self):
         return self.psp.Zion
-
-    def n_elec_valence(self):
-        return self.charge_ionic()
-
-    def n_elec_core(self):
-        return self.charge_nuclear() - self.charge_ionic()
 
     def local_potential_fourier(self, p):
         return self.psp.local_fourier(p)
@@ -67,6 +137,81 @@ class ElementPsp:
         """The local potential as a function of p^2 (a torch tensor in the
         stresses' graph)."""
         return self.psp.local_fourier_sq(psq)
+
+    def local_potential_real(self, r):
+        return self.psp.local_real(r)
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementCoulomb(Element):
+    Z: int
+    symbol: Optional[str] = None
+
+    def charge_nuclear(self):
+        return self.Z
+
+    def local_potential_fourier(self, p):
+        """-4 pi Z / p^2, zero at p = 0 (the compensating background)."""
+        return self.local_potential_fourier_sq(p * p)
+
+    def local_potential_fourier_sq(self, psq):
+        xp = _xp(psq)
+        ps = xp.where(psq == 0, 1.0, psq)
+        return xp.where(psq == 0, 0.0, -4 * math.pi * self.Z / ps)
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementGaussian(Element):
+    """V(r) = -alpha / (sqrt(2 pi) L) exp(-(r / L)^2 / 2): a charge-free
+    model atom."""
+    alpha: float
+    L: float
+    symbol: str = "X"
+
+    def local_potential_fourier(self, p):
+        return self.local_potential_fourier_sq(p * p)
+
+    def local_potential_fourier_sq(self, psq):
+        return -self.alpha * _xp(psq).exp(-(psq * self.L ** 2) / 2)
+
+    def local_potential_real(self, r):
+        return -self.alpha / (math.sqrt(2 * math.pi) * self.L) \
+            * _xp(r).exp(-((r / self.L) ** 2) / 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class ElementCohenBergstresser(Element):
+    """The empirical local potential of Cohen and Bergstresser (PRB 141,
+    789 (1966)) for Si, Ge and Sn: form factors at the |G|^2 = 3, 8, 11
+    shells (in units of (2 pi / a)^2), for band structures without SCF."""
+    symbol: str = "Si"
+
+    # V3, V8, V11 symmetric form factors in Ry, and lattice constants (bohr)
+    _DATA = {
+        "Si": dict(a=10.26, form_factors={3: -0.21, 8: 0.04, 11: 0.08}),
+        "Ge": dict(a=10.69, form_factors={3: -0.23, 8: 0.01, 11: 0.06}),
+        "Sn": dict(a=12.25, form_factors={3: -0.20, 8: 0.00, 11: 0.04}),
+    }
+
+    def charge_nuclear(self):
+        return ATOMIC_NUMBERS[self.symbol]
+
+    def charge_ionic(self):
+        return 4
+
+    @property
+    def lattice_constant(self):
+        return self._DATA[self.symbol]["a"]
+
+    def local_potential_fourier(self, p):
+        xp = _xp(p)
+        data = self._DATA[self.symbol]
+        psq_unit = (p / (2 * math.pi / data["a"])) ** 2
+        out = xp.zeros_like(p)
+        vol_per_atom = data["a"] ** 3 / 8      # form factors per 2-atom cell
+        for shell, V_ry in data["form_factors"].items():
+            out = xp.where(xp.abs(psq_unit - shell) < 1e-6, V_ry / 2 * vol_per_atom, out)
+        return out
 
 
 # Gaussian guess-density decay lengths (ABINIT m_atomdata coefficient table,

@@ -3,8 +3,8 @@
 Port of `dftk_tpu/models/psp_hgh.py` (reference `src/pseudo/PspHgh.jl`):
 the same published closed forms (GTH96 eq. (1)-(8), HGH98 eq. (1)-(15)),
 evaluated in numpy on the host while the basis is set up, and as torch
-functions of p^2 (`*_sq`) inside the stresses' graph.  Only the built-in
-HGH tables are supported; UPF files come with ROADMAP Queue 1 item 8b.
+functions of p^2 (`*_sq`) inside the stresses' graph.  UPF files are
+`models/psp_upf.py`'s; `load_psp_hgh` hands a path ending in .upf to it.
 
 Conventions:
   * `local_fourier(p)` is the Fourier transform of the local potential with
@@ -165,16 +165,13 @@ def parse_hgh(text: str, identifier: str = "") -> PspHgh:
                   identifier=identifier, description=description)
 
 
-def load_psp_hgh(key: str) -> PspHgh:
-    """Load a built-in HGH psp by key, e.g. "lda/si-q4" or "Si" (semicore).
-
-    UPF files are not supported yet (ROADMAP Queue 1, item 8b).
-    """
+def load_psp_hgh(key: str):
+    """Load a built-in HGH psp by key, e.g. "lda/si-q4" or "Si" (semicore);
+    a path ending in .upf or .UPF is loaded as a UPF file
+    (`models/psp_upf.py::load_psp_upf`, as the JAX package's `load_psp`)."""
     if key.endswith(".upf") or key.endswith(".UPF"):
-        raise NotImplementedError(
-            "UPF pseudopotentials are not ported yet (ROADMAP Queue 1, "
-            "item 8b); use a built-in HGH table such as "
-            "'lda/si-q4'")
+        from .psp_upf import load_psp_upf
+        return load_psp_upf(key)
     if key.startswith("hgh/"):
         key = key[4:]
     if key in HGH_PSP_TABLE:

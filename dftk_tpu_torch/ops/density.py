@@ -1,16 +1,18 @@
 """Densities from orbitals, the superposition guess density, and the
 density symmetrizer.
 
-Port of `compute_density`, `guess_density` (with magnetic moments),
+Port of `compute_density`, `compute_kinetic_energy_density`,
+`von_weizsaecker_tau`, `guess_density` (with magnetic moments),
 `total_density`, `spin_density`, `build_symmetrization_maps` and
 `make_symmetrizer` of `dftk_tpu/ops/density.py` (reference
-`src/densities.jl:13-57`, `src/density_methods.jl`,
+`src/densities.jl:13-57,110-125`, `src/density_methods.jl`,
 `src/symmetry.jl:282-360`):
 
     rho_sigma(r) = sum_{k in sigma} w_k sum_n f_kn |psi_kn(r)|^2
+    tau_sigma(r) = 1/2 sum_{k in sigma} w_k sum_n f_kn |grad psi_kn(r)|^2
 
-as one batched inverse FFT (`torch.fft`) and a weighted reduction over
-(k, band), and its symmetrization
+as batched inverse FFTs (`torch.fft`) and a weighted reduction over
+(k, band), and their symmetrization
 
     rho_sym(G) = 1/|S| sum_s e^{-2 pi i G.tau_s} rho(S_s^{-1} G)
 
@@ -48,6 +50,34 @@ def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin,
         sel = torch.nn.functional.one_hot(basis_data.kspin, n_spin).to(dens_k.dtype)
         rho = torch.einsum("ks,kxyz->sxyz", sel, dens_k)
     return rho if symmetrizer is None else symmetrizer(rho)
+
+
+def compute_kinetic_energy_density(basis_data, psi, occupation, fft_size, volume,
+                                   n_spin, band_chunk=None, symmetrizer=None):
+    """tau [nspin, n1, n2, n3] = 1/2 sum_kn w_k f_kn |grad psi_kn|^2, the
+    gradient i (k+G) psi through one inverse FFT per Cartesian axis
+    (reference densities.jl:110-125); arguments as `compute_density`'s, the
+    Cartesian k+G from basis_data.Gpk_cart."""
+    p = basis_data.Gpk_cart
+    tau = sum(compute_density(basis_data, p[:, None, :, a].to(psi.real.dtype) * psi, occupation,
+                              fft_size, volume, n_spin, band_chunk)
+              for a in range(3))
+    tau = 0.5 * tau
+    return tau if symmetrizer is None else symmetrizer(tau)
+
+
+def density_gradients(rho, G_cart):
+    """grad rho [nspin, n1, n2, n3, 3] of rho [nspin, n1, n2, n3], spectral:
+    i G rho(G) with G_cart [n1, n2, n3, 3] (2 pi included)."""
+    rho_G = torch.fft.fftn(rho, dim=(-3, -2, -1))
+    return torch.stack([torch.fft.ifftn(1j * G_cart[..., a] * rho_G, dim=(-3, -2, -1)).real
+                        for a in range(3)], dim=-1)
+
+
+def von_weizsaecker_tau(rho, G_cart):
+    """tau_W = |grad rho|^2 / (8 rho): the meta-GGA SCFs' first tau."""
+    g = density_gradients(rho, G_cart.to(rho.dtype))
+    return torch.sum(g * g, dim=-1) / (8 * torch.clamp(rho, min=1e-14))
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +204,10 @@ def guess_density(basis, magnetic_moments=None, n_electrons=None):
 
 
 def _gaussian_superposition(basis, coefficients):
-    """sum_a c_a rho_a(r - r_a) of Gaussian valence densities (Z_ion
-    e^{-(|G| l_a)^2} in Fourier space, l_a the element's decay length) on
-    the basis' grid, numpy."""
+    """sum_a c_a rho_a(r - r_a) of atomic valence densities on the basis'
+    grid, numpy: the psp's own where it has one (a UPF file's
+    PP_RHOATOM), else a Gaussian (Z_ion e^{-(|G| l_a)^2} in Fourier space,
+    l_a the element's decay length)."""
     from ..models.elements import atom_decay_length
     model = basis.model
     Gnorm = basis.G_cube_cart_norm.reshape(-1)
@@ -187,7 +218,11 @@ def _gaussian_superposition(basis, coefficients):
         if coefficients[i] == 0:
             continue
         if at not in ff_cache:
-            ff_cache[at] = at.charge_ionic() * np.exp(-((Gnorm * atom_decay_length(at)) ** 2))
+            if at.has_valence_density():
+                ff_cache[at] = np.asarray(at.valence_density_fourier(Gnorm))
+            else:
+                ff_cache[at] = at.charge_ionic() * np.exp(
+                    -((Gnorm * atom_decay_length(at)) ** 2))
         phase = np.exp(-2j * math.pi * (Gred @ np.asarray(model.positions[i])))
         rho_G += coefficients[i] * ff_cache[at] * phase
     rho_G /= math.sqrt(model.unit_cell_volume)

@@ -13,7 +13,9 @@ with the compact-cube-resident Chebyshev filter (`compact_filter_ops`):
 the filter's H applies stay on the compact cube, where the local part is
 the hand-written kernels A -> B -> A (`kernels/local_apply.py`), and the
 default `filter_precision="mixed"` runs bf16 filter cycles while the
-density residual is far out and exact ones to finish.
+density residual is far out and exact ones to finish;
+`filter_precision="default"` runs every filter cycle in bf16 (Rayleigh-
+Ritz stays exact, so the result carries the bf16 filter's residual floor).
 
 Metals and magnets run here too: finite-temperature occupations with the
 Entropy term, Kerker mixing by default at T > 0, collinear spin (each k row
@@ -21,13 +23,20 @@ applies its own spin's potential), GGA functionals, and AdaptiveBands,
 which grows the band block with random orthonormalised vectors while the
 top computed band is occupied.
 
+Meta-GGA models carry tau (`compute_tau_split`, from the von Weizsaecker
+tau of the first density; tau follows the orbitals without mixing), and
+their H adds the DivAgrad term (`ops/hamiltonian.py::apply_divagrad`: one
+more local apply of 3 nb bands through kernels A -> B -> A).  As in the
+JAX package, such a run, and any run with `compact_filter=False`, filters
+with the sphere apply (`sphere_filter_ops`): `apply_H_split` at
+'default' for the bf16 cycles, the exact apply for the others.
+
 Not ported here (each raises NotImplementedError naming its ROADMAP item):
 `build_sandwich`/`apply_local_sandwich` (XLA's form of the same local
-chain), the k-point mesh (item 13), exact exchange and Hubbard (item 11),
-meta-GGA (item 8b), an all-bf16 filter (`filter_precision="default"`, item
-8b), and the realified band representations ("paired", csplit), which are
-TPU workarounds (ROADMAP, "Not to port").  The filter always runs on the
-compact cube.
+chain), the k-point mesh (item 13), and the realified band representations
+("paired", csplit), which are TPU workarounds (ROADMAP, "Not to port").
+Exact exchange and Hubbard, and with them the reference's `use_ace`, are
+item 11: their terms do not instantiate.
 """
 import dataclasses
 import math
@@ -42,7 +51,8 @@ from ..kernels.local_apply import LocalFactors, local_apply, round_bf16
 from ..scf.anderson import AndersonAcceleration
 from ..scf.mixing import DielectricMixing, KerkerMixing
 from . import hamiltonian as hamops
-from .density import compute_density, guess_density, make_symmetrizer
+from .density import (compute_density, compute_kinetic_energy_density, guess_density,
+                      make_symmetrizer, von_weizsaecker_tau)
 from .eigen.chefsi import chefsi_step
 from .eigen.lobpcg import lobpcg, ortho_qr
 from .occupation import compute_occupation, entropy_energy
@@ -77,8 +87,10 @@ class SplitTermsData(NamedTuple):
 
 
 def prepare_split_data(basis, dtype=None):
-    """basis.data, basis.terms and basis.pruned cast to the complex `dtype`
-    (default: the basis' own) and its real counterpart."""
+    """basis.data (its Cartesian k+G among them, for meta-GGA),
+    basis.terms (the NLCC core densities among them) and basis.pruned cast
+    to the complex `dtype` (default: the basis' own) and its real
+    counterpart."""
     dtype = basis.dtype if dtype is None else dtype
     if dtype == basis.dtype:
         return SplitTermsData(basis.data, basis.terms, basis.pruned)
@@ -92,7 +104,8 @@ def prepare_split_data(basis, dtype=None):
     bd = BasisData(*[cast(t) for t in basis.data])
     td = basis.terms.data._replace(**{
         f: cast(getattr(basis.terms.data, f))
-        for f in ("vloc_static", "hartree_coeffs", "P", "D", "Gsq_cart", "G_cart")
+        for f in ("vloc_static", "hartree_coeffs", "P", "D", "Gsq_cart", "G_cart",
+                  "rho_core", "tau_core")
         if getattr(basis.terms.data, f) is not None})
     pf = basis.pruned._replace(factors=LocalFactors(
         fwd=tuple(f.to(dtype) for f in basis.pruned.factors.fwd),
@@ -100,8 +113,29 @@ def prepare_split_data(basis, dtype=None):
     return SplitTermsData(bd, dataclasses.replace(basis.terms, data=td), pf)
 
 
-def make_split_ham(sd: SplitTermsData, V):
-    return hamops.build_ham(sd.basis_data, sd.terms.data, V, sd.pruned)
+def make_split_ham(sd: SplitTermsData, V, Vtau=None):
+    return hamops.build_ham(sd.basis_data, sd.terms.data, V, sd.pruned, Vtau=Vtau)
+
+
+def default_ham(ham, base=None):
+    """ham as the complex64 Ham of the bf16 ('default') sphere apply: the
+    factors in complex64, the projectors rounded to bf16 once (as
+    `place_compact` rounds them), every real tensor in float32.  base, an
+    earlier result, supplies the part that does not depend on the
+    potentials, so the split SCF rounds P once per run."""
+    def f32(t):
+        return None if t is None else t.to(torch.float32)
+
+    if base is None:
+        pf = ham.pruned
+        base = ham._replace(
+            kin=f32(ham.kin), mask=f32(ham.mask), D=f32(ham.D), Gpk=f32(ham.Gpk),
+            P=round_bf16(ham.P.to(torch.complex64)),
+            pruned=pf._replace(factors=LocalFactors(
+                fwd=tuple(f.to(torch.complex64) for f in pf.factors.fwd),
+                bwd=tuple(f.to(torch.complex64) for f in pf.factors.bwd))))
+    return base._replace(V_zxy=f32(ham.V_zxy), Vtau_zxy=f32(ham.Vtau_zxy),
+                         Gpk=f32(ham.Gpk) if base.Gpk is None else base.Gpk)
 
 
 def _apply_chunked(fn, X, band_chunk):
@@ -113,16 +147,39 @@ def _apply_chunked(fn, X, band_chunk):
 
 
 def apply_H_split(ham, U, fft_size, volume, band_chunk=None, precision=None):
-    """H applied to realified orbitals U [nk, nb, 2nG] -> [nk, nb, 2nG]: an
-    adapter over `ops/hamiltonian.apply_H` (fft_size and volume are implied
-    by `ham`).  band_chunk bounds the bands applied at once."""
-    if precision not in (None, "highest"):
-        raise NotImplementedError(
-            f"apply_H_split precision={precision!r}: the sphere apply is exact; "
-            f"the bf16 filter apply is the compact one (compact_filter_ops; "
-            f"ROADMAP Queue 1, item 8b)")
-    X = _complex(U).to(ham.P.dtype)
-    return _realified(_apply_chunked(lambda x: hamops.apply_H(ham, x), X, band_chunk))
+    """H applied to realified orbitals U [nk, nb, 2nG] -> [nk, nb, 2nG] in
+    U's dtype: an adapter over `ops/hamiltonian.apply_H` (fft_size and
+    volume are implied by `ham`), the DivAgrad term included where ham
+    carries Vtau.  precision None or "highest" is the exact apply in ham's
+    dtype; "default" the bf16 one-pass apply on complex64 (`default_ham`).
+    band_chunk bounds the bands applied at once."""
+    apply = sphere_filter_ops(ham, ("highest" if precision is None else precision,),
+                              band_chunk)[0]
+    return _realified(apply(_complex(U))).to(U.dtype)
+
+
+def sphere_filter_ops(ham, precisions, band_chunk=None, base=None):
+    """[apply per precision]: H on the sphere, X [nk, nb, nG] complex ->
+    H X, for the Chebyshev filter when it leaves the compact cube (a
+    meta-GGA's Vtau, or compact_filter=False).  "highest" applies in ham's
+    dtype; "default" is the bf16 one-pass apply on `default_ham(ham,
+    base)`.  Each apply casts its input to its dtype and carries it as
+    `apply.dtype`."""
+    out = []
+    for prec in precisions:
+        if prec not in ("highest", "default"):
+            raise NotImplementedError(
+                f"filter precision {prec!r}: the port has 'highest' and 'default' "
+                f"('tensor32' is a TPU workaround, ROADMAP 'Not to port')")
+        h = ham if prec == "highest" else default_ham(ham, base)
+
+        def apply(X, h=h, prec=prec):
+            return _apply_chunked(lambda x: hamops.apply_H(h, x, prec),
+                                  X.to(h.P.dtype), band_chunk)
+
+        apply.dtype = h.P.dtype
+        out.append(apply)
+    return out
 
 
 def compute_density_split(sd: SplitTermsData, U, occupation, fft_size, volume,
@@ -134,11 +191,22 @@ def compute_density_split(sd: SplitTermsData, U, occupation, fft_size, volume,
                            n_spin, band_chunk)
 
 
-def total_potential_split(terms, sd: SplitTermsData, rho, volume):
+def compute_tau_split(sd: SplitTermsData, U, occupation, fft_size, volume, n_spin,
+                      band_chunk=None):
+    """The kinetic-energy density tau [nspin, n1, n2, n3] =
+    1/2 sum w f |grad psi|^2 from realified orbitals U [nk, nb, 2nG] and
+    occupations per band [nk, nb]."""
+    X = _complex(U).to(sd.terms.data.P.dtype)
+    return compute_kinetic_energy_density(sd.basis_data, X, occupation, fft_size, volume,
+                                          n_spin, band_chunk)
+
+
+def total_potential_split(terms, sd: SplitTermsData, rho, volume, tau=None):
     """Fused local potential V [nspin, grid] and the rho-dependent energies,
-    with `terms`' functionals on the data of `sd`."""
+    with `terms`' functionals on the data of `sd`: (V, Vtau, energies), Vtau
+    None unless tau is given (meta-GGA)."""
     return hamops.total_potential(dataclasses.replace(terms, data=sd.terms.data),
-                                  rho, volume)
+                                  rho, volume, tau=tau)
 
 
 def _psi_energies(sd: SplitTermsData, X, occupation):
@@ -255,7 +323,13 @@ def compact_filter_ops(ham, volume, precision="highest", filter_precisions=None,
 
     filter_precisions: a tuple of precisions; returns (enter, leave,
     [apply per precision]) over the one shared layout.
+
+    The compact apply has no DivAgrad term: a meta-GGA Ham filters with
+    `sphere_filter_ops`.
     """
+    if ham.Vtau_zxy is not None:
+        raise ValueError("compact_filter_ops: a meta-GGA Ham (Vtau) filters on the "
+                         "sphere (sphere_filter_ops)")
     pf = ham.pruned
     precs = filter_precisions if filter_precisions is not None else (precision,)
     if placement is None:
@@ -316,7 +390,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                                 band_chunk=None, filter_precision="mixed",
                                 mesh=None, band_repr="complex", rho0=None,
                                 U0=None, adaptive_bands=None, occupation_threshold=1e-6,
-                                stall_patience=None):
+                                compact_filter=True, stall_patience=None):
     """The split SCF loop (reference `self_consistent_field_split`), on
     complex tensors in `dtype` (complex128 or complex64; default the
     basis' dtype) on the basis' device.
@@ -328,9 +402,18 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     filter_precision (CheFSI): "mixed" (default) runs bf16 filter cycles
     until the density residual first drops below 5e-3 and exact cycles
     from then on (a latch); "highest" runs every cycle exact (the SCF's
-    dtype; None is the reference's spelling of it).  Rayleigh-Ritz and
-    residuals are always exact.  The filter always applies H on the
-    compact cube (`compact_filter_ops`).
+    dtype; None is the reference's spelling of it); "default" runs every
+    cycle in bf16, so the result keeps the bf16 filter's residual floor.
+    Rayleigh-Ritz and residuals are always exact.
+
+    compact_filter: apply H on the compact cube inside the filter
+    (`compact_filter_ops`); False, or a meta-GGA model, filters with the
+    sphere apply (`sphere_filter_ops`, the DivAgrad term included).
+
+    Meta-GGA models carry tau: the potential takes tau_in, tau_out comes
+    from the new orbitals, and tau follows the orbitals without mixing
+    (with rho in the best-iterate tracking), from the von Weizsaecker tau
+    of the first density.
 
     symmetrize: symmetrize each output density over the basis' symmetries
     (`make_symmetrizer_split`; no-op for the identity alone).
@@ -352,7 +435,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     last three.
 
     Returns a dict: energies, eigenvalues (numpy, sorted), U (realified),
-    rho, tau (None), epsF, converged, stalled, occupation, n_iter,
+    rho, tau (None but for meta-GGA), epsF, converged, stalled, occupation, n_iter,
     history [(E, drho)], basis, runtime_s.
     """
     t0 = time.time()
@@ -370,11 +453,11 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         raise ValueError(f"is_converged must be 'density' or 'energy', got {is_converged!r}")
     if filter_precision is None:
         filter_precision = "highest"
-    if filter_precision not in ("mixed", "highest"):
+    if filter_precision not in ("mixed", "highest", "default"):
         raise NotImplementedError(
-            f"filter_precision={filter_precision!r}: the port has 'mixed' and "
-            f"'highest'; an all-bf16 filter is not ported (ROADMAP Queue 1, "
-            f"item 8b) and 'tensor32' is a TPU workaround (ROADMAP 'Not to port')")
+            f"filter_precision={filter_precision!r}: the port has 'mixed', "
+            f"'highest' and 'default'; 'tensor32' is a TPU workaround (ROADMAP "
+            f"'Not to port')")
 
     sd = prepare_split_data(basis, dtype)
     symmetrizer = make_symmetrizer_split(basis, dtype) if symmetrize else None
@@ -416,18 +499,33 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     E_const = {"Ewald": sd.terms.E_ewald, "PspCorrection": sd.terms.E_psp_correction}
     mixed = filter_precision == "mixed"
     # the filter's precisions: bf16 cycles, then exact ones, under "mixed"
-    filter_precs = ("default", "highest") if mixed else ("highest",)
-    placement = None         # the V-independent compact layout, built once
+    filter_precs = {"mixed": ("default", "highest"), "highest": ("highest",),
+                    "default": ("default",)}[filter_precision]
+    needs_tau = sd.terms.needs_tau
+    # the filter leaves the compact cube for the sphere apply where H has
+    # the DivAgrad term, or where the caller asks
+    sphere_filter = needs_tau or not compact_filter
+    placement = None         # the V-independent filter layout, built once
 
-    def scf_step(rho_in, X_in, diagtol, n_cycles, n_exact):
+    def scf_step(rho_in, X_in, diagtol, n_cycles, n_exact, tau_in):
         nonlocal placement
-        V, _ = hamops.total_potential(sd.terms, rho_in, volume)
-        ham = make_split_ham(sd, V)
+        V, Vtau, _ = hamops.total_potential(sd.terms, rho_in, volume, tau=tau_in)
+        ham = make_split_ham(sd, V, Vtau)
 
         def A(x):
             return _apply_chunked(lambda y: hamops.apply_H(ham, y), x, band_chunk)
 
-        if eigensolver == "chefsi":
+        if eigensolver == "chefsi" and sphere_filter:
+            if placement is None and "default" in filter_precs:
+                placement = default_ham(ham)
+            applies = [A if p == "highest" else
+                       sphere_filter_ops(ham, (p,), band_chunk, base=placement)[0]
+                       for p in filter_precs]
+            res = chefsi_step(A, X_in, mask, degree=chebyshev_degree, n_conv=n_bands,
+                              cycles=n_cycles, apply_filter=applies[0],
+                              apply_filter_last=applies[-1], n_exact_last=n_exact,
+                              band_chunk=band_chunk)
+        elif eigensolver == "chefsi":
             # compact-cube-resident filter: the sphere <-> cube placement
             # once per filter, not once per apply
             if placement is None:
@@ -445,13 +543,17 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                                        filled, model.temperature, model.smearing)
         rho_out = compute_density(bd, res.X, occ, fft_size, volume, nspin, band_chunk,
                                   symmetrizer=symmetrizer)
-        _, energies = hamops.total_potential(sd.terms, rho_out, volume)
+        tau_out = None
+        if needs_tau:
+            tau_out = compute_kinetic_energy_density(bd, res.X, occ, fft_size, volume, nspin,
+                                                     band_chunk, symmetrizer=symmetrizer)
+        _, _, energies = hamops.total_potential(sd.terms, rho_out, volume, tau=tau_out)
         energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
         if sd.terms.has_entropy:
             energies["Entropy"] = entropy_energy(res.eigenvalues, bd.kweights, epsF,
                                                  model.temperature, model.smearing,
                                                  filled)
-        return rho_out, res.X, res.eigenvalues, occ, epsF, energies
+        return rho_out, res.X, res.eigenvalues, occ, epsF, energies, tau_out
 
     if use_kerker is None:
         use_kerker = model.temperature > 0
@@ -480,6 +582,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     n_E_up = 0
     cycles_cur = chefsi_cycles
     mixed_exact_latch = False
+    tau = von_weizsaecker_tau(rho, sd.terms.data.G_cart) if needs_tau else None
     for it in range(maxiter):
         # CheFSI finisher: drho stalling across 3 iterations means the
         # filter depth is the accuracy ceiling -- deepen it
@@ -498,8 +601,8 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
             n_exact_cur = cycles_cur if mixed_exact_latch else 0
         else:
             n_exact_cur = 1
-        rho_out, X, eigvals, occ, epsF, energies = scf_step(
-            rho, X, diagtol, cycles_cur, n_exact_cur)
+        rho_out, X, eigvals, occ, epsF, energies, tau_out = scf_step(
+            rho, X, diagtol, cycles_cur, n_exact_cur, tau)
         if auto_eps and it == 0:
             eps_r_cur = _penn_eps_r(eigvals, model.n_electrons, filled, volume)
         rho_mixed, drho_dev = mix_step(rho, rho_out, damping_cur, eps_r_cur)
@@ -522,7 +625,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         else:
             n_E_up = 0
         E_prev = E_total
-        info = (rho_out, eigvals, occ, epsF, energies)
+        info = (rho_out, tau_out, eigvals, occ, epsF, energies)
         # AdaptiveBands (reference src/scf/nbands_algorithm.jl:20-90): an
         # occupied top band means the window is too small; a window that
         # small can reach a self-consistent but wrong state, so the growth
@@ -547,6 +650,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                 callback(dict(n_iter=it + 1, stalled_at_floor=stall_best))
             break
         rho = rho_mixed
+        tau = tau_out            # tau follows the orbitals (no mixing)
         diagtol = min(diagtol, max(0.2 * drho, diagtol_min))
         if grew_bands:
             add = max(3, nbr // 8)
@@ -560,13 +664,13 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
 
     if not converged and best_info is not None:
         info, X = best_info, best_X
-    rho_out, eigvals, occ, epsF, energies = info
+    rho_out, tau_out, eigvals, occ, epsF, energies = info
     energies_out = {k: float(v) for k, v in energies.items()}
     energies_out.update(E_const)
     energies_out["total"] = float(sum(energies_out.values()))
     return dict(energies=energies_out,
                 eigenvalues=np.sort(eigvals.cpu().numpy(), axis=1),
-                U=_realified(X), rho=rho_out, tau=None, epsF=float(epsF),
+                U=_realified(X), rho=rho_out, tau=tau_out, epsF=float(epsF),
                 converged=converged, stalled=stalled, occupation=occ,
                 n_iter=it + 1, history=history, basis=basis,
                 runtime_s=time.time() - t0)

@@ -1,27 +1,41 @@
 """Hamiltonian assembly and application (the hot path).
 
-Port of `dftk_tpu/ops/hamiltonian.py` for the semilocal (LDA and GGA)
-path.  One batched
-function applies H to all k-points and bands at once:
+Port of `dftk_tpu/ops/hamiltonian.py` for the semilocal (LDA, GGA and
+meta-GGA) path.  One batched function applies H to all k-points and bands
+at once:
 
-    H psi = kin .* psi  +  local(V) psi  +  P D P^dag psi
+    H psi = kin .* psi  +  local(V) psi  +  1/2 sum_a p_a local(Vtau) p_a psi
+            +  P D P^dag psi
 
-The local part goes sphere -> compact cube (a torch gather) ->
-`kernels/local_apply.py::local_apply` (the hand-written CUDA kernels on a
-CUDA tensor, the plain einsum chain on a CPU tensor) -> compact cube ->
-sphere.  Kinetic and nonlocal parts are torch ops (the nonlocal part is two
-GEMMs over the G axis), as XLA computed them in the JAX package.
+with p = k + G.  Each local part goes sphere -> compact cube (a torch
+gather) -> `kernels/local_apply.py::local_apply` (the hand-written CUDA
+kernels A -> B -> A on a CUDA tensor, the plain einsum chain on a CPU
+tensor) -> compact cube -> sphere.  The meta-GGA DivAgrad term (reference
+DivAgradOperator, src/terms/operators.jl:145-161) stacks its three
+p_a-scaled copies of psi along the band axis, so it is one more local apply
+of 3 nb bands with Vtau in V's place.  Kinetic and nonlocal parts are
+torch ops (the nonlocal part is two GEMMs over the G axis), as XLA computed
+them in the JAX package.
+
+`apply_H(..., precision="default")` is the one-pass bf16 apply of the
+split SCF's sphere filter: complex64 data, the bf16 kernels, and the
+nonlocal GEMMs on operands rounded to bf16 (P rounded once where the
+complex64 Ham is made, `ops/engine_split.py::default_ham`), as the compact
+filter's 'default' apply rounds them.
 
 The total local potential V fuses AtomicLocal + Hartree(rho) + Xc(rho); the
-XC potential is the `torch.autograd` gradient of the XC energy.  Under
-collinear spin V has one channel per spin, and each k-point row applies
-its own spin's channel (`basis_data.kspin`).
+XC potential is the `torch.autograd` gradient of the XC energy, and under a
+meta-GGA Vtau is its gradient in tau.  With an NLCC core density the
+functional sees rho + rho_core (and tau + tau_core).  Under collinear spin
+V has one channel per spin, and each k-point row applies its own spin's
+channel (`basis_data.kspin`).
 """
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels.local_apply import local_apply
+from ..kernels.local_apply import local_apply, round_bf16
+from .density import density_gradients
 from .pruned import PrunedFFT, compact_to_sphere, sphere_to_compact
 
 
@@ -34,19 +48,42 @@ class Ham(NamedTuple):
     P: torch.Tensor          # [nk, nG, nproj]
     D: torch.Tensor          # [nproj, nproj]
     pruned: PrunedFFT
+    Vtau_zxy: Optional[torch.Tensor] = None   # [nk, n3, n1, n2] meta-GGA Vtau
+    Gpk: Optional[torch.Tensor] = None        # [nk, nG, 3] Cartesian k+G (with Vtau)
 
 
-def build_ham(basis_data, terms_data, V, pruned: PrunedFFT):
-    V_zxy = V[basis_data.kspin].permute(0, 3, 1, 2).contiguous()
+def to_zxy(V, kspin):
+    """A potential [nspin, n1, n2, n3] as each k row's spin channel in the
+    plane layout of local_apply: [nk, n3, n1, n2]."""
+    return V[kspin].permute(0, 3, 1, 2).contiguous()
+
+
+def build_ham(basis_data, terms_data, V, pruned: PrunedFFT, Vtau=None):
     return Ham(mask=basis_data.mask, kin=terms_data.kinetic_scale * basis_data.kin,
-               V_zxy=V_zxy, P=terms_data.P, D=terms_data.D, pruned=pruned)
+               V_zxy=to_zxy(V, basis_data.kspin), P=terms_data.P, D=terms_data.D,
+               pruned=pruned,
+               Vtau_zxy=None if Vtau is None else to_zxy(Vtau, basis_data.kspin),
+               Gpk=None if Vtau is None else basis_data.Gpk_cart)
 
 
-def apply_local(ham: Ham, psi):
-    """The local-potential part of H psi for psi [nk, nb, nG]."""
+def apply_local(ham: Ham, psi, V_zxy=None, precision="highest"):
+    """The local-potential part of H psi for psi [nk, nb, nG], with the
+    potential V_zxy (default: ham's V)."""
+    V = ham.V_zxy if V_zxy is None else V_zxy
     xc = sphere_to_compact(psi, ham.pruned)
-    y = local_apply(xc, ham.V_zxy, ham.pruned.factors)
+    y = local_apply(xc, V, ham.pruned.factors, precision)
     return compact_to_sphere(y, ham.pruned, ham.mask)
+
+
+def apply_divagrad(ham: Ham, psi, precision="highest"):
+    """The meta-GGA term -1/2 div(Vtau grad psi) of H psi:
+    1/2 sum_a p_a F[Vtau F^-1[p_a psi]] with p = k + G, the three axes
+    stacked along the band axis into one local apply of 3 nb bands."""
+    nb = psi.shape[1]
+    p = ham.Gpk
+    y3 = apply_local(ham, torch.cat([p[:, None, :, a] * psi for a in range(3)], dim=1),
+                     ham.Vtau_zxy, precision)
+    return 0.5 * sum(p[:, None, :, a] * y3[:, a * nb:(a + 1) * nb] for a in range(3))
 
 
 def _p_dag(ham: Ham, psi):
@@ -54,12 +91,16 @@ def _p_dag(ham: Ham, psi):
     return torch.einsum("kgp,kng->knp", ham.P.conj(), psi)
 
 
-def apply_H(ham: Ham, psi):
-    """H @ psi for psi [nk, nb, nG] -> [nk, nb, nG]."""
-    out = ham.kin[:, None, :] * psi + apply_local(ham, psi)
+def apply_H(ham: Ham, psi, precision="highest"):
+    """H @ psi for psi [nk, nb, nG] -> [nk, nb, nG].  precision "default"
+    is the bf16 one-pass apply (module docstring) of a complex64 Ham."""
+    out = ham.kin[:, None, :] * psi + apply_local(ham, psi, precision=precision)
+    if ham.Vtau_zxy is not None:
+        out = out + apply_divagrad(ham, psi, precision)
     if ham.P.shape[-1] > 0:
-        DPd = _p_dag(ham, psi) @ ham.D.to(psi.dtype).T
-        out = out + torch.einsum("kgp,knp->kng", ham.P, DPd)
+        r = round_bf16 if precision == "default" else (lambda a: a)
+        DPd = _p_dag(ham, r(psi)) @ ham.D.to(psi.dtype).T
+        out = out + torch.einsum("kgp,knp->kng", ham.P, r(DPd))
     return out * ham.mask[:, None, :]
 
 
@@ -73,9 +114,7 @@ def density_gradient_sigma(rho, G_cart):
     gradient is spectral, i G rho(G), with G_cart [n1, n2, n3, 3] (2 pi
     included), so autograd through it gives the GGA divergence term and,
     with G_cart built from the lattice, the GGA stress."""
-    rho_G = torch.fft.fftn(rho, dim=(-3, -2, -1))
-    grads = torch.stack([torch.fft.ifftn(1j * G_cart[..., a] * rho_G, dim=(-3, -2, -1)).real
-                         for a in range(3)], dim=-1)          # [nspin, grid, 3]
+    grads = density_gradients(rho, G_cart)                  # [nspin, grid, 3]
     if rho.shape[0] == 1:
         return torch.sum(grads * grads, dim=-1)
     return torch.stack([torch.sum(grads[0] * grads[0], dim=-1),
@@ -83,24 +122,35 @@ def density_gradient_sigma(rho, G_cart):
                         torch.sum(grads[1] * grads[1], dim=-1)])
 
 
-def xc_energy(functionals, rho, volume, scaling=1.0, G_cart=None):
+def xc_energy(functionals, rho, volume, scaling=1.0, G_cart=None, tau=None):
     """Total XC energy of rho [nspin, n1, n2, n3]; G_cart [n1, n2, n3, 3]
-    (Cartesian G of the cube) is needed by GGA functionals."""
+    (Cartesian G of the cube) is needed by GGA and meta-GGA functionals, tau
+    (as rho) by meta-GGA ones.  Potential-only functionals (TB09) add no
+    energy."""
+    zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
     if not functionals:
-        return torch.zeros((), dtype=rho.dtype, device=rho.device)
+        return zero
     dvol = volume / rho[0].numel()
     sigma = None
-    if any(f.family == "gga" for f, _ in functionals):
+    if any(f.family in ("gga", "mgga") for f, _ in functionals):
         sigma = density_gradient_sigma(rho, G_cart.to(rho.dtype))
-    E = sum(fscale * torch.sum(f.energy(rho, sigma)) for f, fscale in functionals)
+    E = zero
+    for f, fscale in functionals:
+        if f.energy is None:
+            continue
+        e = f.energy(rho, sigma, tau) if f.family == "mgga" else f.energy(rho, sigma)
+        E = E + fscale * torch.sum(e)
     return scaling * E * dvol
 
 
-def total_potential(terms, rho, volume):
+def total_potential(terms, rho, volume, tau=None):
     """Fused local potential V [nspin, grid] and the rho-dependent energies.
 
-    rho: [nspin, n1, n2, n3].  Returns (V, energies) with 0-d tensors."""
+    rho: [nspin, n1, n2, n3]; tau (as rho) is required by meta-GGA models.
+    Returns (V, Vtau, energies) with 0-d tensors; Vtau is None unless tau
+    is given."""
     td = terms.data
+    nspin = rho.shape[0]
     dvol = volume / rho[0].numel()
     rho_tot = torch.sum(rho, dim=0)
     energies = {}
@@ -112,14 +162,38 @@ def total_potential(terms, rho, volume):
     energies["Hartree"] = 0.5 * torch.sum(VH * rho_tot) * dvol
     V = V + VH[None]
 
+    Vtau = None
     if terms.xc:
+        # NLCC: the functional sees the valence plus the core density (and
+        # the core kinetic-energy density, reference src/terms/xc.jl:100-104);
+        # the constant shifts leave the gradients as they are
+        rho_xc = rho if td.rho_core is None else rho + td.rho_core.to(rho.dtype)[None] / nspin
+        tau_xc = None
+        if tau is not None:
+            tau_xc = tau if td.tau_core is None else tau + td.tau_core.to(tau.dtype)[None] / nspin
         with torch.enable_grad():
-            r = rho.detach().requires_grad_(True)
-            exc = xc_energy(terms.xc, r, volume, terms.xc_scaling, td.G_cart)
-            (Vxc,) = torch.autograd.grad(exc, r)
+            r = rho_xc.detach().requires_grad_(True)
+            t = None if tau_xc is None else tau_xc.detach().requires_grad_(True)
+            exc = xc_energy(terms.xc, r, volume, terms.xc_scaling, td.G_cart, tau=t)
+            if exc.requires_grad:
+                grads = torch.autograd.grad(exc, [r] if t is None else [r, t],
+                                            allow_unused=True)
+            else:                        # no functional with an energy
+                grads = (None, None)
+        Vxc = grads[0] if grads[0] is not None else torch.zeros_like(rho)
         energies["Xc"] = exc.detach()
         V = V + Vxc / dvol
-    return V, energies
+        if t is not None:
+            Vtau = (grads[1] if grads[1] is not None else torch.zeros_like(tau)) / dvol
+        # potential-only functionals (TB09): their multiplicative V is added
+        # as it is, with no energy (not variational)
+        for f, fscale in terms.xc:
+            if f.potential is not None:
+                if tau_xc is None:
+                    raise ValueError(f"{f.name} needs tau")
+                V = V + (terms.xc_scaling * fscale) * f.potential(
+                    rho_xc, td.G_cart.to(rho.dtype), tau_xc)
+    return V, Vtau, energies
 
 
 def psi_energies(ham: Ham, psi, occupation, kweights):

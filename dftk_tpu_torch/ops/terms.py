@@ -1,15 +1,18 @@
 """Energy terms and their instantiation on a PlaneWaveBasis.
 
 Port of `dftk_tpu/ops/terms.py::instantiate_terms` for the terms of the
-semilocal DFT path: Kinetic, AtomicLocal, AtomicNonlocal, Hartree, Xc (LDA
-and GGA), Ewald, PspCorrection and Entropy.  Density-independent data (the
-local pseudopotential, the Hartree kernel, the nonlocal projectors P and
-couplings D, the Ewald and psp correction energies, the Cartesian G of the
-cube for GGA gradients) are built once on the host (the projectors' form
-factors by `projector_form_factors`, a torch function that the stresses
-also trace through the lattice) and held as tensors on the basis' device
-in `Terms.data`; the density-dependent potentials are assembled each SCF
-step by `ops/hamiltonian.py`.
+semilocal DFT path: Kinetic, AtomicLocal, AtomicNonlocal, Hartree, Xc (LDA,
+GGA and meta-GGA), Ewald, PspCorrection and Entropy, with any element
+(HGH or UPF pseudopotentials, Coulomb, Gaussian, Cohen-Bergstresser).
+Density-independent data (the local potential, the Hartree kernel, the
+nonlocal projectors P and couplings D, the Ewald and psp correction
+energies, the Cartesian G of the cube for gradients, and the NLCC core
+density and, for meta-GGA, the core kinetic-energy density on the grid)
+are built once on the host (the projectors' form factors by
+`projector_form_factors`, a torch function that the stresses also trace
+through the lattice) and held as tensors on the basis' device in
+`Terms.data`; the density-dependent potentials are assembled each SCF step
+by `ops/hamiltonian.py`.
 
 Any other term raises NotImplementedError naming its ROADMAP item.
 """
@@ -84,7 +87,9 @@ class TermsData(NamedTuple):
     D: torch.Tensor               # [nproj, nproj] couplings
     Gsq_cart: torch.Tensor        # [n1,n2,n3] |G|^2 Cartesian (Kerker mixing)
     kinetic_scale: float
-    G_cart: Optional[torch.Tensor] = None   # [n1,n2,n3,3] Cartesian G (GGA gradients)
+    G_cart: Optional[torch.Tensor] = None   # [n1,n2,n3,3] Cartesian G (gradients)
+    rho_core: Optional[torch.Tensor] = None  # [n1,n2,n3] NLCC core density
+    tau_core: Optional[torch.Tensor] = None  # [n1,n2,n3] core kinetic density (meta-GGA)
 
 
 @dataclasses.dataclass
@@ -96,6 +101,13 @@ class Terms:
     xc_scaling: float
     data: TermsData
     has_entropy: bool = False
+    rho_core_np: Optional[np.ndarray] = None   # NLCC core density on the grid
+    tau_core_np: Optional[np.ndarray] = None   # its kinetic-energy density (meta-GGA)
+
+    @property
+    def needs_tau(self):
+        """A meta-GGA functional is present: the SCF carries tau."""
+        return any(f.family == "mgga" for f, _ in self.xc)
 
 
 def instantiate_terms(basis) -> Terms:
@@ -111,6 +123,7 @@ def instantiate_terms(basis) -> Terms:
     xc_scaling = 1.0
     kinetic_scale = 1.0
     has_entropy = False
+    rho_core = tau_core = None
     Gsq = basis.G_cube_cart_norm ** 2
 
     for term in model.term_types:
@@ -128,6 +141,10 @@ def instantiate_terms(basis) -> Terms:
         elif isinstance(term, Xc):
             xc_functionals = resolve_functionals(term.functionals)
             xc_scaling = term.scaling_factor
+            rho_core = _atomic_superposition(basis, "has_core_density",
+                                             "core_density_fourier")
+            if any(f.family == "mgga" for f, _ in xc_functionals):
+                tau_core = _atomic_superposition(basis, "has_core_tau", "core_tau_fourier")
         elif isinstance(term, Ewald):
             charges = np.array([at.charge_ionic() for at in model.atoms], dtype=float)
             if len(charges) > 0:
@@ -150,9 +167,12 @@ def instantiate_terms(basis) -> Terms:
         vloc_static=basis.tensor(vloc), hartree_coeffs=basis.tensor(hartree_coeffs),
         P=basis.tensor(P, basis.dtype), D=basis.tensor(D),
         Gsq_cart=basis.tensor(Gsq), kinetic_scale=float(kinetic_scale),
-        G_cart=basis.tensor(basis.G_cube_cart))
+        G_cart=basis.tensor(basis.G_cube_cart),
+        rho_core=None if rho_core is None else basis.tensor(rho_core),
+        tau_core=None if tau_core is None else basis.tensor(tau_core))
     return Terms(E_ewald=E_ewald, E_psp_correction=E_psp, xc=xc_functionals,
-                 xc_scaling=xc_scaling, data=data, has_entropy=has_entropy)
+                 xc_scaling=xc_scaling, data=data, has_entropy=has_entropy,
+                 rho_core_np=rho_core, tau_core_np=tau_core)
 
 
 def _atomic_local_potential(basis):
@@ -221,6 +241,32 @@ def _build_nonlocal_projectors(basis):
             Ps.append(ff * sf[..., None] / sqrt_vol)
             Ds.append(D)
     return torch.cat(Ps, -1).numpy(), scipy.linalg.block_diag(*Ds)
+
+
+def _atomic_superposition(basis, has_attr, fourier_attr):
+    """The superposition of the atoms' radial densities (the form factor
+    `fourier_attr` of each atom that `has_attr`) on the real grid, clipped
+    at 0, or None if no atom has one (reference atomic_total_density,
+    src/density_methods.jl:117-121; the NLCC core density and the meta-GGA
+    core kinetic-energy density, src/terms/xc.jl:45-53)."""
+    model = basis.model
+    if not any(getattr(at, has_attr, lambda: False)() for at in model.atoms):
+        return None
+    Gnorm = basis.G_cube_cart_norm.reshape(-1)
+    Gred = basis.G_cube.reshape(-1, 3).astype(float)
+    rho_G = np.zeros(Gnorm.shape, dtype=np.complex128)
+    ff_cache = {}
+    for i, at in enumerate(model.atoms):
+        if not getattr(at, has_attr, lambda: False)():
+            continue
+        if at not in ff_cache:
+            ff_cache[at] = np.asarray(getattr(at, fourier_attr)(Gnorm))
+        rho_G += ff_cache[at] * np.exp(-2j * math.pi * (Gred @ np.asarray(model.positions[i])))
+    rho_G /= math.sqrt(model.unit_cell_volume)
+    N = np.prod(basis.fft_size)
+    rho = np.fft.ifftn(rho_G.reshape(basis.fft_size)).real \
+        * (N / math.sqrt(model.unit_cell_volume))
+    return np.maximum(rho, 0.0)
 
 
 def _energy_psp_correction(model):

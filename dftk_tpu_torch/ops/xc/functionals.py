@@ -1,18 +1,21 @@
-"""LDA and GGA exchange-correlation functionals as differentiable torch
-expressions.
+"""Exchange-correlation functionals as differentiable torch expressions.
 
-Port of the LDA and GGA sets of `dftk_tpu/ops/xc/functionals.py` (names
-follow libxc): lda_x (Slater exchange), lda_c_vwn (VWN5), lda_c_pw (PW92),
+Port of `dftk_tpu/ops/xc/functionals.py` but for gga_x_wpbeh (names follow
+libxc): lda_x (Slater exchange), lda_c_vwn (VWN5), lda_c_pw (PW92),
 lda_xc_teter93 (Teter's Pade fit of LDA exchange and correlation),
-gga_x_pbe, gga_c_pbe, gga_x_pbe_sol and gga_c_pbe_sol, and the sets LDA,
-PBE and PBEsol.  Potentials come from `torch.autograd` through the energy
-(`ops/hamiltonian.py::total_potential`), the GGA divergence term included,
-since the density gradient is taken spectrally inside the graph.  Meta-GGA
-and TB09 come with ROADMAP Queue 1 item 8b, gga_x_wpbeh with item 11.
+gga_x_pbe, gga_c_pbe, gga_x_pbe_sol and gga_c_pbe_sol, the meta-GGAs
+mgga_x_scan, mgga_x_r2scan, mgga_x_tpss and mgga_c_tpss (`ops/xc/mgga.py`),
+the potential-only mgga_x_tb09 (`ops/xc/tb09.py`), and the sets LDA, PBE,
+PBEsol, SCAN, r2SCAN, TPSS and TB09.  Potentials come from
+`torch.autograd` through the energy (`ops/hamiltonian.py::total_potential`),
+the GGA divergence term included, since the density gradient is taken
+spectrally inside the graph; for a meta-GGA the gradient in tau is the
+DivAgrad coefficient Vtau.  gga_x_wpbeh (hybrids) is ROADMAP Queue 1 item
+11.
 
 rho has shape [nspin, ...] with nspin in {1, 2}; sigma, the contracted
-gradients, [1, ...] for nspin 1 and [3, ...] (aa, ab, bb) for nspin 2;
-each functional returns an energy density per unit volume.
+gradients, [1, ...] for nspin 1 and [3, ...] (aa, ab, bb) for nspin 2; tau
+as rho; each functional returns an energy density per unit volume.
 
 The floors keep autograd finite: densities under _RHO_EPS are clamped (no
 gradient flows below it), zeta is clipped inside (-1, 1), and the squared
@@ -217,8 +220,24 @@ def gga_c_pbe_sol_energy(rho, sigma):
 @dataclasses.dataclass(frozen=True)
 class Functional:
     name: str
-    family: str                        # "lda" | "gga"
-    energy: Callable = None            # (rho, sigma) -> energy/volume
+    family: str                        # "lda" | "gga" | "mgga"
+    energy: Callable = None            # (rho, sigma[, tau]) -> energy/volume
+    # potential-only functionals (TB09, mBJ) have no energy: the
+    # multiplicative V is evaluated directly
+    potential: Callable = None         # (rho, G_cart, tau) -> V
+
+
+def _mgga(name):
+    """A meta-GGA energy of ops/xc/mgga.py, imported at first call."""
+    def energy(rho, sigma, tau=None):
+        from . import mgga
+        return getattr(mgga, name)(rho, sigma, tau)
+    return energy
+
+
+def _tb09_potential(rho, G_cart, tau):
+    from .tb09 import tb09_potential
+    return tb09_potential(rho, G_cart, tau)
 
 
 FUNCTIONALS = {
@@ -230,6 +249,11 @@ FUNCTIONALS = {
     "gga_c_pbe": Functional("gga_c_pbe", "gga", gga_c_pbe_energy),
     "gga_x_pbe_sol": Functional("gga_x_pbe_sol", "gga", gga_x_pbe_sol_energy),
     "gga_c_pbe_sol": Functional("gga_c_pbe_sol", "gga", gga_c_pbe_sol_energy),
+    "mgga_x_scan": Functional("mgga_x_scan", "mgga", _mgga("scan_energy")),
+    "mgga_x_r2scan": Functional("mgga_x_r2scan", "mgga", _mgga("r2scan_energy")),
+    "mgga_x_tpss": Functional("mgga_x_tpss", "mgga", _mgga("tpss_x_energy")),
+    "mgga_c_tpss": Functional("mgga_c_tpss", "mgga", _mgga("tpss_c_energy")),
+    "mgga_x_tb09": Functional("mgga_x_tb09", "mgga", None, _tb09_potential),
 }
 
 # Named functional sets mirroring DFTK standard_models.jl:163-166
@@ -237,9 +261,14 @@ FUNCTIONAL_SETS = {
     "LDA": ("lda_x", "lda_c_pw"),
     "PBE": ("gga_x_pbe", "gga_c_pbe"),
     "PBEsol": ("gga_x_pbe_sol", "gga_c_pbe_sol"),
+    # SCAN and r2SCAN exchange and correlation are one function (shared alpha)
+    "SCAN": ("mgga_x_scan",),
+    "r2SCAN": ("mgga_x_r2scan",),
+    "TPSS": ("mgga_x_tpss", "mgga_c_tpss"),
+    # potential-only mBJ exchange with LDA correlation (the reference's
+    # silicon_TB09 ABINIT deck); its energies are not variational
+    "TB09": ("mgga_x_tb09", "lda_c_pw"),
 }
-# what the JAX package has and the port does not yet, with its ROADMAP item
-_NOT_PORTED = {"gga_x_wpbeh": "item 11 (with exact exchange)"}
 
 
 def resolve_functionals(functionals):
@@ -256,10 +285,12 @@ def resolve_functionals(functionals):
             fun = name
         elif name in FUNCTIONALS:
             fun = FUNCTIONALS[name]
-        else:
-            item = _NOT_PORTED.get(name, "item 8b (meta-GGA, TB09)")
+        elif name == "gga_x_wpbeh":
             raise NotImplementedError(
-                f"functional {name!r} is not ported yet; the port has "
-                f"{sorted(FUNCTIONALS)} (ROADMAP Queue 1, {item})")
+                "gga_x_wpbeh is not ported yet (ROADMAP Queue 1, item 11, with "
+                "exact exchange)")
+        else:
+            raise KeyError(f"unknown functional {name!r}; the port has "
+                           f"{sorted(FUNCTIONALS)}")
         out.append((fun, float(scale)))
     return out

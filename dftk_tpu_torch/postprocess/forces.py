@@ -12,11 +12,12 @@ Forces are in reduced coordinates (covectors) from `compute_forces`;
 
 Collinear spin, GGA and finite temperature need nothing more: without a
 core density no XC term depends on the positions, and the occupations are
-held fixed.
+held fixed.  A meta-GGA's tau is the result's (`scfres.tau`), or, where it
+has none (the split adapters), the kinetic-energy density of its orbitals.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item): the
-NLCC core-density and meta-GGA tau terms (item 8b) and classical pairwise
-forces (item 11).
+Potential-only functionals (TB09) have no energy, so no forces; classical
+pairwise forces are not ported (ROADMAP Queue 1, item 11).  Both raise
+NotImplementedError.
 """
 import math
 
@@ -32,16 +33,11 @@ CHUNK_ELEMS = 2 ** 24
 
 
 def check_supported(basis, scfres, what):
-    """Raise NotImplementedError for what the derivatives do not port yet."""
-    if any(getattr(at, "has_core_density", lambda: False)()
-           for at in basis.model.atoms):
+    """Raise NotImplementedError for what the derivatives do not have."""
+    if any(f.potential is not None for f, _ in basis.terms.xc):
         raise NotImplementedError(
-            f"{what} with NLCC core densities are not ported yet (ROADMAP "
-            f"Queue 1, item 8b)")
-    if getattr(scfres, "tau", None) is not None:
-        raise NotImplementedError(
-            f"{what} of meta-GGA models (tau) are not ported yet (ROADMAP "
-            f"Queue 1, item 8b)")
+            f"{what} are undefined for potential-only functionals (TB09/mBJ has "
+            f"no energy functional to differentiate)")
     if getattr(basis.terms, "pairwise_forces", None) is not None:
         raise NotImplementedError(
             f"{what} with classical pairwise terms are not ported yet (ROADMAP "
@@ -89,9 +85,55 @@ def nonlocal_group_energy(ff, D, psi, wocc, Gred_pk, pos, sqrt_vol):
     return E
 
 
-def _positions_energy(basis, psi, occupation, rho, positions):
+def core_form_factor(basis, at, kind):
+    """The core density's (kind "rho") or core kinetic-energy density's
+    ("tau") form factor of element `at` at the cube's |G|, a float64 tensor
+    [N], cached on the basis instance."""
+    cache = basis.__dict__.setdefault("_core_ff_cache", {})
+    if (at, kind) not in cache:
+        fn = at.core_density_fourier if kind == "rho" else at.core_tau_fourier
+        cache[at, kind] = f64(basis, fn(basis.G_cube_cart_norm.reshape(-1)))
+    return cache[at, kind]
+
+
+def core_on_grid(basis, ffs, positions, volume):
+    """sum_i ff_i(G) e^{-2 pi i G.r_i} on the real grid, clipped at 0: the
+    NLCC core (kinetic-energy) density of the atoms `ffs` maps to their
+    form factors [N], at positions [n_atoms, 3] (fractional) and the cell
+    volume (a float or a 0-d tensor), differentiable in both."""
+    Gred = f64(basis, basis.G_cube.reshape(-1, 3))
+    core_G = 0
+    for i, ff in ffs.items():
+        core_G = core_G + ff * structure_factor(Gred, positions[i:i + 1])
+    N = int(np.prod(basis.fft_size))
+    sqrt_vol = volume ** 0.5
+    core = torch.fft.ifftn((core_G / sqrt_vol).reshape(basis.fft_size)).real * (N / sqrt_vol)
+    return torch.maximum(core, torch.zeros_like(core))
+
+
+def core_atoms(basis, kind):
+    """The indices of the atoms with a core density (kind "rho") or core
+    kinetic-energy density ("tau")."""
+    has = "has_core_density" if kind == "rho" else "has_core_tau"
+    return [i for i, at in enumerate(basis.model.atoms) if getattr(at, has, lambda: False)()]
+
+
+def kinetic_density_of(basis, psi, occupation):
+    """The symmetrized kinetic-energy density of a state, float64 on the
+    basis' device (a meta-GGA result without its own tau)."""
+    from ..ops.density import compute_kinetic_energy_density, make_symmetrizer
+    bd = basis.data._replace(Gpk_cart=f64(basis, basis.Gpk_cart_np),
+                             mask=f64(basis, basis.mask_np),
+                             kweights=f64(basis, basis.kweights))
+    return compute_kinetic_energy_density(
+        bd, psi, occupation, basis.fft_size, basis.model.unit_cell_volume,
+        basis.model.n_spin_components, 64, symmetrizer=make_symmetrizer(basis))
+
+
+def _positions_energy(basis, psi, occupation, rho, positions, tau=None):
     """The explicitly position-dependent energy terms as a torch function of
-    positions [n_atoms, 3] (fractional, float64)."""
+    positions [n_atoms, 3] (fractional, float64); tau is needed for
+    meta-GGA models with a core kinetic-energy density."""
     model = basis.model
     terms = basis.terms
     sqrt_vol = math.sqrt(model.unit_cell_volume)
@@ -125,6 +167,24 @@ def _positions_energy(basis, psi, occupation, rho, positions):
         Gbox, Rbox = ewald_sum_bounds(model.lattice, np.stack(model.positions), eta)
         E = E + energy_ewald(model.lattice, charges, positions, eta=eta,
                              device=basis.device, Gbox=Gbox, Rbox=Rbox)
+
+    # NLCC: the core densities move with the atoms, so Exc[rho + rho_core]
+    # (and tau + tau_core under a meta-GGA) gives a force
+    if terms.xc and (terms.rho_core_np is not None or terms.tau_core_np is not None):
+        from ..ops.hamiltonian import xc_energy
+        nspin = rho.shape[0]
+        vol = model.unit_cell_volume
+        rho_xc, tau_xc = rho, tau
+        if terms.rho_core_np is not None:
+            ffs = {i: core_form_factor(basis, model.atoms[i], "rho")
+                   for i in core_atoms(basis, "rho")}
+            rho_xc = rho + core_on_grid(basis, ffs, positions, vol)[None] / nspin
+        if tau is not None and terms.tau_core_np is not None:
+            ffs = {i: core_form_factor(basis, model.atoms[i], "tau")
+                   for i in core_atoms(basis, "tau")}
+            tau_xc = tau + core_on_grid(basis, ffs, positions, vol)[None] / nspin
+        E = E + xc_energy(terms.xc, rho_xc, vol, terms.xc_scaling,
+                          f64(basis, basis.G_cube_cart), tau=tau_xc)
     return E
 
 
@@ -153,9 +213,14 @@ def compute_forces(scfres, basis=None):
     psi = torch.as_tensor(scfres.psi, device=dev).to(torch.complex128)
     occ = torch.as_tensor(scfres.occupation, device=dev).to(torch.float64)
     rho = torch.as_tensor(scfres.rho, device=dev).to(torch.float64)
+    tau = None
+    if basis.terms.needs_tau:
+        tau = getattr(scfres, "tau", None)
+        tau = (kinetic_density_of(basis, psi, occ) if tau is None
+               else torch.as_tensor(tau, device=dev).to(torch.float64))
     with torch.enable_grad():
         positions = f64(basis, np.stack(basis.model.positions)).requires_grad_(True)
-        E = _positions_energy(basis, psi, occ, rho, positions)
+        E = _positions_energy(basis, psi, occ, rho, positions, tau)
         (grad,) = torch.autograd.grad(E, positions)
     return -grad
 

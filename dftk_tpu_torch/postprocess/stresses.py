@@ -21,9 +21,20 @@ the same function: the density keeps its spin channels, the GGA gradient
 is built from the lattice-traced G, and the occupations are held fixed
 (the entropy does not depend on the lattice at fixed eigenvalues).
 
-Not ported (each raises NotImplementedError naming its ROADMAP item): the
-NLCC core-density and meta-GGA terms (item 8b) and classical pairwise
-terms (item 11).
+NLCC core densities are rebuilt in the graph from form factors at the
+traced |G|^2 (the psps' `*_sq` evaluators).  A meta-GGA's tau depends on
+the lattice through |B (k+G)|: with q the reduced k+G,
+
+    tau(L) = 1/2 Omega0 / Omega sum_bc (B^T B)_bc T_bc,
+    T_bc = sum_kn w f Re(conj(F^-1[q_b psi]) F^-1[q_c psi]) at L0,
+
+so the six T_bc are built once outside the graph (from the density of
+(q_b + q_c) psi by the polarisation identity) and symmetrized there, and
+the graph holds the 3 x 3 metric only.
+
+Potential-only functionals (TB09) have no energy, so no stress; classical
+pairwise terms are not ported (ROADMAP Queue 1, item 11).  Both raise
+NotImplementedError.
 """
 import math
 
@@ -34,8 +45,8 @@ from ..ops.density import compute_density, make_symmetrizer
 from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
 from ..ops.hamiltonian import xc_energy
 from ..ops.terms import Hartree, projector_form_factors
-from .forces import (check_supported, f64, has_local, nonlocal_group_energy,
-                     psp_groups, structure_factor)
+from .forces import (check_supported, core_atoms, core_on_grid, f64, has_local,
+                     nonlocal_group_energy, psp_groups, structure_factor)
 
 DENSITY_BAND_CHUNK = 64     # bands per batch of full-grid cubes in the density
 
@@ -95,8 +106,18 @@ def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
     if terms.xc:
         # GGA: sigma from i G rho(G) with G built from the lattice in the
         # graph, so the gradient terms' strain dependence is traced too
-        E = E + xc_energy(terms.xc, rho, vol, terms.xc_scaling,
-                          G_cart.reshape(tuple(fft_size) + (3,)))
+        nspin = rho.shape[0]
+        rho_xc, tau_xc = rho, None
+        if terms.rho_core_np is not None:
+            rho_xc = rho + _traced_core(basis, "rho", Gsq, pos, vol)[None] / nspin
+        if terms.needs_tau:
+            with torch.no_grad():
+                T = _tau_metric_parts(basis, bd64, psi, occupation)
+            tau_xc = 0.5 * (vol0 / vol) * torch.einsum("bc,bcsxyz->sxyz", B.T @ B, T)
+            if terms.tau_core_np is not None:
+                tau_xc = tau_xc + _traced_core(basis, "tau", Gsq, pos, vol)[None] / nspin
+        E = E + xc_energy(terms.xc, rho_xc, vol, terms.xc_scaling,
+                          G_cart.reshape(tuple(fft_size) + (3,)), tau=tau_xc)
 
     # AtomicLocal: p^2 form factors keep the graph smooth at G = 0
     if has_local(model):
@@ -123,6 +144,44 @@ def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
     # PspCorrection: corr * n_electrons / Omega
     E = E + terms.E_psp_correction * vol0 / vol
     return E
+
+
+def _traced_core(basis, kind, Gsq, pos, vol):
+    """The NLCC core density (kind "rho") or core kinetic-energy density
+    ("tau") on the grid, its form factors at the traced |G|^2 Gsq [N]."""
+    fn = "core_density_fourier_sq" if kind == "rho" else "core_tau_fourier_sq"
+    model = basis.model
+    ffs, by_element = {}, {}
+    for i in core_atoms(basis, kind):
+        at = model.atoms[i]
+        if at not in by_element:
+            by_element[at] = getattr(at.psp, fn)(Gsq)
+        ffs[i] = by_element[at]
+    return core_on_grid(basis, ffs, pos, vol)
+
+
+def _tau_metric_parts(basis, bd64, psi, occupation):
+    """T [3, 3, nspin, n1, n2, n3] of the module docstring at L0 (float64,
+    symmetrized like the SCF's tau)."""
+    fft_size, vol0 = basis.fft_size, basis.model.unit_cell_volume
+    nspin = basis.model.n_spin_components
+    q = f64(basis, basis.Gred_np + basis.kcoords_spin[:, None, :])     # [nk, nG, 3]
+    symmetrizer = make_symmetrizer(basis)
+
+    def dens(w):
+        return compute_density(bd64, w[:, None, :] * psi, occupation, fft_size, vol0,
+                               nspin, DENSITY_BAND_CHUNK)
+
+    D = [dens(q[..., b]) for b in range(3)]
+    T = torch.empty((3, 3, nspin) + tuple(fft_size), dtype=torch.float64,
+                    device=basis.device)
+    for b in range(3):
+        T[b, b] = D[b]
+        for c in range(b + 1, 3):
+            T[b, c] = T[c, b] = (dens(q[..., b] + q[..., c]) - D[b] - D[c]) / 2
+    if symmetrizer is not None:
+        T = symmetrizer(T.reshape((9 * nspin,) + tuple(fft_size))).reshape(T.shape)
+    return T
 
 
 def compute_stresses_cart(scfres, basis=None):

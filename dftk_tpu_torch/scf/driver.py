@@ -13,11 +13,15 @@ which get the LDOS at the Fermi level of each iteration) and an adaptive
 eigensolver tolerance (AdaptiveDiagtol, scf_callbacks.jl:191-230).  At
 finite temperature the occupations come from the smearing and the energy
 carries the Entropy term; `nbandsalg` (`scf/nbands.py`) sets the band
-counts and grows them between iterations.  The JAX package jit-compiles
-the step; here it runs eagerly on the basis' device.
+counts and grows them between iterations.  Under a meta-GGA the step
+also carries the kinetic-energy density tau: the potential takes tau_in
+(Vtau enters H through the DivAgrad apply), tau_out comes from the new
+orbitals, and tau follows psi without mixing, from the von Weizsaecker
+tau of the first density.  The JAX package jit-compiles the step; here it
+runs eagerly on the basis' device.
 
-Not ported, and refused when requested: exact exchange, Hubbard, meta-GGA
-(their terms do not instantiate) and Chi0Mixing (ROADMAP Queue 1, item
+Not ported, and refused when requested: exact exchange and Hubbard (their
+terms do not instantiate, ROADMAP Queue 1 item 11) and Chi0Mixing (item
 10).
 """
 import dataclasses
@@ -29,7 +33,8 @@ import numpy as np
 import torch
 
 from ..ops import hamiltonian as hamops
-from ..ops.density import compute_density, guess_density, make_symmetrizer
+from ..ops.density import (compute_density, compute_kinetic_energy_density,
+                           guess_density, make_symmetrizer, von_weizsaecker_tau)
 from ..ops.eigen.lobpcg import lobpcg, ortho_qr
 from ..ops.occupation import compute_occupation, entropy_energy
 from .anderson import AndersonAcceleration
@@ -53,7 +58,7 @@ class SCFResult:
     n_matvec: int
     runtime_s: float
     V_local: Any = None          # total local potential at convergence
-    tau: Any = None              # kinetic-energy density (meta-GGA; not ported)
+    tau: Any = None              # kinetic-energy density (meta-GGA)
 
     @property
     def total_energy(self):
@@ -152,10 +157,11 @@ def self_consistent_field(
     nspin = model.n_spin_components
     volume = model.unit_cell_volume
     dvol = basis.dvol
+    needs_tau = terms.needs_tau
 
-    def scf_step(rho_in, psi_in, diagtol):
-        V, _ = hamops.total_potential(terms, rho_in, volume)
-        ham = hamops.build_ham(bd, td, V, basis.pruned)
+    def scf_step(rho_in, psi_in, diagtol, tau_in):
+        V, Vtau, _ = hamops.total_potential(terms, rho_in, volume, tau=tau_in)
+        ham = hamops.build_ham(bd, td, V, basis.pruned, Vtau=Vtau)
         res = lobpcg(lambda p: hamops.apply_H(ham, p), psi_in, ham.kin, bd.mask,
                      tol=diagtol, maxiter=eigensolver_maxiter, n_conv=n_bands)
         occ, epsF = compute_occupation(res.eigenvalues, bd.kweights,
@@ -165,13 +171,17 @@ def self_consistent_field(
                                   symmetrizer=symmetrizer)
         # energies at rho_out (consistent at convergence); the kinetic and
         # nonlocal parts of H do not depend on V, so `ham` serves for both
-        V_out, energies = hamops.total_potential(terms, rho_out, volume)
+        tau_out = None
+        if needs_tau:
+            tau_out = compute_kinetic_energy_density(bd, res.X, occ, basis.fft_size, volume,
+                                                     nspin, symmetrizer=symmetrizer)
+        V_out, _, energies = hamops.total_potential(terms, rho_out, volume, tau=tau_out)
         energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
         if terms.has_entropy:
             energies["Entropy"] = entropy_energy(
                 res.eigenvalues, bd.kweights, epsF, model.temperature,
                 model.smearing, model.filled_occupation)
-        return rho_out, res, occ, epsF, energies, V_out
+        return rho_out, res, occ, epsF, energies, V_out, tau_out
 
     anderson = AndersonAcceleration(m=anderson_depth)
     history_E, history_drho = [], []
@@ -180,8 +190,9 @@ def self_consistent_field(
     diagtol = diagtol_max
     n_matvec_total = 0
     E_const = {"Ewald": terms.E_ewald, "PspCorrection": terms.E_psp_correction}
+    tau = von_weizsaecker_tau(rho, td.G_cart) if needs_tau else None
     for it in range(maxiter):
-        rho_out, res, occ, epsF, energies, V_out = scf_step(rho, psi, diagtol)
+        rho_out, res, occ, epsF, energies, V_out, tau_out = scf_step(rho, psi, diagtol, tau)
         psi = res.X
         n_matvec_total += res.n_matvec
         delta_F = rho_out - rho
@@ -215,6 +226,7 @@ def self_consistent_field(
                     psi = ortho_qr(torch.cat([psi, pad], dim=1))
         if converged:
             break
+        tau = tau_out            # tau follows psi (no mixing)
         # density update: precondition + Anderson + damping
         if needs_ldos:
             delta_rho = mixing.mix_density(
@@ -236,4 +248,5 @@ def self_consistent_field(
         psi=psi, rho=rho_out, epsF=float(epsF), converged=bool(converged),
         n_iter=it + 1, n_bands_converge=n_bands,
         history_Etot=history_E, history_Drho=history_drho,
-        n_matvec=n_matvec_total, runtime_s=time.time() - t0, V_local=V_out)
+        n_matvec=n_matvec_total, runtime_s=time.time() - t0, V_local=V_out,
+        tau=tau_out)

@@ -38,7 +38,7 @@ def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
                               symmetrizer=make_symmetrizer(basis))
     else:
         rho = torch.as_tensor(rho, device=basis.device).to(basis.rdtype)
-    V, energies = hamops.total_potential(terms, rho, volume)
+    V, _, energies = hamops.total_potential(terms, rho, volume)
     ham = hamops.build_ham(bd, terms.data, V, basis.pruned)
     energies.update(hamops.psi_energies(ham, psi, occupation, bd.kweights))
     if terms.has_entropy and eigenvalues is not None and epsF is not None:

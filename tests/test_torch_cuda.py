@@ -765,10 +765,12 @@ def test_cuda_op_probes_refuse_bad_inputs():
         op.fused(x, F, V)
 
 
-def _margin(out, ref, other):
-    """The bf16 margin rule: kernel-vs-plain at least 10x below the plain
-    'default'-vs-'highest' difference (relative Frobenius norms in f64;
-    `other` is the plain version at the other precision)."""
+def _margin_real(out, ref, other):
+    """The bf16 margin rule for the op probes' real tensors: kernel-vs-plain
+    at least 10x below the plain 'default'-vs-'highest' difference
+    (relative Frobenius norms in f64; `other` is the plain version at the
+    other precision).  Named apart from `_margin`, which it shadowed, so
+    that the complex kernels' checks keep their imaginary parts."""
     out, ref, other = out.double(), ref.double(), other.double()
     rel = lambda a, b: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
     return rel(out, ref) * 10 <= rel(ref, other)
@@ -830,7 +832,7 @@ def test_cuda_op_mosaic_dot_matches_plain(body, a_shape, b_shape):
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == torch.float32
     if prec == "default":
-        assert _margin(out, ref, op.mosaic_dot_plain(a, b, "highest", "dot3"))
+        assert _margin_real(out, ref, op.mosaic_dot_plain(a, b, "highest", "dot3"))
     else:
         assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
     name = [n for n in op.MOSAIC_NAMES if f"[{body}]" in n][0]
@@ -854,7 +856,7 @@ def test_cuda_op_rep_gemm_matches_plain(Z, K, N, R):
         torch.cuda.synchronize()
         assert out.shape == ref.shape and bool(torch.isfinite(out).all())
         other = "default" if prec == "highest" else "highest"
-        assert _margin(out, ref, osp.rep_gemm_steps(acc, F / K ** 0.5, R, other))
+        assert _margin_real(out, ref, osp.rep_gemm_steps(acc, F / K ** 0.5, R, other))
         assert osp.counts.launches[osp.gemm_name(body, prec)] == 1
 
 
@@ -910,3 +912,75 @@ def test_cuda_op_mosaic_refuse_bad_inputs():
         osp.rep_swap(x.transpose(1, 2), (0, 2, 1), 1, "tp3")
     with pytest.raises(ValueError, match="R must be"):
         osp.rep_vmul(x[None], F[:1, :6], 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk, nb, m, n", [
+    (4, 3 * 11, (16, 16, 16), (27, 27, 27)),   # the SCAN golden: 4 k-points, 8 + 3 bands
+    (4, 7, (16, 16, 16), (17, 17, 17)),        # TPSS / r2SCAN silicon: one block of 4 + 3
+    (4, 3 * 7, (16, 16, 16), (17, 17, 17)),    # ... and its DivAgrad batch
+    (1, 7, (8, 8, 8), (18, 18, 18)),           # SCAN + NLCC C2: one block of 4 + 3
+    (1, 3 * 3 * 7, (8, 8, 8), (18, 18, 18)),   # SCAN + NLCC C2: a LOBPCG block of 3 x 7
+    (1, 3 * 118, (32, 32, 32), (64, 64, 64))])  # Si54 SCAN: 108 + 10 bands
+def test_cuda_divagrad_chain_at_mgga_shapes(nk, nb, m, n):
+    """Kernels A and B and the A -> B -> A chain on the meta-GGA runs' band
+    blocks, alone and as the DivAgrad batch (the three p_a-scaled copies of
+    a band block stacked along the band axis, under Vtau), at the shapes of
+    chip_smoke.py phase l:
+    complex128 at 1e-11 of max|out|, bf16 by the margin rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(44)
+    x = _c128(rng, (nk, nb) + m)
+    Vtau = torch.as_tensor(np.abs(rng.normal(size=(nk, n[2], n[0], n[1]))), device="cuda")
+    fac = la.LocalFactors(
+        fwd=tuple(_c128(rng, (a, b), a ** -0.5) for a, b in zip(m, n)),
+        bwd=tuple(_c128(rng, (b, a), b ** -0.5) for a, b in zip(m, n)))
+    t = la.pruned_axis_dft_plain(x, fac.fwd[2], True).contiguous()
+    la.counts.reset()
+    assert _close_c128(la.pruned_axis_dft(x, fac.fwd[2], True),
+                       la.pruned_axis_dft_plain(x, fac.fwd[2], True))
+    assert _close_c128(la.local_plane(t, Vtau, fac), la.local_plane_plain(t, Vtau, fac))
+    assert _close_c128(la.local_apply(x, Vtau, fac), la.local_apply_plain(x, Vtau, fac))
+    c64 = lambda f: f.to(torch.complex64)
+    x64, V32 = c64(x), Vtau.float()
+    fac64 = la.LocalFactors(fwd=tuple(map(c64, fac.fwd)), bwd=tuple(map(c64, fac.bwd)))
+    assert _margin(la.local_apply(x64, V32, fac64, "default"),
+                   la.local_apply_plain(x64, V32, fac64, "default"),
+                   la.local_apply_plain(x64, V32, fac64))
+    assert la.counts.launches["local_plane"] == 2
+    assert la.counts.launches["local_plane[bf16]"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_sphere_apply_matches_plain(monkeypatch):
+    """The meta-GGA H apply on the GPU, on the SCAN + NLCC diamond of
+    chip_smoke.py phase l3 (C_m.upf) with its guess density and von
+    Weizsaecker tau: the exact apply (Vtau's DivAgrad term through the
+    kernels) at 1e-11 of max|out| and the sphere filter's bf16 ('default')
+    apply by the margin rule, each against the same apply through the
+    plain versions on the card; the kernels launch, the plain versions are
+    not called."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from torch_port_cells import C_POSITIONS, carbon_basis
+    from dftk_tpu_torch.ops import hamiltonian as hamops
+    from dftk_tpu_torch.ops.density import von_weizsaecker_tau
+    from dftk_tpu_torch.ops.engine_split import sphere_filter_ops
+    basis = carbon_basis(dt, C_POSITIONS, device="cuda")
+    rho = dt.guess_density(basis)
+    tau = von_weizsaecker_tau(rho, basis.terms.data.G_cart)
+    V, Vtau, _ = hamops.total_potential(basis.terms, rho, basis.model.unit_cell_volume, tau=tau)
+    ham = hamops.build_ham(basis.data, basis.terms.data, V, basis.pruned, Vtau=Vtau)
+    psi = dt.scf.driver.random_orbitals(basis, 3 * 7, seed=9)
+    la.counts.reset()
+    default, exact = sphere_filter_ops(ham, ("default", "highest"))
+    out, out_d = exact(psi), default(psi)
+    torch.cuda.synchronize()
+    launches = dict(la.counts.launches)
+    assert launches["local_plane"] == 2 and launches["local_plane[bf16]"] == 2
+    assert all(v == 0 for v in la.counts.plain.values())
+    monkeypatch.setattr(hamops, "local_apply", la.local_apply_plain)
+    ref, ref_d = exact(psi), default(psi)
+    assert _close_c128(out, ref)
+    assert _margin(out_d, ref_d, ref.to(torch.complex64))

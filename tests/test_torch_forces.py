@@ -19,7 +19,8 @@ forces (1e-7 Ha/bohr) and the stresses (1e-8 Ha/bohr^3), and
 energy_at_lattice at the SCF lattice gives the port's SCF energy to 1e-10
 (tests/test_forces_stresses.py:52-58); the JAX SCF's values are recorded
 in tests/data/torch_port_si2_derivatives.json with the command that made
-them.  Unported cases raise; the derivatives symmetrized over the
+them.  Unported cases raise; NLCC derivatives equal central differences
+of their energy; the derivatives symmetrized over the
 displaced cell's four operations equal the JAX package's (1e-12).
 
 The JAX package's Ewald, compute_forces, energy_at_lattice and
@@ -27,6 +28,7 @@ compute_stresses_cart gradients run here under jax.jit: called eagerly
 they spend most of the file's time compiling op by op.
 """
 import copy
+import dataclasses
 import json
 import pathlib
 import types
@@ -251,32 +253,82 @@ def test_scf_derivatives_match():
     assert abs(E_lat - res.total_energy) < 1e-10
 
 
-class _CoreSi(dt.ElementPsp):
-    """An element that claims an NLCC core density."""
+class _CorePsp(dt.models.psp_hgh.PspHgh):
+    """lda/si-q4 with a Gaussian NLCC core density 0.3 e^{-p^2 / 2}."""
 
     def has_core_density(self):
         return True
+
+    def core_density_fourier(self, p):
+        return self.core_density_fourier_sq(np.asarray(p) ** 2)
+
+    def core_density_fourier_sq(self, psq):
+        return 0.3 * (torch.exp(-psq / 2) if torch.is_tensor(psq) else np.exp(-psq / 2))
+
+
+def _nlcc_derivatives_match_differences(tb, ts, derivative):
+    """The NLCC case: Si2 with a Gaussian core density on the injected
+    state.  Its forces (or stresses) are -dE/dR (or dE/d strain / Omega) of
+    the energy they differentiate: within 1e-8 of central differences of
+    `_positions_energy` (or `energy_at_lattice`) at fixed orbitals, and the
+    core term changes them."""
+    psp = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4").psp
+    Si = dt.ElementPsp(symbol="Si", Z=14, psp=_CorePsp(**{
+        f.name: getattr(psp, f.name) for f in dataclasses.fields(psp)}))
+    model = dt.model_DFT(SI_LATTICE, [Si, Si], POSITIONS, functionals=["lda_x", "lda_c_vwn"],
+                         symmetries=False)
+    basis = dt.PlaneWaveBasis(model, Ecut=7.0, kgrid=dt.MonkhorstPack((2, 2, 2)),
+                              fft_size=(18, 18, 18), device="cpu")
+    assert basis.terms.rho_core_np is not None
+    h = 1e-5
+    if derivative == "forces":
+        F = forces.compute_forces(ts, basis)
+        E = [float(forces._positions_energy(basis, ts.psi, ts.occupation, ts.rho,
+                                            torch.as_tensor(np.stack(POSITIONS)
+                                                            + s * h * np.eye(2 * 3)[0].reshape(2, 3))))
+             for s in (1, -1)]
+        fd, got, plain = -(E[0] - E[1]) / (2 * h), float(F[0, 0]), float(
+            forces.compute_forces(ts, tb)[0, 0])
+    else:
+        S = stresses.compute_stresses_cart(ts, basis)
+        L0 = torch.as_tensor(SI_LATTICE)
+        eps = torch.zeros(3, 3, dtype=torch.float64)
+        eps[0, 0] = h
+        E = [float(stresses.energy_at_lattice(basis, ts.psi, ts.occupation,
+                                              (torch.eye(3, dtype=torch.float64) + s * eps) @ L0))
+             for s in (1, -1)]
+        fd = (E[0] - E[1]) / (2 * h) / model.unit_cell_volume
+        got, plain = float(S[0, 0]), float(stresses.compute_stresses_cart(ts, tb)[0, 0])
+    print(f"NLCC {derivative}: autograd {got:.10e}, central difference {fd:.10e}, "
+          f"without the core {plain:.10e}")
+    assert abs(got - fd) < 1e-8 and abs(got - plain) > 1e-6
 
 
 @pytest.mark.parametrize("derivative", ["forces", "stresses"])
 @pytest.mark.parametrize("what", ["nlcc", "pairwise", "tau", "symmetry"])
 def test_unported_raise(state, what, derivative):
-    """Unported cases raise, naming their ROADMAP item.  The "symmetry" case
-    (item 5a, now ported) holds the derivatives symmetrized over the four
-    operations of the displaced Si2 (detected by the port) against the JAX
-    package's on the same basis, within 1e-12."""
+    """Unported cases raise, naming their ROADMAP item (classical pairwise
+    terms, item 11).  The other cases check what was refused before and now
+    runs: "symmetry" (item 5a) holds the derivatives symmetrized over the
+    four operations of the displaced Si2 (detected by the port) against the
+    JAX package's on the same basis, within 1e-12; "nlcc" (item 8b) holds
+    the NLCC derivatives of a Gaussian core density to central differences
+    of their energy (tests/test_torch_upf.py holds the NLCC and meta-GGA
+    derivatives against the JAX package's); "tau" (item 8b): a tau on an LDA
+    result does not enter its derivatives."""
     jb, js, tb, ts = state
     basis, res = copy.copy(tb), copy.copy(ts)
+    fn = dt.compute_forces_cart if derivative == "forces" else dt.compute_stresses_cart
     if what == "nlcc":
-        Si = _CoreSi.from_symbol("Si", psp="lda/si-q4")
-        model = dt.model_DFT(SI_LATTICE, [Si, Si], POSITIONS, functionals=["lda_x"],
-                             symmetries=False)
-        basis = dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
+        _nlcc_derivatives_match_differences(tb, ts, derivative)
+        return
     elif what == "pairwise":
         basis.terms = copy.copy(tb.terms)
         basis.terms.pairwise_forces = np.zeros((2, 3))
     elif what == "tau":
         res.tau = res.rho
+        assert _max_diff(fn(res, basis), fn(ts, tb)) == 0.0
+        return
     else:
         Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
         basis.symmetries = symmetry_operations(SI_LATTICE, [Si, Si], POSITIONS)
@@ -293,7 +345,5 @@ def test_unported_raise(state, what, derivative):
         print(f"symmetrized {derivative} vs JAX: {_max_diff(out, ref):.2e}")
         assert _max_diff(out, ref) < BAR
         return
-    item = {"nlcc": "item 8", "pairwise": "item 11", "tau": "item 8"}[what]
-    fn = dt.compute_forces_cart if derivative == "forces" else dt.compute_stresses_cart
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 11"):
         fn(res, basis)

@@ -44,7 +44,7 @@ def setup():
     V_j, E_j = jax_ham.total_potential(jb.terms, rho_j, jnp.asarray(jb.G_cube_cart),
                                        volume)
     _, rho_t = state_from_numpy(rho=np.asarray(rho_j), device="cpu")
-    V_t, E_t = ham_ops.total_potential(tb.terms, rho_t, volume)
+    V_t, _, E_t = ham_ops.total_potential(tb.terms, rho_t, volume)
     return jb, tb, V_j, E_j, V_t, E_t
 
 

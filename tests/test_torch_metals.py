@@ -217,8 +217,8 @@ def test_total_potential_spin_pbe(fe2_local, reference):
     _, rho = state_from_numpy(rho=np.array(jax_guess_density(jb, magnetic_moments=[4.0, 2.0])),
                               device="cpu")
     vol = tb.model.unit_cell_volume
-    V, E = hamops.total_potential(tb.terms, rho, vol)
-    Vs, Es = total_potential_split(tb.terms, prepare_split_data(tb), rho, vol)
+    V, _, E = hamops.total_potential(tb.terms, rho, vol)
+    Vs, _, Es = total_potential_split(tb.terms, prepare_split_data(tb), rho, vol)
     assert V.shape == (2, 8, 8, 8)
     assert np.abs(V.numpy() - np.array(ref["V"])).max() < 1e-12
     assert np.abs(Vs.numpy() - np.array(ref["V_split"])).max() < 1e-12

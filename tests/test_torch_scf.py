@@ -65,7 +65,7 @@ def test_lobpcg_matches(setup):
 
     psi_t, rho_t = state_from_numpy(psi=np.asarray(psi0), rho=np.asarray(rho0),
                                     device="cpu")
-    V_t, _ = ham_ops.total_potential(tb.terms, rho_t, volume)
+    V_t, _, _ = ham_ops.total_potential(tb.terms, rho_t, volume)
     ham_t = ham_ops.build_ham(tb.data, tb.terms.data, V_t, tb.pruned)
     res_t = lobpcg(lambda p: ham_ops.apply_H(ham_t, p), psi_t, ham_t.kin,
                    tb.data.mask, tol=1e-7, n_conv=N_BANDS)

@@ -3,6 +3,8 @@
 Si2 at Ecut 7, fft_size (18,18,18), MonkhorstPack((2,2,2)), no symmetry.
 The index arrays are equal; the terms data agree to 1e-12.
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -108,10 +110,13 @@ def test_identity_symmetry_list_accepted():
 
 @pytest.mark.parametrize("what", ["symmetries", "upf", "term", "functional"])
 def test_unported_features_raise(what):
-    """What the port refuses: UPF files and meta-GGA (ROADMAP Queue 1 item
-    8b), terms it does not have (exact exchange, item 11).  Symmetry
-    detection with magnetic moments, refused before item 8a, now splits the
-    atoms by moment as the JAX package does; that case checks it."""
+    """What the port refuses: terms it does not have (exact exchange, item
+    11).  The other cases check what was refused before and now runs:
+    symmetry detection with magnetic moments (item 8a) splits the atoms by
+    moment as the JAX package does; a UPF file (item 8b) loads as the JAX
+    package's PspUpf, and a meta-GGA functional (item 8b) instantiates
+    with its tau data (tests/test_torch_upf.py and test_torch_mgga.py hold
+    them against the JAX package)."""
     Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
     args = (SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8])
     if what == "symmetries":
@@ -122,16 +127,22 @@ def test_unported_features_raise(what):
         assert model.spin_polarization == "collinear"
         assert len(model.symmetries) == len(ref.symmetries) == 24
         return
+    if what == "upf":
+        path = str(pathlib.Path(__file__).parent / "data" / "pseudos" / "gth" / "Si.pbe-hgh.upf")
+        psp = dt.ElementPsp.from_symbol("Si", psp=path).psp
+        ref = dftk.ElementPsp.from_symbol("Si", psp=path).psp
+        assert isinstance(psp, dt.PspUpf) and psp.Zion == ref.Zion == 4
+        assert psp.lmax == ref.lmax and psp.h == ref.h and psp.rgrid == ref.rgrid
+        return
+    if what == "functional":
+        model = dt.model_DFT(*args, functionals=["mgga_x_scan"], symmetries=False)
+        basis = dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
+        assert basis.terms.needs_tau and basis.terms.tau_core_np is None
+        return
     with pytest.raises(NotImplementedError):
-        if what == "upf":
-            dt.ElementPsp.from_symbol("Si", psp="si.upf")
-        elif what == "term":
-            model = dt.model_DFT(*args, functionals=["lda_x"], symmetries=False,
-                                 extra_terms=[dftk.ExactExchange()])
-            dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
-        else:
-            model = dt.model_DFT(*args, functionals=["mgga_x_scan"], symmetries=False)
-            dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
+        model = dt.model_DFT(*args, functionals=["lda_x"], symmetries=False,
+                             extra_terms=[dftk.ExactExchange()])
+        dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["NoSmearing", "FermiDirac", "Gaussian",

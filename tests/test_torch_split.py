@@ -84,7 +84,7 @@ def _jax_potential(jb, rho):
 
 
 def _port_ham(tb, rho):
-    V, _ = ham_ops.total_potential(tb.terms, torch.as_tensor(rho), tb.model.unit_cell_volume)
+    V, _, _ = ham_ops.total_potential(tb.terms, torch.as_tensor(rho), tb.model.unit_cell_volume)
     return ham_ops.build_ham(tb.data, tb.terms.data, V, tb.pruned)
 
 
@@ -172,7 +172,7 @@ def test_split_adapters_match_jax(si, what):
         out = tes.realify_orbitals(torch.as_tensor(X0)).numpy()
         ref = np.asarray(jes.realify_orbitals(jnp.asarray(X0)))
     elif what == "apply_H":
-        V_t, _ = ham_ops.total_potential(tb.terms, torch.as_tensor(rho0), volume)
+        V_t, _, _ = ham_ops.total_potential(tb.terms, torch.as_tensor(rho0), volume)
         out = tes.apply_H_split(tes.make_split_ham(sd_t, V_t), U, tb.fft_size, volume,
                                 band_chunk=3).numpy()
         ref = np.asarray(jes.apply_H_split(jes.make_split_ham(sd_j, _jax_potential(jb, rho0)),
@@ -267,11 +267,20 @@ def test_split_scf_warm_restart(si):
 @pytest.mark.parametrize("what", ["temperature", "symmetric", "paired", "mesh",
                                   "bf16_filter"])
 def test_split_scf_refusals(si, what):
-    """What the split SCF refuses: the realified band representation, the
-    k-point mesh (item 13) and the all-bf16 filter (item 8b).  Finite
-    temperature and symmetric runs with magnetic moments, refused before
-    item 8a, now run; those two cases check one iteration of each."""
+    """What the split SCF refuses: the realified band representation and the
+    k-point mesh (item 13).  Finite temperature and symmetric runs with
+    magnetic moments, refused before item 8a, and the all-bf16 filter,
+    refused before item 8b, now run; those cases check one iteration of
+    each (the all-bf16 one filters with the bf16 plain versions only)."""
     tb = si[1]
+    if what == "bf16_filter":
+        from dftk_tpu_torch.kernels import local_apply as la
+        la.counts.reset()
+        res = dt.self_consistent_field_split(tb, maxiter=1, filter_precision="default",
+                                             **CHEFSI)
+        assert np.isfinite(res["energies"]["total"])
+        assert la.counts.plain["local_plane[bf16]"] > 0
+        return
     if what in ("temperature", "symmetric"):
         Si = dt.ElementPsp.from_symbol("Si", psp=silicon["psp"])
         kw = (dict(symmetries=False, temperature=0.01) if what == "temperature"
@@ -287,9 +296,6 @@ def test_split_scf_refusals(si, what):
     with pytest.raises(NotImplementedError):
         if what == "paired":
             dt.self_consistent_field_split(tb, maxiter=1, band_repr="paired")
-        elif what == "bf16_filter":
-            dt.self_consistent_field_split(tb, maxiter=1, filter_precision="default",
-                                           **CHEFSI)
         else:
             dt.self_consistent_field_split(tb, maxiter=1, mesh=object())
 
