@@ -187,11 +187,30 @@ Phases (any failure raises and exits non-zero):
      bands), bf16 where the run filters in bf16; every run with the
      kernels launched (bf16 too where it filters in bf16) and no plain
      call, its wall, iterations and peak device memory
+  m. the other SCF solvers and the response core, in float64: m1 phase
+     4's Si54 by scf_potential_mixing (tol 1e-9, capped at 40 iterations:
+     its residual stops falling near 1e-6 in both packages, PERF.md section
+     6), newton (tol 1e-10, 2 warm-start SCF iterations) and
+     direct_minimization (tol 1e-11, at most 500 iterations), each within
+     1e-7 Ha of E_ref (the last two converged); m2 the LOBPCG SCF with
+     Chi0Mixing to 1e-8, converged within 1e-7 Ha of E_ref; m3 against
+     tests/data/torch_port_response.json (the JAX package's CPU float64
+     values): chi0 dV of a smooth dV on aluminium (Ecut 6, kgrid 3^3, no
+     symmetry, T 0.01, its own SCF to 1e-11) at Sternheimer tol 1e-11 with
+     and without the Schur complement within 1e-8 of max|drho|, its charge
+     within 1e-8; the helium polarizability (10 bohr box, Ecut 8) within
+     1e-6 relative, and its Dyson solve with inexact GMRES within 1e-7 of
+     the exact one; the lowest eigenvalue of the bare Omega of atomic Si2
+     (Ecut 5, Gamma) within 1e-5 of its HOMO-LUMO gap; before each run
+     kernels A and B against their plain versions at its band block in
+     complex128; every run with the kernels launched and no plain call,
+     its wall, iterations, peak device memory, Sternheimer solves, CG
+     steps and host reads of a residual norm
   5. print the kernels' JSON line (launches from phases c, e, f, g, h, j,
-     k and l, times from phases 3, a, e, f, g and h, bounds from the
+     k, l and m, times from phases 3, a, e, f, g and h, bounds from the
      shapes; the main path's kernels also with their device time and their
-     max_abs_err at each phase-j, phase-k and phase-l run's shapes), then
-     the result line.
+     max_abs_err at each phase-j, phase-k, phase-l and (complex128)
+     phase-m run's shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -1599,20 +1618,24 @@ def run_on_card(la, label, smi, fn, tag="j"):
     return out, launches
 
 
-def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j", stack=1):
+def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j", stack=1, block=None):
     """Kernels A and B (and the A -> B -> A chain) against their plain
     versions on one band block of the SCF at the basis' own shapes, with a
     seeded potential of its own on every k row (under collinear spin the
     two halves of the rows differ as the spin channels do): in complex128
     at BARS, and in bf16 (where the path runs it) by the BF16_MARGIN rule.
     stack: the block's bands times this (3: a meta-GGA's DivAgrad batch,
-    the three p_a-scaled copies of the block in one apply).  Called before
+    the three p_a-scaled copies of the block in one apply).  block: the
+    block's bands where they are not n_bands plus the SCF's default extra
+    bands (an operator on the occupied bands only, or explicit extras).
+    Called before
     run_on_card, whose counts start after it.  Adds each kernel's
     max_abs_err at this path to errs[name][label]."""
     import torch
     pf, n = basis.pruned, basis.fft_size
     rng = np.random.default_rng(20261017)
-    shape = (basis.n_kpoints, stack * (n_bands + max(3, n_bands // 10))) + pf.m_shape
+    block = block or n_bands + max(3, n_bands // 10)
+    shape = (basis.n_kpoints, stack * block) + pf.m_shape
     xc_np = rng.normal(size=shape) + 1j * rng.normal(size=shape)
     V_np = rng.normal(size=(basis.n_kpoints, n[2], n[0], n[1]))
     for dtype, prec in ((torch.complex128, "highest"),) + (
@@ -2320,6 +2343,188 @@ def mgga_phase(dt, la, device, smi, E_c):
     return total, errs
 
 
+# phase m: the other SCF solvers and the response core; the cells of
+# tests/data/make_torch_port_response.py (copied below), whose JAX values are
+# in tests/data/torch_port_response.json
+AL_FCC = 7.65339 / 2 * np.array([[0.0, 1, 1], [1, 0, 1], [1, 1, 0]])
+HE_BOX = 10.0
+CHI0_REL_TOL, CHARGE_TOL, POLARIZABILITY_REL_TOL, DYSON_INEXACT_TOL, GAP_TOL = (
+    1e-8, 1e-8, 1e-6, 1e-7, 1e-5)
+# Newton's warm start: the LOBPCG SCF's iterations before the first step
+NEWTON_START_ITERS = 2
+# potential mixing's residual falls slowly and not monotonically: its least
+# in 40 iterations on Si8 is 1.97e-6 (the port) and 1.20e-6 (the JAX
+# package), CPU, PERF.md section 6.  The run is capped at 40 iterations;
+# its energy is gated and its least residual at 10x that Si8 floor
+POTENTIAL_MIXING_ITERS = 40
+POTENTIAL_MIXING_RESIDUAL_BAR = 2e-5
+
+
+def smooth_potential(fft_size):
+    """The smooth zero-mean dV [1, n1, n2, n3] of tests/test_chi0_metal.py."""
+    axes = [np.arange(n) / n for n in fft_size]
+    r = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+    return 0.1 * (np.cos(2 * np.pi * r[..., 0]) + np.sin(2 * np.pi * r[..., 1])
+                  + 0.5 * np.cos(2 * np.pi * (r[..., 1] + r[..., 2])))[None]
+
+
+def solvers_phase(dt, la, device, smi):
+    """Phase m: the other ground-state solvers and the response core on the
+    card: Si54 (phase 4's basis) by potential mixing, Newton, direct
+    minimization and the SCF with Chi0Mixing against E_ref; chi0 of a metal,
+    the helium polarizability with exact and inexact GMRES, and the
+    lowest eigenvalue of Omega on atomic Si2 against the JAX package's
+    values.  Returns the kernel launches of its runs and each kernel's
+    max_abs_err at each run's shapes."""
+    import torch
+    from dftk_tpu_torch.response import chi0 as chi0_mod
+    from dftk_tpu_torch.response.hessian import solve_dyson
+    from dftk_tpu_torch.scf.newton import newton
+    from dftk_tpu_torch.scf.potential_mixing import scf_potential_mixing
+    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
+    t_phase = time.time()
+    with open(os.path.join(HERE, "tests", "data", "torch_port_response.json")) as f:
+        ref = json.load(f)
+    with open(os.path.join(HERE, "tests", "data", "torch_port_si54.json")) as f:
+        E_ref = json.load(f)["total_energy"]
+    total, errs = {}, {}
+    cg = chi0_mod.counts
+
+    def run(label, tag, fn):
+        cg.reset()
+        out, launches = run_on_card(la, label, smi, fn, tag=tag)
+        print(f"[{tag}] {label}: {cg.solves} Sternheimer solves (chi0 applies: GMRES matvecs "
+              f"in Chi0Mixing and the Dyson solve), CG steps {cg.steps}, {cg.host_reads} host "
+              f"reads of a residual norm", flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def show(tag):
+        return lambda i: print(f"[{tag}] it={i['n_iter']:3d} E={i['E']:.12f} " + " ".join(
+            f"{k}={i[k]:.3e}" for k in ("drho", "dV", "rnorm", "gnorm") if k in i), flush=True)
+
+    def energy_line(tag, label, res, bar=E_TOL, converges=True):
+        dE = res.total_energy - E_ref
+        print(f"[{tag}] {label}: converged={res.converged} n_iter={res.n_iter} "
+              f"E={res.total_energy:.12f} E - E_ref={dE:.3e} (bar {bar:.0e}; {smi})", flush=True)
+        check(res.converged or not converges, f"{label}: converged")
+        check(np.isfinite(res.total_energy) and abs(dE) < bar,
+              f"{label}: within {bar} Ha of E_ref")
+
+    # m1: Si54 by potential mixing, Newton and direct minimization
+    t0 = time.time()
+    basis = build_bench_basis(3, 10.0, device)
+    n_bands = basis.model.default_n_bands()
+    print(f"[m1] {basis} set up in {time.time() - t0:.1f} s", flush=True)
+    hold_kernels_at(la, basis, "m1 potential mixing", n_bands, errs, tag="m1")
+    res = run("m1 Si54 potential mixing", "m1", lambda: scf_potential_mixing(
+        basis, tol=1e-9, maxiter=POTENTIAL_MIXING_ITERS, callback=show("m1 potential mixing")))
+    least = min(res.history_Drho)
+    print(f"[m1] potential mixing: residual {res.history_Drho[-1]:.3e}, least {least:.3e} "
+          f"(bar {POTENTIAL_MIXING_RESIDUAL_BAR:.0e})", flush=True)
+    check(least < POTENTIAL_MIXING_RESIDUAL_BAR,
+          f"m1 potential mixing: least residual under {POTENTIAL_MIXING_RESIDUAL_BAR}")
+    energy_line("m1", "potential mixing", res, converges=False)
+    del res
+    hold_kernels_at(la, basis, "m1 Newton warm start", n_bands, errs, tag="m1",
+                    block=n_bands + 2)
+    hold_kernels_at(la, basis, "m1 Newton", n_bands, errs, tag="m1", block=n_bands)
+    res = run("m1 Si54 Newton", "m1", lambda: newton(
+        basis, tol=1e-10, scf_start_iters=NEWTON_START_ITERS, callback=show("m1 Newton")))
+    energy_line("m1", f"Newton (warm start: {NEWTON_START_ITERS} SCF iterations)", res)
+    del res
+    hold_kernels_at(la, basis, "m1 direct minimization", n_bands, errs, tag="m1",
+                    block=n_bands)
+    res = run("m1 Si54 direct minimization", "m1", lambda: dt.direct_minimization(
+        basis, tol=1e-11, maxiter=500))
+    energy_line("m1", "direct minimization", res)
+    del res
+
+    # m2: the LOBPCG SCF with the exact chi0 mixing
+    hold_kernels_at(la, basis, "m2 Chi0Mixing", n_bands, errs, tag="m2")
+    res = run("m2 Si54 Chi0Mixing SCF", "m2", lambda: dt.self_consistent_field(
+        basis, tol=1e-8, maxiter=40, mixing=dt.Chi0Mixing(), callback=show("m2 Chi0Mixing")))
+    energy_line("m2", "Chi0Mixing SCF", res)
+    del res, basis
+    torch.cuda.empty_cache()
+
+    # m3: the response operators against the JAX package's values
+    r = ref["al_chi0"]
+    Al = dt.ElementPsp.from_symbol("Al", psp="lda/al-q3")
+    model = dt.model_DFT(AL_FCC, [Al], [np.zeros(3)], functionals=["lda_x", "lda_c_vwn"],
+                         temperature=1e-2, symmetries=False)
+    basis = dt.PlaneWaveBasis(model, Ecut=6.0, kgrid=(3, 3, 3), device=device)
+    check(list(basis.fft_size) == r["fft_size"], "m3 Al: the JAX package's FFT size")
+    hold_kernels_at(la, basis, "m3 Al", 8, errs, tag="m3", block=12)
+    res = run("m3 Al SCF", "m3", lambda: dt.self_consistent_field(
+        basis, tol=1e-11, maxiter=60, n_bands=8, n_extra_bands=4))
+    print(f"[m3] Al: n_iter={res.n_iter} E - E_JAX={res.total_energy - r['total_energy']:.3e}",
+          flush=True)
+    ctx = dt.make_chi0_context(res)
+    dV = basis.tensor(smooth_potential(basis.fft_size))
+    for key, schur in (("schur", True), ("plain", False)):
+        drho = run(f"m3 Al chi0 dV ({key})", "m3",
+                   lambda: dt.apply_chi0(ctx, basis, dV, tol=1e-11, use_schur=schur))
+        want = np.array(r[f"chi0_{key}"])
+        rel = float(np.abs(drho.cpu().numpy() - want).max() / np.abs(want).max())
+        charge = float(drho.sum()) * basis.dvol
+        print(f"[m3] Al chi0 dV ({key}): relative to the JAX package's {rel:.3e} (bar "
+              f"{CHI0_REL_TOL:.0e}), charge {charge:.2e} ({smi})", flush=True)
+        check(rel < CHI0_REL_TOL and abs(charge) < CHARGE_TOL,
+              f"m3 Al chi0 ({key}) within {CHI0_REL_TOL} of JAX, charge conserved")
+    del res, ctx, basis
+
+    r = ref["helium"]
+    He = dt.ElementPsp.from_symbol("He", psp="lda/he-q2")
+    model = dt.model_DFT(np.eye(3) * HE_BOX, [He], [np.array([0.5, 0.5, 0.5])],
+                         functionals=["lda_x", "lda_c_vwn"], symmetries=False)
+    basis = dt.PlaneWaveBasis(model, Ecut=8.0, kgrid=(1, 1, 1), device=device)
+    check(list(basis.fft_size) == r["fft_size"], "m3 He: the JAX package's FFT size")
+    hold_kernels_at(la, basis, "m3 He", 1, errs, tag="m3", block=4)
+    res = run("m3 He SCF", "m3", lambda: dt.self_consistent_field(basis, tol=1e-11, maxiter=60))
+    alpha = run("m3 He polarizability", "m3",
+                lambda: dt.compute_polarizability(res, direction=2, tol=1e-9))
+    rel = abs(alpha - r["polarizability"]) / abs(r["polarizability"])
+    print(f"[m3] He polarizability {alpha:.10f}, JAX {r['polarizability']:.10f}: relative "
+          f"{rel:.3e} (bar {POLARIZABILITY_REL_TOL:.0e})", flush=True)
+    check(rel < POLARIZABILITY_REL_TOL, f"m3 He polarizability within {POLARIZABILITY_REL_TOL}")
+    axes = [np.arange(n) / n for n in basis.fft_size]
+    z = np.meshgrid(*axes, indexing="ij")[2] * HE_BOX - HE_BOX / 2
+    dV = basis.tensor(z[None])
+    exact, inexact = (run(f"m3 He Dyson, {name} GMRES", "m3",
+                          lambda: solve_dyson(res, dV, tol=1e-8, inexact=flag)[0])
+                      for name, flag in (("exact", False), ("inexact", True)))
+    diff = float((exact - inexact).abs().max())
+    print(f"[m3] He Dyson drho, inexact against exact: {diff:.3e} (bar {DYSON_INEXACT_TOL:.0e})",
+          flush=True)
+    check(diff < DYSON_INEXACT_TOL, f"m3 inexact GMRES within {DYSON_INEXACT_TOL} of exact")
+    del res, basis, exact, inexact
+
+    r = ref["si2_atomic"]
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    lattice = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
+    model = dt.model_atomic(lattice, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8])
+    basis = dt.PlaneWaveBasis(model, Ecut=5.0, kgrid=(1, 1, 1), device=device)
+    hold_kernels_at(la, basis, "m3 atomic Si2", 6, errs, tag="m3")
+    hold_kernels_at(la, basis, "m3 atomic Si2 Omega", 6, errs, tag="m3", block=4)
+    res = run("m3 atomic Si2 SCF", "m3",
+              lambda: dt.self_consistent_field(basis, tol=1e-8, n_bands=6))
+    gap = float(res.eigenvalues[0, 4] - res.eigenvalues[0, 3])
+    lam, _ = run("m3 atomic Si2 eigen_omega_plus_k", "m3", lambda: dt.eigen_omega_plus_k(
+        basis, res.psi[:, :4], torch.as_tensor(res.occupation[:, :4], device=device),
+        n_eigs=3, include_K=False, tol=1e-8))
+    print(f"[m3] atomic Si2: lowest eigenvalue of Omega {lam[0]:.10f}, gap {gap:.10f}, "
+          f"difference {lam[0] - gap:.3e} (bar {GAP_TOL:.0e}); JAX "
+          f"{r['omega_eigenvalues'][0]:.10f}, gap {r['gap']:.10f}", flush=True)
+    check(abs(lam[0] - gap) < GAP_TOL,
+          f"m3 lowest eigenvalue of Omega within {GAP_TOL} of the gap")
+    del res, basis
+    torch.cuda.empty_cache()
+    print(f"[m] phase m took {time.time() - t_phase:.1f} s; launches {total}", flush=True)
+    return total, errs
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -2434,6 +2639,12 @@ def main():
     mgga_launches, mgga_errs = mgga_phase(dt, la, device, smi, E_c)
     for name, count in mgga_launches.items():
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # ---- m. the other SCF solvers and the response core ----------------------------
+    solver_launches, solver_errs = solvers_phase(dt, la, device, smi)
+    for name, count in solver_launches.items():
+        launches[name] += count
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -2453,7 +2664,9 @@ def main():
                             device_ms=timings[name]["device_ms"],
                             max_abs_err_phase_j=sym_errs[name],
                             max_abs_err_phase_k=metal_errs[name],
-                            max_abs_err_phase_l=mgga_errs[name]))
+                            max_abs_err_phase_l=mgga_errs[name],
+                            **({"max_abs_err_phase_m": solver_errs[name]}
+                               if name in solver_errs else {})))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

@@ -20,7 +20,13 @@ reference this port is held against; this package never imports it or jax.
 Crystal symmetry is on by default (`symmetries=True`): IBZ k-points and
 symmetrized densities, forces and stresses.  Mixings: Simple, Kerker,
 dielectric and the LDOS-based LdosMixing, KerkerDosMixing and
-HybridMixing; band counts: FixedBands and AdaptiveBands.  A meta-GGA's H
+HybridMixing, and Chi0Mixing (the exact chi0 by Sternheimer equations);
+band counts: FixedBands and AdaptiveBands.  The other ground-state
+solvers: `direct_minimization`, and `scf.newton.newton` and
+`scf.potential_mixing.scf_potential_mixing` (from their modules, as in the
+JAX package).  The response: `apply_chi0`, `solve_dyson`,
+`compute_polarizability` and the SCF Hessian Omega + K
+(`make_omega_plus_k`, `eigen_omega_plus_k`, `solve_omega_plus_k`).  A meta-GGA's H
 adds the DivAgrad term through the same kernels, and its split SCF filters
 with the sphere apply.  See ROADMAP.md for what is still to port.
 """
@@ -39,15 +45,20 @@ from .models.elements import (ElementCohenBergstresser, ElementCoulomb,  # noqa:
                               ElementGaussian, ElementPsp)
 from .models.psp_lincomb import PspLinComb, virtual_crystal_approximation  # noqa: E402
 from .models.psp_upf import PspUpf, load_psp_upf, parse_upf  # noqa: E402
-from .models.standard import LDA, PBE, PBEsol, model_DFT  # noqa: E402
+from .models.model import Model  # noqa: E402
+from .models.standard import LDA, PBE, PBEsol, model_atomic, model_DFT  # noqa: E402
 from .ops.density import guess_density, spin_density, total_density  # noqa: E402
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
 from .postprocess.forces import compute_forces, compute_forces_cart  # noqa: E402
+from .response.chi0 import apply_chi0, make_chi0_context  # noqa: E402
+from .response.hessian import (compute_polarizability, eigen_omega_plus_k,  # noqa: E402
+                               make_omega_plus_k, solve_dyson, solve_omega_plus_k)
 from .postprocess.stresses import compute_stresses_cart  # noqa: E402
+from .scf.direct import direct_minimization  # noqa: E402
 from .scf.driver import SCFResult, self_consistent_field  # noqa: E402
 from .scf.energy_eval import evaluate_total_energy, refine_split_energy  # noqa: E402
-from .scf.mixing import (DielectricMixing, HybridMixing, KerkerDosMixing,  # noqa: E402
-                         KerkerMixing, LdosMixing, SimpleMixing)
+from .scf.mixing import (Chi0Mixing, DielectricMixing, HybridMixing,  # noqa: E402
+                         KerkerDosMixing, KerkerMixing, LdosMixing, SimpleMixing)
 from .scf.nbands import AdaptiveBands, FixedBands  # noqa: E402
 from .supercell import create_supercell  # noqa: E402
 
@@ -60,4 +71,7 @@ __all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "ElementCoulomb",
            "refine_split_energy", "evaluate_total_energy", "compute_forces",
            "compute_forces_cart", "compute_stresses_cart", "SimpleMixing",
            "KerkerMixing", "DielectricMixing", "LdosMixing", "KerkerDosMixing",
-           "HybridMixing", "FixedBands", "AdaptiveBands"]
+           "HybridMixing", "Chi0Mixing", "FixedBands", "AdaptiveBands",
+           "direct_minimization", "apply_chi0", "make_chi0_context", "solve_dyson",
+           "compute_polarizability", "make_omega_plus_k", "eigen_omega_plus_k",
+           "solve_omega_plus_k", "model_atomic", "Model"]

@@ -6,6 +6,8 @@ between them share inputs rather than seeds: the JAX package's basis and
 terms arrays, its orbitals and its density go through these functions
 (as `np.asarray(...)` of the JAX arrays) onto the port's device and dtype.
 """
+from typing import Any, NamedTuple
+
 import numpy as np
 import torch
 
@@ -64,3 +66,26 @@ def split_state_from_numpy(U=None, rho=None, occupation=None, device="cuda",
     takes `U0`), the density rho [nspin, n1, n2, n3] (`rho0`) and the
     occupations [nk, nb], as real tensors of `dtype`; any may be None."""
     return tuple(None if a is None else _t(a, dtype, device) for a in (U, rho, occupation))
+
+
+class SCFState(NamedTuple):
+    """An SCF state on the port's device: what the response functions
+    (`make_chi0_context`, `solve_dyson`, `compute_polarizability`) read of
+    an SCF result."""
+    basis: Any
+    psi: torch.Tensor            # [nk, nb, nG] complex
+    occupation: torch.Tensor     # [nk, nb]
+    eigenvalues: torch.Tensor    # [nk, nb]
+    epsF: float
+    rho: torch.Tensor            # [nspin, n1, n2, n3]
+
+
+def scf_state_from_numpy(basis, psi, occupation, eigenvalues, epsF, rho):
+    """A JAX SCF result's state (its psi, occupation, eigenvalues, epsF and
+    rho, as numpy) as an SCFState on the port's `basis` (its device and
+    dtypes), so that both packages' response functions see one state."""
+    rdt = real_dtype(basis.dtype)
+    return SCFState(basis=basis, psi=_t(psi, basis.dtype, basis.device),
+                    occupation=_t(occupation, rdt, basis.device),
+                    eigenvalues=_t(eigenvalues, rdt, basis.device), epsF=float(epsF),
+                    rho=_t(rho, rdt, basis.device))

@@ -7,6 +7,9 @@ Occupation f(x) and entropy s(x) of x = (eps - epsF)/T:
   * Gaussian          - erfc(x)/2
   * MarzariVanderbilt - cold smearing
   * MethfesselPaxton(order)
+
+`occupation_derivative` (f' by `torch.autograd`) and
+`occupation_divided_difference` serve the metallic response (chi0).
 """
 import dataclasses
 import math
@@ -22,6 +25,16 @@ class SmearingFunction:
 
     def entropy(self, x):
         raise NotImplementedError
+
+    def occupation_derivative(self, x):
+        """f'(x) elementwise, by torch.autograd."""
+        with torch.enable_grad():
+            t = x.detach().requires_grad_(True)
+            f = self.occupation(t)
+            if not f.requires_grad:          # a step function: f' = 0 off the step
+                return torch.zeros_like(x)
+            (d,) = torch.autograd.grad(f.sum(), t)
+        return d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,3 +107,23 @@ class MethfesselPaxton(SmearingFunction):
         s = sum(self._A(i) * (_hermite(x, 2 * i) / 2 + 2 * i * _hermite(x, 2 * i - 2))
                 for i in range(0, self.order + 1))
         return s * torch.exp(-x * x)
+
+
+def occupation_divided_difference(smearing, x, y, epsF, temperature):
+    """(f(x) - f(y)) / (x - y) with f(z) = occupation((z - epsF) / T),
+    computed stably where x ~ y (reference src/Smearing.jl:34): below
+    |x - y| < 1e-7 max(|x|, |y|, T) the midpoint derivative replaces the
+    quotient.  At T = 0 the step quotient, 0 for degenerate pairs."""
+    if temperature == 0 or isinstance(smearing, NoSmearing):
+        fx = torch.where(x < epsF, 1.0, 0.0).to(x.dtype)
+        fy = torch.where(y < epsF, 1.0, 0.0).to(x.dtype)
+        d = x - y
+        big = d.abs() > 1e-30
+        return torch.where(big, (fx - fy) / torch.where(big, d, 1.0), 0.0)
+    T = temperature
+    d = x - y
+    small = d.abs() < 1e-7 * torch.clamp(torch.maximum(x.abs(), y.abs()), min=T)
+    direct = (smearing.occupation((x - epsF) / T)
+              - smearing.occupation((y - epsF) / T)) / torch.where(small, 1.0, d)
+    mid = smearing.occupation_derivative(((x + y) / 2 - epsF) / T) / T
+    return torch.where(small, mid, direct)

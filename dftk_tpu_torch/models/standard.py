@@ -1,6 +1,6 @@
 """Standard model constructors (reference `src/standard_models.jl`).
 
-Port of `model_DFT`, `LDA`, `PBE` and `PBEsol` from
+Port of `model_atomic`, `model_DFT`, `LDA`, `PBE` and `PBEsol` from
 `dftk_tpu/models/standard.py`.
 """
 from ..ops.terms import (AtomicLocal, AtomicNonlocal, Entropy, Ewald, Hartree,
@@ -14,6 +14,14 @@ def _base_terms(temperature):
     if temperature and temperature > 0:
         terms.append(Entropy())
     return terms
+
+
+def model_atomic(lattice, atoms, positions, temperature=0.0, extra_terms=(), **kwargs):
+    """The base terms without an XC term (Hartree included, as in the JAX
+    package)."""
+    terms = _base_terms(temperature) + list(extra_terms)
+    return Model(lattice=lattice, atoms=list(atoms), positions=list(positions),
+                 temperature=temperature, term_types=terms, **kwargs)
 
 
 def model_DFT(lattice, atoms, positions, functionals="LDA", temperature=0.0,

@@ -1,7 +1,8 @@
 """Densities from orbitals, the superposition guess density, and the
 density symmetrizer.
 
-Port of `compute_density`, `compute_kinetic_energy_density`,
+Port of `compute_density` (with its derivative along the orbitals,
+`compute_density_derivative`), `compute_kinetic_energy_density`,
 `von_weizsaecker_tau`, `guess_density` (with magnetic moments),
 `total_density`, `spin_density`, `build_symmetrization_maps` and
 `make_symmetrizer` of `dftk_tpu/ops/density.py` (reference
@@ -50,6 +51,30 @@ def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin,
         sel = torch.nn.functional.one_hot(basis_data.kspin, n_spin).to(dens_k.dtype)
         rho = torch.einsum("ks,kxyz->sxyz", sel, dens_k)
     return rho if symmetrizer is None else symmetrizer(rho)
+
+
+def compute_density_derivative(basis_data, psi, dpsi, occupation, fft_size, volume,
+                               n_spin, symmetrizer=None):
+    """The first-order change of `compute_density` along dpsi at fixed
+    occupations, the linear
+
+        drho_sigma(r) = sum_{k in sigma} w_k sum_n f_kn 2 Re(conj(psi_kn(r)) dpsi_kn(r)),
+
+    symmetrized like the density (the symmetrizer is linear)."""
+    N = int(np.prod(fft_size))
+    scale = N / math.sqrt(volume)
+    psir, dpsir = (torch.fft.ifftn(fftops.scatter_to_cube(x, basis_data.Gidx, basis_data.mask,
+                                                          fft_size), dim=(-3, -2, -1)) * scale
+                   for x in (psi, dpsi))
+    w = basis_data.kweights[:, None] * occupation
+    prod = psir.real * dpsir.real + psir.imag * dpsir.imag
+    drho_k = 2 * torch.einsum("kn,knxyz->kxyz", w.to(prod.dtype), prod)
+    if n_spin == 1:
+        drho = drho_k.sum(0)[None]
+    else:
+        sel = torch.nn.functional.one_hot(basis_data.kspin, n_spin).to(drho_k.dtype)
+        drho = torch.einsum("ks,kxyz->sxyz", sel, drho_k)
+    return drho if symmetrizer is None else symmetrizer(drho)
 
 
 def compute_kinetic_energy_density(basis_data, psi, occupation, fft_size, volume,

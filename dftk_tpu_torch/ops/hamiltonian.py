@@ -152,22 +152,15 @@ def total_potential(terms, rho, volume, tau=None):
     td = terms.data
     nspin = rho.shape[0]
     dvol = volume / rho[0].numel()
-    rho_tot = torch.sum(rho, dim=0)
-    energies = {}
-
-    V = td.vloc_static.expand(rho.shape).to(rho.dtype)
-    energies["AtomicLocal"] = torch.sum(rho_tot * td.vloc_static) * dvol
-
-    VH = torch.fft.ifftn(td.hartree_coeffs * torch.fft.fftn(rho_tot)).real
-    energies["Hartree"] = 0.5 * torch.sum(VH * rho_tot) * dvol
-    V = V + VH[None]
+    VH, energies = _local_hartree(td, rho, dvol)
+    V = td.vloc_static.expand(rho.shape).to(rho.dtype) + VH[None]
 
     Vtau = None
     if terms.xc:
         # NLCC: the functional sees the valence plus the core density (and
         # the core kinetic-energy density, reference src/terms/xc.jl:100-104);
         # the constant shifts leave the gradients as they are
-        rho_xc = rho if td.rho_core is None else rho + td.rho_core.to(rho.dtype)[None] / nspin
+        rho_xc = _xc_density(terms, rho)
         tau_xc = None
         if tau is not None:
             tau_xc = tau if td.tau_core is None else tau + td.tau_core.to(tau.dtype)[None] / nspin
@@ -194,6 +187,65 @@ def total_potential(terms, rho, volume, tau=None):
                 V = V + (terms.xc_scaling * fscale) * f.potential(
                     rho_xc, td.G_cart.to(rho.dtype), tau_xc)
     return V, Vtau, energies
+
+
+def _local_hartree(td, rho, dvol):
+    """The Hartree potential [grid] of rho [nspin, grid] and the AtomicLocal
+    and Hartree energies (0-d tensors)."""
+    rho_tot = torch.sum(rho, dim=0)
+    VH = torch.fft.ifftn(td.hartree_coeffs * torch.fft.fftn(rho_tot)).real
+    return VH, {"AtomicLocal": torch.sum(rho_tot * td.vloc_static) * dvol,
+                "Hartree": 0.5 * torch.sum(VH * rho_tot) * dvol}
+
+
+def _xc_density(terms, rho):
+    """The density the functional sees: rho plus the NLCC core density."""
+    rho_core = terms.data.rho_core
+    return rho if rho_core is None else rho + rho_core.to(rho.dtype)[None] / rho.shape[0]
+
+
+def _require_energy_functionals(terms, what):
+    """Raise for functionals whose potential is not the derivative of an
+    energy of rho alone: the potential-only ones (TB09) and the meta-GGAs
+    (which need tau), as the JAX package's rho-only potential raises."""
+    for f, _ in terms.xc:
+        if f.potential is not None or f.family == "mgga":
+            raise ValueError(f"{what} needs functionals of rho alone; {f.name} "
+                             f"is {'potential-only' if f.potential is not None else 'a meta-GGA'}")
+
+
+def density_energies(terms, rho, volume):
+    """The rho-dependent energies of `total_potential` (AtomicLocal, Hartree,
+    Xc), as differentiable functions of rho: what `total_potential` returns
+    with its Xc energy detached, here with the graph kept through the XC
+    density (NLCC core included), so that autograd of an energy of the
+    orbitals carries the XC potential (direct minimization).  Functionals
+    of rho alone (LDA, GGA)."""
+    _require_energy_functionals(terms, "density_energies")
+    td = terms.data
+    _, energies = _local_hartree(td, rho, volume / rho[0].numel())
+    if terms.xc:
+        energies["Xc"] = xc_energy(terms.xc, _xc_density(terms, rho), volume,
+                                   terms.xc_scaling, td.G_cart)
+    return energies
+
+
+def xc_potential_derivative(terms, rho, drho, volume):
+    """dV_xc/drho . drho [nspin, grid] at rho: the Hessian of the XC energy
+    applied to drho (double backward through `xc_energy`), over dvol, the
+    derivative of `total_potential`'s XC part.  Functionals of rho alone."""
+    _require_energy_functionals(terms, "the XC kernel")
+    if not terms.xc:
+        return torch.zeros_like(rho)
+    dvol = volume / rho[0].numel()
+    with torch.enable_grad():
+        r = _xc_density(terms, rho).detach().requires_grad_(True)
+        exc = xc_energy(terms.xc, r, volume, terms.xc_scaling, terms.data.G_cart)
+        if not exc.requires_grad:
+            return torch.zeros_like(rho)
+        (vxc,) = torch.autograd.grad(exc, r, create_graph=True)
+        (dvxc,) = torch.autograd.grad(vxc, r, grad_outputs=drho.to(r.dtype))
+    return dvxc / dvol
 
 
 def psi_energies(ham: Ham, psi, occupation, kweights):

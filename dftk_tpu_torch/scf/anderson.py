@@ -21,6 +21,11 @@ class AndersonAcceleration:
         self._xs = []
         self._fs = []
 
+    def reset(self):
+        """Forget the history (potential mixing's backtracking)."""
+        self._xs.clear()
+        self._fs.clear()
+
     def __call__(self, x, f, beta):
         """x, f: tensors of one shape; returns the accelerated x_{n+1}."""
         xnext = x + beta * f

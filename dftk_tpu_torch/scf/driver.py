@@ -9,7 +9,9 @@ one SCF step
 
 with Anderson-accelerated, preconditioned density updates (Simple, Kerker,
 dielectric, or the LDOS-based LdosMixing, KerkerDosMixing and HybridMixing,
-which get the LDOS at the Fermi level of each iteration) and an adaptive
+which get the LDOS at the Fermi level of each iteration, and Chi0Mixing,
+which gets the iterate: H at rho_out, the orbitals, occupations,
+eigenvalues and Fermi level, `response/chi0.py::Chi0Context`) and an adaptive
 eigensolver tolerance (AdaptiveDiagtol, scf_callbacks.jl:191-230).  At
 finite temperature the occupations come from the smearing and the energy
 carries the Entropy term; `nbandsalg` (`scf/nbands.py`) sets the band
@@ -21,8 +23,7 @@ tau of the first density.  The JAX package jit-compiles the step; here it
 runs eagerly on the basis' device.
 
 Not ported, and refused when requested: exact exchange and Hubbard (their
-terms do not instantiate, ROADMAP Queue 1 item 11) and Chi0Mixing (item
-10).
+terms do not instantiate, ROADMAP Queue 1 item 11).
 """
 import dataclasses
 import math
@@ -37,6 +38,7 @@ from ..ops.density import (compute_density, compute_kinetic_energy_density,
                            guess_density, make_symmetrizer, von_weizsaecker_tau)
 from ..ops.eigen.lobpcg import lobpcg, ortho_qr
 from ..ops.occupation import compute_occupation, entropy_energy
+from ..response.chi0 import Chi0Context
 from .anderson import AndersonAcceleration
 from .mixing import KerkerMixing, SimpleMixing
 
@@ -127,9 +129,7 @@ def self_consistent_field(
     terms = basis.terms
     if mixing is None:
         mixing = default_mixing(model)
-    if getattr(mixing, "needs_state", False):
-        raise NotImplementedError("Chi0Mixing needs the response module, which "
-                                  "is not ported yet (ROADMAP Queue 1, item 10)")
+    needs_state = getattr(mixing, "needs_state", False)
     needs_ldos = getattr(mixing, "needs_ldos", False)
     if nbandsalg is not None:
         n_bands, nb_total = nbandsalg.bands(model)
@@ -228,7 +228,11 @@ def self_consistent_field(
             break
         tau = tau_out            # tau follows psi (no mixing)
         # density update: precondition + Anderson + damping
-        if needs_ldos:
+        if needs_state:
+            ctx = Chi0Context(ham=hamops.build_ham(bd, td, V_out, basis.pruned), psi=res.X,
+                              occupation=occ, eigenvalues=res.eigenvalues, epsF=epsF)
+            delta_rho = mixing.mix_density(delta_F, td.Gsq_cart, basis=basis, ctx=ctx)
+        elif needs_ldos:
             delta_rho = mixing.mix_density(
                 delta_F, td.Gsq_cart, ldos=ldos_at(basis, res.X, res.eigenvalues, epsF),
                 dvol=dvol, volume=volume)

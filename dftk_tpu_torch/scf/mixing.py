@@ -1,7 +1,8 @@
 """SCF mixing preconditioners (reference `src/scf/mixing.jl`).
 
 Port of `SimpleMixing`, `KerkerMixing`, `DielectricMixing`, `LdosMixing`,
-`KerkerDosMixing` and `HybridMixing` of `dftk_tpu/scf/mixing.py`.  A mixing
+`KerkerDosMixing`, `HybridMixing` and `Chi0Mixing` of
+`dftk_tpu/scf/mixing.py`.  A mixing
 maps the density residual delta_F = rho_out - rho_in to a preconditioned
 residual before damping and acceleration.  The spin channel passes through
 unmixed, as in the reference (mixing.jl:54-103), except for
@@ -10,14 +11,16 @@ KerkerDosMixing's Delta-DOS coupling.
 The LDOS-based mixings (`needs_ldos`) take the local density of states at
 the Fermi level from the SCF driver (`scf/driver.py::ldos_at`); the model
 dielectric equation of LdosMixing and HybridMixing is solved by the port's
-`response/hessian.py::gmres`.  Chi0Mixing, which applies the exact chi0,
-comes with the response module (ROADMAP Queue 1, item 10).
+`response/hessian.py::gmres`.  Chi0Mixing (`needs_state`) takes the current
+iterate from `self_consistent_field` and applies the exact chi0 through the Sternheimer
+equations (`response/chi0.py`).
 """
 import dataclasses
 import math
 
 import torch
 
+from ..response.chi0 import apply_chi0
 from ..response.hessian import gmres
 
 
@@ -156,6 +159,31 @@ class HybridMixing:
         eps = lambda drho: drho - chi0(_fourier_apply(vc, drho))
         return _with_spin(gmres(eps, torch.sum(delta_F, dim=0), tol=self.tol,
                                 maxiter=self.maxiter), delta_F)
+
+
+@dataclasses.dataclass(frozen=True)
+class Chi0Mixing:
+    """Exact chi0 mixing (reference Applychi0Model, chi0models.jl:45): solves
+    (1 - K chi0) drho = dF by GMRES with K the Hartree kernel and chi0
+    applied through the Sternheimer equations of the current iterate (a
+    batched CG per GMRES matvec, each step one apply of H).  Expensive but
+    free of parameters; a reference mixing for hard cases.  needs_state:
+    `self_consistent_field` passes the iterate as a
+    `response/chi0.py::Chi0Context`."""
+    tol: float = 1e-3
+    maxiter: int = 6
+    sternheimer_tol: float = 1e-6
+    needs_state = True
+
+    def mix_density(self, delta_F, Gsq, basis=None, ctx=None):
+        vc = _hartree_kernel(Gsq)
+
+        def K(drho):              # the RPA (Hartree) kernel of the total density
+            return _fourier_apply(vc, torch.sum(drho, dim=0)).expand(drho.shape)
+
+        return gmres(lambda drho: drho - apply_chi0(ctx, basis, K(drho),
+                                                    tol=self.sternheimer_tol),
+                     delta_F, tol=self.tol, maxiter=self.maxiter)
 
 
 def _apply_fourier_factor_total(delta_F, factor):

@@ -24,7 +24,9 @@ the density symmetrizer against the CPU's (1e-13) and, at symmetric Si54's
 against the CPU's (1e-11), every op of both on the card.  Kernels A and B,
 complex128 and bf16, at the collinear-spin paths' shapes (iron, Fe2,
 Fe16, Fe54), with the up and down potentials on the two halves of the k
-rows.  The filter-stage probe kernels (`kernels/filter_stages.py`)
+rows.  One Sternheimer solve of chi0 and one apply of Omega + K on the
+card against the same on the CPU (1e-11), on a symmetric Si2 state.  The
+filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
 planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
 the margin rule above, the copy at 1e-6.  The planar chain (`probe_planar`,
@@ -984,3 +986,64 @@ def test_cuda_sphere_apply_matches_plain(monkeypatch):
     ref, ref_d = exact(psi), default(psi)
     assert _close_c128(out, ref)
     assert _margin(out_d, ref_d, ref.to(torch.complex64))
+
+
+@pytest.fixture(scope="module")
+def si2_response_state():
+    """The symmetric Si2 (Ecut 7, 3 irreducible k-points) on the CPU and on
+    the card, and its LOBPCG SCF on the CPU to 1e-10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    cpu, gpu = _si2_symmetric("cpu"), _si2_symmetric("cuda")
+    res = dt.self_consistent_field(cpu, tol=1e-10, n_bands=4, seed=7)
+    assert res.converged
+    return cpu, gpu, res
+
+
+@pytest.mark.cuda
+def test_cuda_sternheimer_solve_matches_cpu(si2_response_state):
+    """One Sternheimer solve of chi0 (15 CG steps, the Schur complement of
+    the 3 unoccupied bands) on the card against the same solve on the CPU
+    (1e-11 of max|dpsi|): every apply of H through the kernels, no plain
+    version."""
+    from dftk_tpu_torch.interop import scf_state_from_numpy
+    from dftk_tpu_torch.ops import hamiltonian as hamops
+    from dftk_tpu_torch.response.chi0 import apply_dV, make_chi0_context, sternheimer_solver
+    cpu, gpu, res = si2_response_state
+    state = scf_state_from_numpy(gpu, res.psi.numpy(), res.occupation, res.eigenvalues,
+                                 res.epsF, res.rho.numpy())
+    dV = np.random.default_rng(42).normal(size=(1,) + cpu.fft_size) * 0.1
+    out = {}
+    for basis, st in ((cpu, res), (gpu, state)):
+        ctx = make_chi0_context(st, basis)
+        occ_mask = ctx.occupation > 1e-8
+        rhs = apply_dV(ctx.ham, ctx.psi, basis.tensor(dV), basis.data.kspin)
+        la.counts.reset()
+        out[basis.device.type] = sternheimer_solver(
+            lambda p: hamops.apply_H(ctx.ham, p), ctx.psi * occ_mask[:, :, None],
+            ctx.eigenvalues, rhs * occ_mask[:, :, None], ctx.ham.kin, basis.data.mask,
+            tol=0.0, maxiter=15, psi_extra=ctx.psi * (~occ_mask)[:, :, None],
+            eps_extra=ctx.eigenvalues, extra_mask=~occ_mask)
+    assert la.counts.launches["pruned_axis_dft"] > 0 and la.counts.launches["local_plane"] > 0
+    assert all(v == 0 for v in la.counts.plain.values())
+    assert _close_c128(out["cuda"], out["cpu"].cuda())
+
+
+@pytest.mark.cuda
+def test_cuda_omega_plus_k_apply_matches_cpu(si2_response_state):
+    """(Omega + K) dpsi on the card against the CPU's (1e-11 of max|out|)
+    on the occupied bands of the Si2 state and a seeded dpsi: the H apply
+    and dV psi through the kernels, the XC kernel by double backward on
+    the card, no plain version."""
+    cpu, gpu, res = si2_response_state
+    psi, occ = res.psi[:, :4], res.occupation[:, :4]
+    rng = np.random.default_rng(43)
+    dpsi = (rng.normal(size=psi.shape) + 1j * rng.normal(size=psi.shape)) * cpu.mask_np[:, None]
+    out = {}
+    for basis in (cpu, gpu):
+        OmegaK, _, _ = dt.make_omega_plus_k(basis, psi.to(basis.device), occ)
+        la.counts.reset()
+        out[basis.device.type] = OmegaK(basis.tensor(dpsi, basis.dtype))
+    assert la.counts.launches["pruned_axis_dft"] > 0 and la.counts.launches["local_plane"] > 0
+    assert all(v == 0 for v in la.counts.plain.values())
+    assert _close_c128(out["cuda"], out["cpu"].cuda())

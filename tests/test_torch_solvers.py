@@ -1,0 +1,133 @@
+"""dftk_tpu_torch's other ground-state solvers against the JAX package:
+`scf/direct.py`, `scf/newton.py`, `scf/potential_mixing.py` and the SCF
+with `Chi0Mixing`.
+
+Torch at one thread, the plain kernel versions, float64, on Gamma Si2
+(LDA, Ecut 5, the default symmetries: tests/test_solvers.py::
+test_exact_chi0_mixing_converges's system), against the JAX package's
+values recorded in tests/data/torch_port_response.json (entry
+`si2_gamma`, regenerated by its `command`: the JAX solvers compile for
+tens of seconds) with the inputs of tests/data/make_torch_port_response.py:
+  * energy_from_orbitals at seeded orthonormal orbitals, with the
+    symmetrizer (1e-12), and its torch.autograd gradient, which is the
+    conjugate of JAX's jax.grad (1e-12 relative);
+  * newton and direct_minimization from the same injected orbitals
+    (energies within 1e-9 Ha of JAX's); scf_potential_mixing and the
+    Chi0Mixing SCF from their own random starts (1e-8 Ha);
+  * metals refused by both orbital solvers, TB09 by the orbital energy,
+    and a model with the JAX package's anyonic term (ROADMAP Queue 1 item
+    11) refused where its terms instantiate.
+"""
+import importlib.util
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from dftk_tpu import Anyonic
+
+import dftk_tpu_torch as dt
+from dftk_tpu_torch.ops.density import make_symmetrizer
+from dftk_tpu_torch.ops.terms import Kinetic
+from dftk_tpu_torch.response import chi0 as chi0_mod
+from dftk_tpu_torch.scf.direct import energy_from_orbitals
+from dftk_tpu_torch.scf.driver import random_orbitals
+from dftk_tpu_torch.scf.newton import newton
+from dftk_tpu_torch.scf.potential_mixing import scf_potential_mixing
+
+DATA = pathlib.Path(__file__).parent / "data"
+_spec = importlib.util.spec_from_file_location("make_response",
+                                               DATA / "make_torch_port_response.py")
+make = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    torch.set_num_threads(1)   # tier-1 runs 6 xdist workers on 8 cores
+
+
+@pytest.fixture(scope="module")
+def si2():
+    """(port basis, the JAX entry, the JAX occupied orbitals, seeded inputs)."""
+    with open(DATA / "torch_port_response.json") as f:
+        entry = json.load(f)["si2_gamma"]
+    basis = make.si2_basis(dt, device="cpu")
+    assert list(basis.fft_size) == entry["fft_size"]
+    psi = make.as_complex(entry["state"]["psi"])[:, :make.N_OCC_SI2]
+    inputs = make.seeded_inputs(basis.fft_size, basis.mask_np, make.N_OCC_SI2)
+    return basis, entry, psi, inputs
+
+
+def test_energy_from_orbitals_and_gradient_match_jax(si2):
+    basis, entry, psi, inputs = si2
+    ref = entry["energy_from_orbitals"]
+    psi_p = basis.tensor(make.orthonormal(psi + 0.1 * inputs["noise"]), basis.dtype)
+    occ = torch.full(psi_p.shape[:2], 2.0, dtype=torch.float64)
+    x = psi_p.clone().requires_grad_(True)
+    E, _ = energy_from_orbitals(basis, x, occ, make_symmetrizer(basis))
+    (g,) = torch.autograd.grad(E, x)
+    E = E.detach()
+    jax_grad = make.as_complex(ref["jax_grad"])
+    dE = E.item() - ref["energy"]
+    err = np.abs(g.numpy() - jax_grad.conj()).max() / np.abs(jax_grad).max()
+    err_unconj = np.abs(g.numpy() - jax_grad).max() / np.abs(jax_grad).max()
+    print(f"E[psi] - E_JAX = {dE:.2e}; torch grad against conj(jax.grad) {err:.2e}, against "
+          f"jax.grad itself {err_unconj:.2e}")
+    assert abs(dE) < 1e-12
+    assert err < 1e-12
+    assert err_unconj > 1e-3          # the conventions really differ here
+
+
+@pytest.mark.parametrize("solver", ["newton", "direct_minimization"])
+def test_orbital_solver_from_injected_psi_matches_jax(si2, solver):
+    basis, entry, psi, inputs = si2
+    psi_0 = make.orthonormal(psi + 0.05 * inputs["noise"])
+    if solver == "newton":
+        chi0_mod.counts.reset()
+        res = newton(basis, tol=1e-10, psi=psi_0)
+        steps = chi0_mod.counts.steps["omega_plus_k"]
+    else:
+        res = dt.direct_minimization(basis, tol=1e-11, psi=psi_0)
+        steps = None
+    ref = entry[solver]
+    dE = res.total_energy - ref["total_energy"]
+    print(f"{solver}: {res.n_iter} iterations (JAX {ref['n_iter']}), E - E_JAX = {dE:.2e}, "
+          f"E - E_JAX(SCF) = {res.total_energy - entry['state']['total_energy']:.2e}"
+          + (f", {steps} CG steps" if steps is not None else ""))
+    assert res.converged and abs(dE) < 1e-9
+
+
+@pytest.mark.parametrize("solver", ["potential_mixing", "chi0_mixing"])
+def test_scf_variant_matches_jax(si2, solver):
+    basis, entry, _, _ = si2
+    if solver == "potential_mixing":
+        res = scf_potential_mixing(basis, tol=1e-9)
+    else:
+        res = dt.self_consistent_field(basis, tol=1e-9, maxiter=40, mixing=dt.Chi0Mixing())
+    ref = entry[solver]
+    dE = res.total_energy - ref["total_energy"]
+    print(f"{solver}: {res.n_iter} iterations (JAX {ref['n_iter']}), E - E_JAX = {dE:.2e}")
+    assert res.converged and abs(dE) < 1e-8
+
+
+def test_solvers_refuse_what_they_lack():
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    metal = dt.model_DFT(make.SI_LATTICE, [Si, Si], make.SI_POSITIONS, temperature=0.01)
+    basis = dt.PlaneWaveBasis(metal, Ecut=3.0, kgrid=(1, 1, 1), fft_size=(9, 9, 9),
+                              device="cpu")
+    for solver in (dt.direct_minimization, newton):
+        with pytest.raises(ValueError, match="insulators only"):
+            solver(basis)
+    tb09 = dt.model_DFT(make.SI_LATTICE, [Si, Si], make.SI_POSITIONS, functionals="TB09")
+    basis = dt.PlaneWaveBasis(tb09, Ecut=3.0, kgrid=(1, 1, 1), fft_size=(9, 9, 9),
+                              device="cpu")
+    psi = random_orbitals(basis, 4)
+    with pytest.raises(ValueError, match="potential-only"):
+        energy_from_orbitals(basis, psi, torch.full((1, 4), 2.0, dtype=torch.float64))
+    anyonic = dt.Model(make.SI_LATTICE, [Si, Si], make.SI_POSITIONS,
+                       term_types=[Kinetic(scaling_factor=2), Anyonic(hbar=1.0, beta=0.5)])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        dt.PlaneWaveBasis(anyonic, Ecut=3.0, kgrid=(1, 1, 1), fft_size=(9, 9, 9), device="cpu")
