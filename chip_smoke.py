@@ -206,11 +206,35 @@ Phases (any failure raises and exits non-zero):
      complex128; every run with the kernels launched and no plain call,
      its wall, iterations, peak device memory, Sternheimer solves, CG
      steps and host reads of a residual norm
+  n. Gamma-point DFPT phonons and the elastic response, in float64: n1
+     silicon at full width (HGH LDA, Ecut 15, kgrid 4^3 with the crystal
+     symmetry, unfolded onto its 64 k-points by the entry points): the
+     SCF to 1e-12, dynmat_dfpt_gamma (tol 1e-8, Sternheimer tol 1e-11)
+     with the acoustic modes under 0.5 cm^-1 and the optical mode
+     threefold to 1e-4, elastic_tensor_response with the cubic structure,
+     the dynamical matrix against compute_dynmat_finite_diff (delta 1e-3,
+     SCFs to 1e-11) within 1e-6 Ha/bohr^2 and its optical frequencies
+     within 1e-5 relative, the elastic tensor's columns 0 and 3 against
+     elastic_tensor (strain 1e-4) within 1e-4 Ha/bohr^3; n2 magnesium
+     hcp's DFPT dynmat (T 0.01, Ecut 5, kgrid 2^3) against its finite
+     differences within 5e-4 of max|C| and aluminium fcc's elastic
+     response (T 0.01, Ecut 6, kgrid 3^3, fft 15) against its finite
+     differences within 1e-5 Ha/bohr^3; n1, n2 and n3 (silicon at Ecut 6,
+     kgrid 2^3) against tests/data/torch_port_phonon.json (the JAX
+     package's CPU float64 values, each from its own SCF to 1e-12) within
+     1e-9 of max|C| (the metals 1e-8); n3 also diamond from the UPF file
+     C_m.upf (LDA, Ecut 7, Gamma): its elastic response against
+     the JAX package's within 1e-9 of max|C| and its columns 0 and 3
+     against elastic_tensor within 1e-4 Ha/bohr^3; before each run
+     kernels A and B against their plain versions at its band block in
+     complex128; every run with the kernels launched and no plain call,
+     its wall, peak device memory, Sternheimer solves, CG steps and host
+     reads of a residual norm
   5. print the kernels' JSON line (launches from phases c, e, f, g, h, j,
-     k, l and m, times from phases 3, a, e, f, g and h, bounds from the
+     k, l, m and n, times from phases 3, a, e, f, g and h, bounds from the
      shapes; the main path's kernels also with their device time and their
      max_abs_err at each phase-j, phase-k, phase-l and (complex128)
-     phase-m run's shapes), then the result line.
+     phase-m and phase-n run's shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -2525,6 +2549,229 @@ def solvers_phase(dt, la, device, smi):
     return total, errs
 
 
+# phase n: Gamma phonons and the elastic response; the cells of
+# tests/data/make_torch_port_phonon.py (copied: this script imports nothing
+# of tests/), its JAX values in tests/data/torch_port_phonon.json
+SI_LATTICE = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
+SI_POSITIONS = [np.ones(3) / 8, -np.ones(3) / 8]
+MG_LATTICE = np.array([[-3.0179389206, -3.0179389206, 0.0],
+                       [-5.2272235447, 5.2272235447, 0.0],
+                       [0.0, 0.0, -9.7736219469]]).T
+MG_POSITIONS = [np.array([2 / 3, 1 / 3, 1 / 4]), np.array([1 / 3, 2 / 3, 3 / 4])]
+SI_FULL_WIDTH = dict(Ecut=15.0, kgrid=(4, 4, 4))
+DFPT_TOLS = dict(tol=1e-8, sternheimer_tol=1e-11)    # tests/test_dfpt_phonon.py's FD check
+FD_DELTA, FD_SCF_TOL, FD_STRAIN = 1e-3, 1e-11, 1e-4
+DYNMAT_FD_BAR, FREQ_RTOL = 1e-6, 1e-5    # Ha/bohr^2 absolute; the optical frequencies
+ELASTIC_FD_BAR = 1e-4                    # Ha/bohr^3 on columns 0 and 3
+MG_FD_REL_BAR, AL_FD_BAR = 5e-4, 1e-5    # the reference's slow tests
+# against the JAX package's value, from the port's own SCF to 1e-12: silicon,
+# and the metals (their Fermi level moves the response more)
+JAX_REL_BAR, JAX_METAL_REL_BAR = 1e-9, 1e-8
+ACOUSTIC_CM1, OPTICAL_SPLIT = 0.5, 1e-4
+
+
+def si2_phonon_basis(dt, device, Ecut, kgrid, fft_size=None, positions=None, lattice=None,
+                     **kw):
+    """Silicon (lda/si-q4, LDA) at A_SI's fcc lattice, or at `lattice` with
+    no symmetry (the strained cells of the finite differences)."""
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    model = dt.model_DFT(SI_LATTICE if lattice is None else lattice, [Si, Si],
+                         positions or SI_POSITIONS, functionals=["lda_x", "lda_c_vwn"],
+                         **({} if lattice is None else dict(symmetries=False)), **kw)
+    return dt.PlaneWaveBasis(model, Ecut=Ecut, kgrid=kgrid, fft_size=fft_size, device=device)
+
+
+def mg_phonon_basis(dt, device, positions=None):
+    Mg = dt.ElementPsp.from_symbol("Mg", psp="lda/mg-q2")
+    model = dt.model_DFT(MG_LATTICE, [Mg, Mg], positions or MG_POSITIONS,
+                         functionals=["lda_x", "lda_c_vwn"], temperature=0.01)
+    return dt.PlaneWaveBasis(model, Ecut=5.0, kgrid=(2, 2, 2), device=device)
+
+
+def al_elastic_basis(dt, device, lattice=AL_FCC):
+    Al = dt.ElementPsp.from_symbol("Al", psp="lda/al-q3")
+    model = dt.model_DFT(lattice, [Al], [np.zeros(3)], functionals=["lda_x", "lda_c_vwn"],
+                         temperature=1e-2, symmetries=False)
+    return dt.PlaneWaveBasis(model, Ecut=6.0, kgrid=(3, 3, 3), fft_size=(15, 15, 15),
+                             device=device)
+
+
+def c2_upf_basis(dt, device, lattice=None, fft_size=None):
+    """Diamond C2 from C_m.upf under LDA, Ecut 7, Gamma, the default FFT
+    size; at `lattice` with no symmetry and the unstrained cell's FFT size
+    (the strained cells, whose default size is 15^3, not 16^3)."""
+    C = dt.ElementPsp.from_symbol("C", psp=os.path.join(HERE, C_UPF))
+    model = dt.model_DFT(C_LATTICE if lattice is None else lattice, [C, C], C_POSITIONS,
+                         functionals=["lda_x", "lda_c_vwn"],
+                         **({} if lattice is None else dict(symmetries=False)))
+    return dt.PlaneWaveBasis(model, Ecut=7.0, kgrid=(1, 1, 1), fft_size=fft_size, device=device)
+
+
+def phonon_phase(dt, la, device, smi):
+    """Phase n: Gamma-point DFPT phonons and the elastic response on the card.
+    n1: silicon at full width (symmetric, unfolded by the DFPT and elastic
+    entry points): dynmat_dfpt_gamma and its modes against the finite-
+    difference dynamical matrix, elastic_tensor_response against the
+    finite-difference elastic_tensor (columns 0 and 3), both also against
+    the JAX package's values; n2: magnesium's
+    DFPT and aluminium's elastic response against their finite differences
+    and the JAX package's values; n3: the reference-size silicon dynmat
+    against the JAX package's, and diamond's elastic response from the UPF
+    file C_m.upf against the JAX package's and its finite differences.
+    Returns the kernel launches of its runs and
+    each kernel's max_abs_err at each run's shapes."""
+    import torch
+    from dftk_tpu_torch.postprocess.elastic import elastic_tensor
+    from dftk_tpu_torch.postprocess.phonon import (HARTREE_TO_CM1, compute_dynmat_finite_diff,
+                                                   phonon_modes_from_dynmat)
+    from dftk_tpu_torch.response import chi0 as chi0_mod
+    from dftk_tpu_torch.response.phonon_dfpt import dynmat_dfpt_gamma
+    t_phase = time.time()
+    with open(os.path.join(HERE, "tests", "data", "torch_port_phonon.json")) as f:
+        ref = json.load(f)
+    total, errs = {}, {}
+    cg = chi0_mod.counts
+
+    def run(label, tag, fn):
+        cg.reset()
+        out, launches = run_on_card(la, label, smi, fn, tag=tag)
+        print(f"[{tag}] {label}: {cg.solves} Sternheimer solves, CG steps {cg.steps}, "
+              f"{cg.host_reads} host reads of a residual norm", flush=True)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def against(tag, label, C, want, bar, scale=None):
+        """max|C - want| against bar (absolute, or relative to max|want|
+        where scale is given)."""
+        want = np.asarray(want)
+        diff, peak = float(np.abs(C - want).max()), float(np.abs(want).max())
+        print(f"[{tag}] {label}: max diff {diff:.3e}, relative {diff / peak:.3e}"
+              f" (bar {bar:.0e}{' of max' if scale else ''}; {smi})", flush=True)
+        check(np.isfinite(C).all() and diff < bar * (peak if scale else 1.0),
+              f"{label} within {bar}")
+
+    def modes(tag, label, C, atoms):
+        f, _ = phonon_modes_from_dynmat(C, atoms)
+        acoustic, split = np.abs(f[:3]).max() * HARTREE_TO_CM1, abs(f[5] - f[3]) / f[3]
+        print(f"[{tag}] {label} frequencies (cm^-1): {np.round(f * HARTREE_TO_CM1, 4).tolist()}; "
+              f"acoustic {acoustic:.2e}, optical split {split:.1e}", flush=True)
+        return f, acoustic, split
+
+    # n1: silicon at full width, with its finite differences
+    basis = si2_phonon_basis(dt, device, **SI_FULL_WIDTH)
+    print(f"[n1] {basis}", flush=True)
+    hold_kernels_at(la, basis, "n1 SCF", 4, errs, tag="n1")
+    res = run("n1 Si2 SCF", "n1", lambda: dt.self_consistent_field(basis, tol=1e-12, maxiter=60))
+    ub = dt.unfold_bz(res).basis
+    check(ub.n_kpoints == int(np.prod(SI_FULL_WIDTH["kgrid"])), "n1 unfolded onto the full grid")
+    hold_kernels_at(la, ub, "n1 DFPT", 4, errs, tag="n1")
+    C = run("n1 DFPT dynmat", "n1", lambda: dynmat_dfpt_gamma(res, **DFPT_TOLS))
+    f, acoustic, split = modes("n1", "DFPT", C, basis.model.atoms)
+    check(acoustic < ACOUSTIC_CM1 and f[3] > 0 and split < OPTICAL_SPLIT,
+          "n1 acoustic sum rule and threefold optical mode")
+    hold_kernels_at(la, ub, "n1 elastic", 4, errs, tag="n1", block=4)
+    C_el = run("n1 elastic response", "n1", lambda: dt.elastic_tensor_response(res))
+    print(f"[n1] elastic response (Ha/bohr^3): C11 {C_el[0, 0]:.10f} C12 {C_el[0, 1]:.10f} "
+          f"C44 {C_el[3, 3]:.10f}", flush=True)
+    check(abs(C_el[0, 0] - C_el[1, 1]) < 1e-8 and abs(C_el[0, 1] - C_el[0, 2]) < 1e-8
+          and abs(C_el[3, 3] - C_el[4, 4]) < 1e-8 and np.abs(C_el[:3, 3:]).max() < 1e-7
+          and C_el[0, 0] > C_el[0, 1] > 0 and C_el[3, 3] > 0, "n1 cubic elastic tensor")
+    r = ref["si2_full_width"]
+    against("n1", "DFPT dynmat against the JAX package's", C, r["dynmat"], JAX_REL_BAR,
+            scale=True)
+    against("n1", "elastic response against the JAX package's", C_el, r["elastic"],
+            JAX_REL_BAR, scale=True)
+    del res
+
+    displaced = [SI_POSITIONS[0] + np.linalg.solve(SI_LATTICE, [FD_DELTA, 0, 0]),
+                 SI_POSITIONS[1]]
+    hold_kernels_at(la, si2_phonon_basis(dt, device, **SI_FULL_WIDTH, positions=displaced),
+                    "n1 FD dynmat", 4, errs, tag="n1")
+    C_fd = run("n1 FD dynmat (12 SCFs)", "n1", lambda: compute_dynmat_finite_diff(
+        lambda pos: si2_phonon_basis(dt, device, **SI_FULL_WIDTH, positions=pos), SI_POSITIONS,
+        scf_kwargs=dict(tol=FD_SCF_TOL), delta=FD_DELTA))
+    against("n1", "DFPT dynmat against finite differences", C, C_fd, DYNMAT_FD_BAR)
+    f_fd, _ = phonon_modes_from_dynmat(C_fd, basis.model.atoms)
+    rdiff = float(np.abs(f[3:] / f_fd[3:] - 1).max())
+    print(f"[n1] optical frequencies, DFPT against FD: relative {rdiff:.3e} (bar "
+          f"{FREQ_RTOL:.0e})", flush=True)
+    check(rdiff < FREQ_RTOL, f"n1 optical frequencies within {FREQ_RTOL} of FD")
+
+    def strained_basis(L):
+        return si2_phonon_basis(dt, device, **SI_FULL_WIDTH, fft_size=basis.fft_size,
+                                lattice=L)
+
+    hold_kernels_at(la, strained_basis(SI_LATTICE), "n1 FD elastic", 4, errs, tag="n1")
+    C_el_fd = run("n1 FD elastic tensor (4 SCFs)", "n1", lambda: elastic_tensor(
+        strained_basis, SI_LATTICE, scf_kwargs=dict(tol=1e-12), eps=FD_STRAIN,
+        components=[0, 3]))
+    against("n1", "elastic response against finite differences (columns 0, 3)",
+            C_el[:, [0, 3]], C_el_fd[:, [0, 3]], ELASTIC_FD_BAR)
+    del basis
+    torch.cuda.empty_cache()
+
+    # n2: the metals against their finite differences and the JAX package
+    basis = mg_phonon_basis(dt, device)
+    mg_kw = dict(n_bands=6, n_extra_bands=4)
+    hold_kernels_at(la, basis, "n2 Mg", 6, errs, tag="n2", block=10)
+    res = run("n2 Mg SCF", "n2", lambda: dt.self_consistent_field(basis, tol=1e-12, maxiter=80,
+                                                                  **mg_kw))
+    C = run("n2 Mg DFPT dynmat", "n2", lambda: dynmat_dfpt_gamma(res, **DFPT_TOLS))
+    C_fd = run("n2 Mg FD dynmat (12 SCFs)", "n2", lambda: compute_dynmat_finite_diff(
+        lambda pos: mg_phonon_basis(dt, device, pos), MG_POSITIONS,
+        scf_kwargs=dict(tol=FD_SCF_TOL, **mg_kw), delta=FD_DELTA))
+    against("n2", "Mg DFPT dynmat against finite differences", C, C_fd, MG_FD_REL_BAR,
+            scale=True)
+    against("n2", "Mg DFPT dynmat against the JAX package's", C, ref["mg_dfpt"]["dynmat"],
+            JAX_METAL_REL_BAR, scale=True)
+    del res, basis
+    basis = al_elastic_basis(dt, device)
+    hold_kernels_at(la, basis, "n2 Al", 6, errs, tag="n2", block=10)
+    res = run("n2 Al SCF", "n2", lambda: dt.self_consistent_field(basis, tol=1e-12, maxiter=80,
+                                                                  **mg_kw))
+    C_el = run("n2 Al elastic response", "n2", lambda: dt.elastic_tensor_response(res))
+    C_el_fd = run("n2 Al FD elastic tensor (4 SCFs)", "n2", lambda: elastic_tensor(
+        lambda L: al_elastic_basis(dt, device, L), AL_FCC,
+        scf_kwargs=dict(tol=1e-12, maxiter=80, **mg_kw), eps=FD_STRAIN, components=[0, 3]))
+    against("n2", "Al elastic response against finite differences (columns 0, 3)",
+            C_el[:, [0, 3]], C_el_fd[:, [0, 3]], AL_FD_BAR)
+    against("n2", "Al elastic response against the JAX package's", C_el,
+            ref["al_elastic"]["elastic"], JAX_METAL_REL_BAR, scale=True)
+    del res, basis
+    torch.cuda.empty_cache()
+
+    # n3: the reference-size silicon dynmat against the JAX package's
+    r = ref["si2_reference_dynmat"]
+    basis = si2_phonon_basis(dt, device, Ecut=6.0, kgrid=(2, 2, 2))
+    check(list(basis.fft_size) == r["fft_size"], "n3 Si2: the JAX package's FFT size")
+    hold_kernels_at(la, basis, "n3 Si2", 4, errs, tag="n3")
+    res = run("n3 Si2 SCF", "n3", lambda: dt.self_consistent_field(basis, tol=1e-12, maxiter=60))
+    C = run("n3 Si2 DFPT dynmat", "n3", lambda: dynmat_dfpt_gamma(res, **DFPT_TOLS))
+    against("n3", "Si2 DFPT dynmat against the JAX package's", C, r["dynmat"],
+            JAX_REL_BAR, scale=True)
+    del res, basis
+    # n3: a UPF model's elastic response (the form factors' curvature)
+    # against the JAX package's and its finite differences
+    basis = c2_upf_basis(dt, device)
+    check(list(basis.fft_size) == ref["c2_upf"]["fft_size"], "n3 C2: the JAX package's FFT size")
+    hold_kernels_at(la, basis, "n3 C2 UPF", 4, errs, tag="n3")
+    res = run("n3 C2 UPF SCF", "n3", lambda: dt.self_consistent_field(basis, tol=1e-12,
+                                                                      maxiter=60))
+    C_el = run("n3 C2 UPF elastic response", "n3", lambda: dt.elastic_tensor_response(res))
+    against("n3", "C2 UPF elastic response against the JAX package's", C_el,
+            ref["c2_upf"]["elastic"], JAX_REL_BAR, scale=True)
+    C_el_fd = run("n3 C2 UPF FD elastic tensor (4 SCFs)", "n3", lambda: elastic_tensor(
+        lambda L: c2_upf_basis(dt, device, L, basis.fft_size), C_LATTICE,
+        scf_kwargs=dict(tol=1e-12), eps=FD_STRAIN, components=[0, 3]))
+    against("n3", "C2 UPF elastic response against finite differences (columns 0, 3)",
+            C_el[:, [0, 3]], C_el_fd[:, [0, 3]], ELASTIC_FD_BAR)
+    del res, basis
+    torch.cuda.empty_cache()
+    print(f"[n] phase n took {time.time() - t_phase:.1f} s; launches {total}", flush=True)
+    return total, errs
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -2645,6 +2892,12 @@ def main():
     solver_launches, solver_errs = solvers_phase(dt, la, device, smi)
     for name, count in solver_launches.items():
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # ---- n. Gamma phonons and the elastic response --------------------------------
+    phonon_launches, phonon_errs = phonon_phase(dt, la, device, smi)
+    for name, count in phonon_launches.items():
+        launches[name] += count
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -2666,7 +2919,9 @@ def main():
                             max_abs_err_phase_k=metal_errs[name],
                             max_abs_err_phase_l=mgga_errs[name],
                             **({"max_abs_err_phase_m": solver_errs[name]}
-                               if name in solver_errs else {})))
+                               if name in solver_errs else {}),
+                            **({"max_abs_err_phase_n": phonon_errs[name]}
+                               if name in phonon_errs else {})))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

@@ -26,7 +26,13 @@ solvers: `direct_minimization`, and `scf.newton.newton` and
 `scf.potential_mixing.scf_potential_mixing` (from their modules, as in the
 JAX package).  The response: `apply_chi0`, `solve_dyson`,
 `compute_polarizability` and the SCF Hessian Omega + K
-(`make_omega_plus_k`, `eigen_omega_plus_k`, `solve_omega_plus_k`).  A meta-GGA's H
+(`make_omega_plus_k`, `eigen_omega_plus_k`, `solve_omega_plus_k`).  Second
+derivatives at Gamma: `unfold_bz` (an IBZ result on the full k-grid),
+`response.phonon_dfpt.dynmat_dfpt_gamma` and `phonon_modes_dfpt_gamma`
+(DFPT phonons, insulators and metals), `elastic_tensor_response` (the
+elastic tensor by the response, HGH and UPF models), and their finite-difference checks
+`phonon_modes_finite_diff` (`postprocess/phonon.py`) and
+`postprocess.elastic.elastic_tensor`.  A meta-GGA's H
 adds the DivAgrad term through the same kernels, and its split SCF filters
 with the sphere apply.  See ROADMAP.md for what is still to port.
 """
@@ -49,11 +55,14 @@ from .models.model import Model  # noqa: E402
 from .models.standard import LDA, PBE, PBEsol, model_atomic, model_DFT  # noqa: E402
 from .ops.density import guess_density, spin_density, total_density  # noqa: E402
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
+from .postprocess.elastic_response import elastic_tensor_response  # noqa: E402
 from .postprocess.forces import compute_forces, compute_forces_cart  # noqa: E402
+from .postprocess.phonon import phonon_modes_finite_diff  # noqa: E402
 from .response.chi0 import apply_chi0, make_chi0_context  # noqa: E402
 from .response.hessian import (compute_polarizability, eigen_omega_plus_k,  # noqa: E402
                                make_omega_plus_k, solve_dyson, solve_omega_plus_k)
 from .postprocess.stresses import compute_stresses_cart  # noqa: E402
+from .postprocess.unfold import unfold_bz  # noqa: E402
 from .scf.direct import direct_minimization  # noqa: E402
 from .scf.driver import SCFResult, self_consistent_field  # noqa: E402
 from .scf.energy_eval import evaluate_total_energy, refine_split_energy  # noqa: E402
@@ -74,4 +83,5 @@ __all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "ElementCoulomb",
            "HybridMixing", "Chi0Mixing", "FixedBands", "AdaptiveBands",
            "direct_minimization", "apply_chi0", "make_chi0_context", "solve_dyson",
            "compute_polarizability", "make_omega_plus_k", "eigen_omega_plus_k",
-           "solve_omega_plus_k", "model_atomic", "Model"]
+           "solve_omega_plus_k", "model_atomic", "Model", "unfold_bz",
+           "phonon_modes_finite_diff", "elastic_tensor_response"]

@@ -14,12 +14,12 @@ divides out p^l (the solid-harmonic convention shared with PspHgh).
 
 The `*_sq` evaluators take p^2: a numpy array, or a torch tensor.  On a
 tensor the values come from the same host evaluation, and where the tensor
-carries a gradient (the stresses trace |G|^2 through the lattice) the
-result is value + slope * (p^2 - p^2 at its value), with the slope
-d value / d(p^2) evaluated on the host too (for a Hankel transform of
-order l it is -1/2 the order l+1 transform of r f(r)).  So the stresses'
-graph holds one tensor per evaluator, never a [|G|, r] table, and its
-first derivative is exact.
+carries a gradient (the stresses and the elastic response trace |G|^2
+through the lattice) each derivative d^k / d(p^2)^k is evaluated on the
+host too, when a backward asks for it (`radial_sq`; for a Hankel transform
+of order l it is (-1/2)^k the order l+k transform of r^k f(r)).  So the
+graph holds one tensor per evaluator and order, never a [|G|, r] table,
+and its derivatives are exact to any order.
 
 Supports norm-conserving UPF 2.0.x files (no spin-orbit, ultrasoft or PAW).
 """
@@ -88,11 +88,11 @@ def simpson_weights(r):
 
 
 def _sph_jl_over_xl(l, x):
-    """j_l(x) / x^l, stable at x = 0 (l <= 4)."""
+    """j_l(x) / x^l, stable at x = 0."""
     x = np.asarray(x, dtype=float)
     small = np.abs(x) < 1e-3
     xs = np.where(small, 1.0, x)
-    dfact = [1.0, 3.0, 15.0, 105.0, 945.0][l]
+    dfact = float(math.prod(range(1, 2 * l + 2, 2)))           # (2l + 1)!!
     x2 = x * x
     series = (1 - x2 / (2 * (2 * l + 3))
               + x2 * x2 / (8 * (2 * l + 3) * (2 * l + 5))) / dfact
@@ -134,28 +134,51 @@ def hankel(r, r2_f, l, p, weights=None):
     return _unique_eval(eval_flat, p)
 
 
-def hankel_slope(r, r2_f, l, p, weights=None):
-    """d hankel(r, r2_f, l, p) / d(p^2) = -1/2 hankel(r, r * r2_f, l + 1, p)
-    (from d/dx [j_l(x) / x^l] = -x j_{l+1}(x) / x^{l+1})."""
+def hankel_derivative(r, r2_f, l, k, p, weights=None):
+    """d^k hankel(r, r2_f, l, p) / d(p^2)^k = (-1/2)^k hankel(r, r^k r2_f,
+    l + k, p) (from d/dx [j_l(x) / x^l] = -x j_{l+1}(x) / x^{l+1})."""
     r = np.asarray(r, dtype=float)
-    return -0.5 * hankel(r, r * np.asarray(r2_f, dtype=float), l + 1, p, weights)
+    return (-0.5) ** k * hankel(r, r ** k * np.asarray(r2_f, dtype=float), l + k, p, weights)
 
 
-def radial_sq(value, slope, psq):
+def _host_eval(deriv, k, psq):
+    p = np.sqrt(np.maximum(psq.detach().cpu().numpy(), 0.0))
+    return torch.as_tensor(deriv(k, p), dtype=psq.dtype, device=psq.device)
+
+
+class _RadialSq(torch.autograd.Function):
+    """deriv(k, .) of a p^2 tensor, evaluated on the host; its backward is
+    the order k + 1, itself differentiable."""
+
+    @staticmethod
+    def forward(ctx, psq, deriv, k):
+        ctx.save_for_backward(psq)
+        ctx.deriv, ctx.k, ctx.next_order = deriv, k, {}
+        return _host_eval(deriv, k, psq)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # the next order depends on psq alone: one host evaluation per grad
+        # mode, however many backward passes (a Hessian's rows) reach it
+        (psq,) = ctx.saved_tensors
+        mode = torch.is_grad_enabled()
+        if mode not in ctx.next_order:
+            ctx.next_order[mode] = radial_sq(ctx.deriv, psq, ctx.k + 1)
+        return grad * ctx.next_order[mode], None, None
+
+
+def radial_sq(deriv, psq, k=0):
     """A radial function of |p| as a function of psq = p^2.
 
-    value(p) and slope(p) = d value / d(p^2) are numpy functions of p >= 0.
-    On a numpy psq: value(sqrt(psq)).  On a torch tensor: the host values
-    on psq's device and dtype, plus slope * (psq - psq.detach()) where psq
-    carries a gradient (module docstring)."""
+    deriv(k, p) is the numpy d^k value / d(p^2)^k at p >= 0.  On a numpy
+    psq: deriv(k, sqrt(psq)).  On a torch tensor: the host values on psq's
+    device and dtype; where psq carries a gradient, each backward through
+    them evaluates the next order (module docstring)."""
     if not torch.is_tensor(psq):
-        return value(np.sqrt(np.maximum(psq, 0.0)))
-    p = np.sqrt(np.maximum(psq.detach().cpu().numpy(), 0.0))
-    out = torch.as_tensor(value(p), dtype=psq.dtype, device=psq.device)
-    if psq.requires_grad:
-        d = torch.as_tensor(slope(p), dtype=psq.dtype, device=psq.device)
-        out = out + d * (psq - psq.detach())
-    return out
+        return deriv(k, np.sqrt(np.maximum(psq, 0.0)))
+    if psq.requires_grad and torch.is_grad_enabled():
+        return _RadialSq.apply(psq, deriv, k)
+    return _host_eval(deriv, k, psq)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -224,26 +247,25 @@ class PspUpf:
 
         return _unique_eval(eval_flat, p)
 
-    def _local_slope(self, p):
-        """d local_fourier / d(p^2); 0 at p = 0."""
-        r, wf, Z = self._r, self._local_wf(), self.Zion
-
-        def block(pc):
-            x = pc[:, None] * r[None, :]
-            I = np.sum(wf[None, :] * np.sin(x), axis=1)
-            J = np.sum(wf[None, :] * r[None, :] * np.cos(x), axis=1)
-            dVdp = 4 * math.pi * (J / pc - I / pc ** 2 + Z * np.exp(-pc ** 2 / 4)
-                                  * (1 / (2 * pc) + 2 / pc ** 3))
-            return dVdp / (2 * pc)
-
-        def eval_flat(pf):
-            ps = np.where(pf == 0, 1.0, pf)
-            return np.where(pf == 0, 0.0, _chunked(block, ps, len(r)))
-
-        return _unique_eval(eval_flat, p)
+    def _local_derivative(self, k, p):
+        """d^k local_fourier / d(p^2)^k; 0 at p = 0, where G = 0 stays
+        under strain.  The integral part 4 pi int w (r V + Z erf r) sin(pr)
+        / p is the order-0 Hankel transform of r (r V + Z erf r); the tail
+        -4 pi Z e^{-q/4} / q (q = p^2) is differentiated by Leibniz."""
+        if k == 0:
+            return self.local_fourier(p)
+        r, Z = self._r, self.Zion
+        g = r * np.asarray(self.vloc) + Z * erf(r)
+        integral = hankel_derivative(r, r * g, 0, k, p, weights=self._w)
+        p = np.asarray(p, dtype=float)
+        q = np.where(p == 0, 1.0, p * p)
+        tail = sum(math.comb(k, j) * (-0.25) ** (k - j) * (-1) ** j * math.factorial(j)
+                   * q ** (-1.0 - j) for j in range(k + 1))
+        return np.where(p == 0, 0.0,
+                        integral - 4 * math.pi * Z * np.exp(-q / 4) * tail)
 
     def local_fourier_sq(self, psq):
-        return radial_sq(self.local_fourier, self._local_slope, psq)
+        return radial_sq(self._local_derivative, psq)
 
     def local_real(self, r):
         return np.interp(r, self._r, np.asarray(self.vloc))
@@ -255,41 +277,40 @@ class PspUpf:
 
     # -- Hankel-transformed radial quantities ------------------------------------
     def _radial(self, r2f, l):
-        """(value, slope) of the order-l Hankel transform of r2f on the
-        first len(r2f) grid points."""
+        """deriv(k, p) of the order-l Hankel transform of r2f on the first
+        len(r2f) grid points (k = 0: the transform)."""
         r2f = np.asarray(r2f, dtype=float)
         n = len(r2f)
         r = self._r[:n]
         w = self._w if n == len(self.rgrid) else simpson_weights(r)
-        return (lambda p: hankel(r, r2f, l, p, weights=w),
-                lambda p: hankel_slope(r, r2f, l, p, weights=w))
+        return lambda k, p: hankel_derivative(r, r2f, l, k, p, weights=w)
 
     def projector_fourier(self, i, l, p):
-        return self._radial(self.r2_projs[l][i - 1], l)[0](p)
+        return self._radial(self.r2_projs[l][i - 1], l)(0, p)
 
     def projector_fourier_sq(self, i, l, psq):
-        return radial_sq(*self._radial(self.r2_projs[l][i - 1], l), psq)
+        return radial_sq(self._radial(self.r2_projs[l][i - 1], l), psq)
 
     def pswfc_fourier(self, i, l, p):
-        return self._radial(self.r2_pswfcs[l][i - 1], l)[0](p)
+        return self._radial(self.r2_pswfcs[l][i - 1], l)(0, p)
 
     def valence_density_fourier(self, p):
-        return self._radial(self.r2_rho_ion, 0)[0](p)
+        return self._radial(self.r2_rho_ion, 0)(0, p)
 
     def core_density_fourier(self, p):
-        return self._radial(self.r2_rho_core, 0)[0](p)
+        return self._radial(self.r2_rho_core, 0)(0, p)
 
     def core_density_fourier_sq(self, psq):
-        return radial_sq(*self._radial(self.r2_rho_core, 0), psq)
+        return radial_sq(self._radial(self.r2_rho_core, 0), psq)
 
     def core_tau_fourier(self, p):
         """The l = 0 Hankel transform of the core kinetic-energy density
         (reference eval_psp_core_kinetic_energy_density_fourier,
         src/pseudo/PspUpf.jl:302-306), for meta-GGA with NLCC."""
-        return self._radial(self.r2_tau_core, 0)[0](p)
+        return self._radial(self.r2_tau_core, 0)(0, p)
 
     def core_tau_fourier_sq(self, psq):
-        return radial_sq(*self._radial(self.r2_tau_core, 0), psq)
+        return radial_sq(self._radial(self.r2_tau_core, 0), psq)
 
     def has_valence_density(self):
         return any(v != 0 for v in self.r2_rho_ion)

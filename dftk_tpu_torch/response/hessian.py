@@ -25,7 +25,7 @@ import torch
 
 from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, compute_density_derivative
-from .chi0 import apply_chi0, apply_dV, counts, make_chi0_context
+from .chi0 import _project_out, apply_chi0, apply_dV, counts, make_chi0_context
 
 
 def apply_kernel(basis, rho0, drho):
@@ -172,7 +172,7 @@ def omega_plus_k_operators(basis, ham, psi, occupation, rho, eps_n, include_K=Tr
     bd = basis.data
 
     def Pc(x):
-        return x - torch.einsum("knm,kng->kmg", torch.einsum("kng,kmg->knm", psi.conj(), x), psi)
+        return _project_out(x, psi)
 
     def Kpart(dpsi):
         drho = compute_density_derivative(bd, psi, dpsi, occupation, basis.fft_size,

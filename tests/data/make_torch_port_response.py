@@ -263,6 +263,49 @@ def entry_si8_potential_mixing():
                 n_iter=res.n_iter, residuals=history)
 
 
+def entry_si54_potential_mixing():
+    """Si54 (dftk_tpu_torch/tools/run_si_big.py::build_bench_basis: 3^3 fcc
+    primitive cells, Gamma, Ecut 10, LDA, no symmetry): the JAX package's
+    scf_potential_mixing (tol 1e-9, 80 iterations) from the port's start,
+    the orbitals dftk_tpu_torch.scf.driver.random_orbitals draws on the CPU
+    from seed 42 (118 bands), which `python -m
+    dftk_tpu_torch.tools.solver_floor --cell si54 --device cpu --only
+    potential --iters 80 --seeds 42` starts from; its energy and residual
+    history.  Each iteration is printed to stderr as it ends."""
+    import jax.numpy as jnp
+    import torch
+    import dftk_tpu as dftk
+    import dftk_tpu.scf.potential_mixing as pm
+    from dftk_tpu_torch.scf.driver import random_orbitals
+    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
+    torch.set_num_threads(1)
+    port_basis = build_bench_basis(3, 10.0, "cpu")
+    pm_ = port_basis.model
+    Si = dftk.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    model = dftk.model_DFT(pm_.lattice, [Si] * len(pm_.positions), list(pm_.positions),
+                           functionals=["lda_x", "lda_c_vwn"], symmetries=False)
+    basis = dftk.PlaneWaveBasis(model, Ecut=10.0, kgrid=(1, 1, 1))
+    assert tuple(basis.fft_size) == tuple(port_basis.fft_size)
+    assert np.array_equal(np.asarray(basis.data.Gidx), port_basis.Gidx_np)
+    n_bands = model.default_n_bands()
+    psi0 = random_orbitals(port_basis, n_bands + max(3, n_bands // 10), seed=42).numpy()
+    pm.random_orbitals = lambda b, n, seed=42: jnp.asarray(psi0[:, :n])
+    history, energies = [], []
+    t0 = time.time()
+
+    def callback(info):
+        history.append(info["dV"])
+        energies.append(info["E"])
+        print(f"it={info['n_iter']:3d} E={info['E']:.12f} dV={info['dV']:.3e} "
+              f"alpha={info['alpha']:.3f} t={time.time() - t0:.1f}s", file=sys.stderr,
+              flush=True)
+
+    res = pm.scf_potential_mixing(basis, tol=1e-9, maxiter=80, callback=callback)
+    return dict(fft_size=list(basis.fft_size), n_bands=int(psi0.shape[1]),
+                total_energy=res.total_energy, converged=bool(res.converged),
+                n_iter=res.n_iter, energies=energies, residuals=history)
+
+
 if __name__ == "__main__":
     name = sys.argv[1]
     t0 = time.time()

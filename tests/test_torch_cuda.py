@@ -25,7 +25,9 @@ against the CPU's (1e-11), every op of both on the card.  Kernels A and B,
 complex128 and bf16, at the collinear-spin paths' shapes (iron, Fe2,
 Fe16, Fe54), with the up and down potentials on the two halves of the k
 rows.  One Sternheimer solve of chi0 and one apply of Omega + K on the
-card against the same on the CPU (1e-11), on a symmetric Si2 state.  The
+card against the same on the CPU (1e-11), on a symmetric Si2 state, and
+the Gamma Si2 DFPT dynamical matrix on the card against the CPU's (1e-9
+of max|C|).  The
 filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
 planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
@@ -1047,3 +1049,31 @@ def test_cuda_omega_plus_k_apply_matches_cpu(si2_response_state):
     assert la.counts.launches["pruned_axis_dft"] > 0 and la.counts.launches["local_plane"] > 0
     assert all(v == 0 for v in la.counts.plain.values())
     assert _close_c128(out["cuda"], out["cpu"].cuda())
+
+
+@pytest.mark.cuda
+def test_cuda_dynmat_dfpt_gamma_matches_cpu():
+    """dynmat_dfpt_gamma of Gamma Si2 (Ecut 5, the SCF to 1e-12 on the CPU)
+    on the card against the same on the CPU with the plain versions (1e-9
+    of max|C|): the bare and induced dV psi, every Sternheimer apply of H
+    and the clamped-ion Hessian on the card, kernels A and B launched and
+    no plain version called."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from dftk_tpu_torch.interop import scf_state_from_numpy
+    from dftk_tpu_torch.response.phonon_dfpt import dynmat_dfpt_gamma
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    model = dt.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+                         functionals=["lda_x", "lda_c_vwn"])
+    cpu, gpu = (dt.PlaneWaveBasis(model, Ecut=5.0, kgrid=(1, 1, 1), device=d)
+                for d in ("cpu", "cuda"))
+    res = dt.self_consistent_field(cpu, tol=1e-12, maxiter=60)
+    state = scf_state_from_numpy(gpu, res.psi.numpy(), res.occupation, res.eigenvalues,
+                                 res.epsF, res.rho.numpy())
+    C_cpu = dynmat_dfpt_gamma(res, tol=1e-7, sternheimer_tol=1e-10)
+    la.counts.reset()
+    C_gpu = dynmat_dfpt_gamma(state, tol=1e-7, sternheimer_tol=1e-10)
+    assert la.counts.launches["pruned_axis_dft"] > 0 and la.counts.launches["local_plane"] > 0
+    assert all(v == 0 for v in la.counts.plain.values())
+    assert np.isfinite(C_gpu).all()
+    assert np.abs(C_gpu - C_cpu).max() <= 1e-9 * np.abs(C_cpu).max()

@@ -8,8 +8,10 @@ live here:
     parsed field equal, Simpson weights (uniform and nonuniform grids),
     the Hankel transforms and every evaluator within 1e-12, each `*_sq`
     evaluator equal to its plain one on numpy arrays and torch tensors
-    (1e-12), and its slope in p^2 (the stresses' derivative) within 1e-7
-    of the value's scale of a Richardson central difference;
+    (1e-12), its slope in p^2 (the stresses' derivative) within 1e-7 of
+    the value's scale of a Richardson central difference, and its
+    curvature (the elastic response's second derivative, autograd twice)
+    within 1e-7 of scale of a Richardson central difference of the slope;
   * ElementCoulomb, ElementGaussian, ElementCohenBergstresser and a
     virtual-crystal PspLinComb (C_m + Al_m): local potentials, charges,
     decay lengths, projectors, couplings and core densities (1e-12);
@@ -96,9 +98,11 @@ def _evaluators(psp):
 def test_upf_parse_and_evaluators_match(name):
     """Every parsed field of the file equal to the JAX package's; the
     evaluators at |p| in [0, 12] within 1e-12; each `*_sq` equal to its
-    plain evaluator on numpy and torch p^2 (1e-12), and its slope (torch
+    plain evaluator on numpy and torch p^2 (1e-12), its slope (torch
     autograd through the tensor path) within 1e-7 of scale of a Richardson
-    central difference of the plain evaluator in p^2 (|p| in [1, 12])."""
+    central difference of the plain evaluator in p^2 (|p| in [1, 12]),
+    and its curvature (autograd of the slope's graph) within 1e-7 of scale
+    of a Richardson central difference of the slope."""
     port, ref = psp_upf.parse_upf(str(UPFS[name])), jax_upf.parse_upf(str(UPFS[name]))
     for f in dataclasses.fields(ref):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
@@ -111,26 +115,38 @@ def test_upf_parse_and_evaluators_match(name):
         assert _diff(psp_upf.hankel(r, port.r2_rho_ion, l, P_GRID),
                      jax_upf.hankel(r, ref.r2_rho_ion, l, P_GRID)) < BAR
     assert abs(port.energy_correction() - ref.energy_correction()) < BAR
-    worst, worst_slope = 0.0, 0.0
+    worst, worst_slope, worst_curv = 0.0, 0.0, 0.0
     p_fd = P_GRID[P_GRID >= 1.0]
+
+    def richardson(f):
+        h = 1e-3 * p_fd ** 2
+        fd = lambda h: (f(p_fd ** 2 + h) - f(p_fd ** 2 - h)) / (2 * h)
+        return (4 * fd(h / 2) - fd(h)) / 3
+
     for (label, plain, sq), (_, plain_ref, _) in zip(_evaluators(port), _evaluators(ref)):
         value = plain(P_GRID)
         worst = max(worst, _diff(value, plain_ref(P_GRID)))
         if sq is None:
             continue
         assert _diff(sq(P_GRID ** 2), value) < BAR, label
+
+        def slope_of(q, sq=sq):
+            psq = torch.tensor(q, requires_grad=True)
+            return torch.autograd.grad(sq(psq).sum(), psq)[0].numpy()
+
         psq = torch.tensor(p_fd ** 2, requires_grad=True)
         out = sq(psq)
-        (slope,) = torch.autograd.grad(out.sum(), psq)
+        (slope,) = torch.autograd.grad(out.sum(), psq, create_graph=True)
+        (curv,) = torch.autograd.grad(slope.sum(), psq)
         assert _diff(out.detach().numpy(), plain(p_fd)) < BAR, label
-        h = 1e-3 * p_fd ** 2
-        fd = lambda h: (plain(np.sqrt(p_fd ** 2 + h)) - plain(np.sqrt(p_fd ** 2 - h))) / (2 * h)
-        richardson = (4 * fd(h / 2) - fd(h)) / 3
-        scale = max(np.abs(richardson).max(), 1e-300)
-        worst_slope = max(worst_slope, _diff(slope.numpy(), richardson) / scale)
-    print(f"{name}: evaluators {worst:.2e} from the JAX package's; slopes {worst_slope:.2e} "
-          f"(relative) from central differences")
-    assert worst < BAR and worst_slope < 1e-7
+        fd = richardson(lambda q: plain(np.sqrt(q)))
+        worst_slope = max(worst_slope, _diff(slope.detach().numpy(), fd)
+                          / max(np.abs(fd).max(), 1e-300))
+        fd = richardson(slope_of)
+        worst_curv = max(worst_curv, _diff(curv.numpy(), fd) / max(np.abs(fd).max(), 1e-300))
+    print(f"{name}: evaluators {worst:.2e} from the JAX package's; slopes {worst_slope:.2e}, "
+          f"curvatures {worst_curv:.2e} (relative) from central differences")
+    assert worst < BAR and worst_slope < 1e-7 and worst_curv < 1e-7
 
 
 def test_other_elements_match():
