@@ -230,11 +230,41 @@ Phases (any failure raises and exits non-zero):
      complex128; every run with the kernels launched and no plain call,
      its wall, peak device memory, Sternheimer solves, CG steps and host
      reads of a residual norm
+  o. phonons at q, the supercell force constants and the split response
+     adapters, in float64 (every k+q apply of H and every complex dV_q psi,
+     Re and Im, on kernels A -> B -> A): o1 silicon at phase n1's full
+     width: phonon_modes_dfpt_q (tol 1e-8, Sternheimer tol 1e-11) at X and
+     at (0.25, 0, 0), dynmat_dfpt_q at (-0.25, 0, 0) against the conjugate
+     of D(0.25, 0, 0) (time reversal, 1e-7) and at 0 against
+     dynmat_dfpt_gamma without the sum rule (1e-9 real, 1e-10 imaginary),
+     compute_force_constants of the (2, 1, 1) supercell on kgrid (2, 4, 4)
+     (SCFs to 1e-11, delta 2e-2) with phonon_modes_q at X within 1e-5 Ha
+     of the DFPT frequencies, and phonon_band_structure finite with the
+     acoustic modes under 0.5 cm^-1 at Gamma; o2 magnesium (T 0.01, Ecut
+     5, kgrid 2^3, 6 + 4 bands) at X against its IFC route ((2, 1, 1) on
+     kgrid (1, 2, 2), 12 + 6 bands) within 2e-5 Ha; o3 against
+     tests/data/torch_port_phonon_q.json (the JAX package's CPU float64
+     values): silicon at Ecut 4 on kgrid 2^3, D(X) from the port's own SCF
+     to 1e-12 within 1e-9 of max|D|, the force constants of
+     tests/test_phonon_q.py's si_fc fixture within 1e-6 of max|Phi|, and
+     dynmat_ewald_q at X against the (2, 1, 1) supercell's Ewald Hessian
+     folded (double backward on the card) within 1e-10; o4 from phase c's
+     Si54 split SCF state (its occupied bands): apply_chi0_split_ctx of a
+     localized dV and solve_dyson_split (tol 1e-9, Sternheimer 1e-11)
+     against the complex apply_chi0 and solve_dyson on the same state
+     within 1e-9 of max|drho|, and dynmat_dfpt_gamma_split at
+     tests/test_phonon_split.py's sizes (silicon Ecut 5 on kgrid 2^3, and
+     aluminium) against dynmat_dfpt_gamma (1e-9 relative, aluminium 1e-8)
+     and silicon's against the JAX package's split value (1e-9 relative);
+     before each run kernels A and B against their plain versions at its
+     band block within 1e-14 of max|out|; every run with the kernels
+     launched and no plain call, its wall, peak device memory, Sternheimer
+     solves, CG steps and host reads of a residual norm
   5. print the kernels' JSON line (launches from phases c, e, f, g, h, j,
-     k, l, m and n, times from phases 3, a, e, f, g and h, bounds from the
-     shapes; the main path's kernels also with their device time and their
-     max_abs_err at each phase-j, phase-k, phase-l and (complex128)
-     phase-m and phase-n run's shapes), then the result line.
+     k, l, m, n and o, times from phases 3, a, e, f, g and h, bounds from
+     the shapes; the main path's kernels also with their device time and
+     their max_abs_err at each phase-j, phase-k, phase-l and (complex128)
+     phase-m, phase-n and phase-o run's shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -659,7 +689,7 @@ def split_scf_phase(dt, la, basis, E_ref):
           and bool(torch.isfinite(res["rho"]).all()), "finite density of grid shape")
     check(all(v > 0 for v in launches.values()), "every kernel launched in the split SCF")
     check(all(v == 0 for v in plain.values()), "no plain version called in the split SCF")
-    return launches, E
+    return launches, E, res
 
 
 def si256_phase(dt, la, device, n_iter=3):
@@ -1642,7 +1672,8 @@ def run_on_card(la, label, smi, fn, tag="j"):
     return out, launches
 
 
-def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j", stack=1, block=None):
+def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j", stack=1, block=None,
+                    bar=None):
     """Kernels A and B (and the A -> B -> A chain) against their plain
     versions on one band block of the SCF at the basis' own shapes, with a
     seeded potential of its own on every k row (under collinear spin the
@@ -1653,9 +1684,11 @@ def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j", stack=
     block's bands where they are not n_bands plus the SCF's default extra
     bands (an operator on the occupied bands only, or explicit extras).
     Called before
-    run_on_card, whose counts start after it.  Adds each kernel's
-    max_abs_err at this path to errs[name][label]."""
+    run_on_card, whose counts start after it.  bar: the complex128 bar
+    relative to max|out| (default BARS).  Adds each kernel's max_abs_err at
+    this path to errs[name][label]."""
     import torch
+    bar = BARS["complex128"] if bar is None else bar
     pf, n = basis.pruned, basis.fft_size
     rng = np.random.default_rng(20261017)
     block = block or n_bands + max(3, n_bands // 10)
@@ -1690,9 +1723,8 @@ def hold_kernels_at(la, basis, label, n_bands, errs, bf16=False, tag="j", stack=
                 scale = float(ref.abs().max())
                 print(f"[{tag}] {label} {name}{sfx} at x {tuple(xc.shape)}, grid {n}: "
                       f"max_abs_err={err:.3e} rel={err / scale:.3e} "
-                      f"bar={BARS['complex128']:.0e}", flush=True)
-                check(err <= BARS["complex128"] * scale,
-                      f"{label}: {name} within {BARS['complex128']}")
+                      f"bar={bar:.0e}", flush=True)
+                check(err <= bar * scale, f"{label}: {name} within {bar}")
             else:
                 rel, rounding = rel_frobenius(out, ref), rel_frobenius(ref, highest())
                 print(f"[{tag}] {label} {name}{sfx} at x {tuple(xc.shape)}, grid {n}: "
@@ -2607,6 +2639,31 @@ def c2_upf_basis(dt, device, lattice=None, fft_size=None):
     return dt.PlaneWaveBasis(model, Ecut=7.0, kgrid=(1, 1, 1), fft_size=fft_size, device=device)
 
 
+def counted_run(la, smi, total, label, tag, fn):
+    """run_on_card with the response loops' counts (chi0.counts) set to 0
+    just before fn and printed after it; adds its launches to total."""
+    from dftk_tpu_torch.response import chi0 as chi0_mod
+    cg = chi0_mod.counts
+    cg.reset()
+    out, launches = run_on_card(la, label, smi, fn, tag=tag)
+    print(f"[{tag}] {label}: {cg.solves} Sternheimer solves, CG steps {cg.steps}, "
+          f"{cg.host_reads} host reads of a residual norm", flush=True)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def held_against(smi, tag, label, C, want, bar, scale=None):
+    """max|C - want| against bar (absolute, or relative to max|want| where
+    scale is given)."""
+    C, want = np.asarray(C), np.asarray(want)
+    diff, peak = float(np.abs(C - want).max()), float(np.abs(want).max())
+    print(f"[{tag}] {label}: max diff {diff:.3e}, relative {diff / max(peak, 1e-300):.3e}"
+          f" (bar {bar:.0e}{' of max' if scale else ''}; {smi})", flush=True)
+    check(np.isfinite(C).all() and C.shape == want.shape
+          and diff < bar * (peak if scale else 1.0), f"{label} within {bar}")
+
+
 def phonon_phase(dt, la, device, smi):
     """Phase n: Gamma-point DFPT phonons and the elastic response on the card.
     n1: silicon at full width (symmetric, unfolded by the DFPT and elastic
@@ -2624,32 +2681,17 @@ def phonon_phase(dt, la, device, smi):
     from dftk_tpu_torch.postprocess.elastic import elastic_tensor
     from dftk_tpu_torch.postprocess.phonon import (HARTREE_TO_CM1, compute_dynmat_finite_diff,
                                                    phonon_modes_from_dynmat)
-    from dftk_tpu_torch.response import chi0 as chi0_mod
     from dftk_tpu_torch.response.phonon_dfpt import dynmat_dfpt_gamma
     t_phase = time.time()
     with open(os.path.join(HERE, "tests", "data", "torch_port_phonon.json")) as f:
         ref = json.load(f)
     total, errs = {}, {}
-    cg = chi0_mod.counts
 
     def run(label, tag, fn):
-        cg.reset()
-        out, launches = run_on_card(la, label, smi, fn, tag=tag)
-        print(f"[{tag}] {label}: {cg.solves} Sternheimer solves, CG steps {cg.steps}, "
-              f"{cg.host_reads} host reads of a residual norm", flush=True)
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
-        return out
+        return counted_run(la, smi, total, label, tag, fn)
 
     def against(tag, label, C, want, bar, scale=None):
-        """max|C - want| against bar (absolute, or relative to max|want|
-        where scale is given)."""
-        want = np.asarray(want)
-        diff, peak = float(np.abs(C - want).max()), float(np.abs(want).max())
-        print(f"[{tag}] {label}: max diff {diff:.3e}, relative {diff / peak:.3e}"
-              f" (bar {bar:.0e}{' of max' if scale else ''}; {smi})", flush=True)
-        check(np.isfinite(C).all() and diff < bar * (peak if scale else 1.0),
-              f"{label} within {bar}")
+        held_against(smi, tag, label, C, want, bar, scale)
 
     def modes(tag, label, C, atoms):
         f, _ = phonon_modes_from_dynmat(C, atoms)
@@ -2772,6 +2814,276 @@ def phonon_phase(dt, la, device, smi):
     return total, errs
 
 
+# phase o: phonons at q, the supercell force constants and the split
+# response adapters; the cells of tests/data/make_torch_port_phonon_q.py
+# and tests/test_phonon_q.py (copied), the JAX values in
+# tests/data/torch_port_phonon_q.json
+Q_X, Q_QUARTER = [0.5, 0.0, 0.0], [0.25, 0.0, 0.0]
+# the IFC route of tests/test_phonon_q.py's slow tests: silicon's (2, 1, 1)
+# supercell on kgrid (2, 4, 4), the same k-points as 4^3, and magnesium's on
+# (1, 2, 2) with 12 + 6 bands; DFPT frequencies against it at X
+IFC_SI = dict(supercell_size=(2, 1, 1), kgrid=(2, 4, 4), scf_kwargs=dict(tol=1e-11),
+              delta=2e-2)
+IFC_MG = dict(supercell_size=(2, 1, 1), kgrid=(1, 2, 2),
+              scf_kwargs=dict(tol=1e-11, n_bands=12, n_extra_bands=6), delta=2e-2)
+IFC_SI_BAR, IFC_MG_BAR = 1e-5, 2e-5          # Ha, tests/test_phonon_q.py:145, :169
+# tests/test_phonon_q.py: q = 0 against the Gamma code (real, imaginary
+# parts), time reversal; the si_fc fixture and the Ewald fold
+GAMMA_Q_BAR, GAMMA_Q_IMAG_BAR, TIME_REVERSAL_BAR = 1e-9, 1e-10, 1e-7
+SI_FC = dict(Ecut=4.0, supercell_size=(2, 1, 1), scf_kwargs=dict(tol=1e-9), delta=3e-2)
+PHI_REL_BAR, EWALD_FOLD_BAR = 1e-6, 1e-10
+SPLIT_REL_BAR = 1e-9                # tests/test_chi0_split.py:52, test_phonon_split.py:36
+SPLIT_METAL_BAR = 1e-8              # tests/test_phonon_split.py:67, absolute
+KERNEL_EXACT_BAR = 1e-14            # A and B against their plain versions, of max|out|
+
+
+def localized_potential(basis, width=2.0, amplitude=0.05):
+    """A Gaussian bump [1, n1, n2, n3] of `width` bohr at the cell's centre
+    (minimum image), float64 on the basis' device."""
+    axes = [np.arange(n) / n for n in basis.fft_size]
+    d = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1) - 0.5
+    cart = (d - np.round(d)) @ np.asarray(basis.model.lattice).T
+    return basis.tensor(amplitude * np.exp(-np.sum(cart ** 2, -1) / (2 * width ** 2))[None])
+
+
+def mass_weighted_from_modes(freqs, vecs):
+    """The mass-weighted dynamical matrix V diag(sign(f) f^2) V^H that
+    phonon_modes_dfpt_q diagonalised (times the outer product of the
+    masses' square roots: the force-constant matrix)."""
+    return (vecs * (np.sign(freqs) * freqs ** 2)) @ vecs.conj().T
+
+
+def supercell_basis(dt, model, Ecut, supercell_size, kgrid, device):
+    """The undisplaced supercell of compute_force_constants (for holding
+    the kernels at its shapes)."""
+    from dftk_tpu_torch.supercell import create_supercell
+    sc = create_supercell(model.lattice, model.atoms, model.positions, supercell_size)
+    m = dt.model_DFT(sc["lattice"], sc["atoms"], sc["positions"],
+                     functionals=["lda_x", "lda_c_vwn"], temperature=model.temperature)
+    return dt.PlaneWaveBasis(m, Ecut=Ecut, kgrid=kgrid, device=device)
+
+
+def split_result_of(res):
+    """A complex SCF result (already on the full k-grid) as the split SCF's
+    result dict: rows [x; y] per band, as tests/test_phonon_split.py makes it."""
+    def host(a):
+        return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+    psi = host(res.psi)
+    return dict(U=np.concatenate([psi.real, psi.imag], -1), occupation=host(res.occupation),
+                eigenvalues=host(res.eigenvalues), rho=host(res.rho), epsF=float(res.epsF))
+
+
+def q_phonon_phase(dt, la, device, smi, si54):
+    """Phase o: phonons at q and the split response adapters on the card.
+    o1: silicon at full width (symmetric, unfolded by the entry points):
+    phonon_modes_dfpt_q at X and (0.25, 0, 0), dynmat_dfpt_q at (-0.25, 0, 0)
+    (time reversal) and at 0 (against dynmat_dfpt_gamma), the IFC route's
+    compute_force_constants and phonon_modes_q at X, phonon_band_structure;
+    o2: magnesium's DFPT at X against its IFC route; o3: D(X) of the
+    reference-size silicon, the si_fc force constants and the Ewald fold
+    against the JAX package's values; o4: from phase c's Si54 split SCF
+    (si54 = (basis, result)), apply_chi0_split_ctx and solve_dyson_split
+    against the complex apply_chi0 and solve_dyson, and
+    dynmat_dfpt_gamma_split against dynmat_dfpt_gamma (silicon, against
+    the JAX package's too, and aluminium).  Returns the kernel launches of
+    its runs and each kernel's max_abs_err at each run's shapes."""
+    import torch
+    from dftk_tpu_torch.interop import SCFState
+    from dftk_tpu_torch.ops.engine_split import prepare_split_data
+    from dftk_tpu_torch.ops.ewald import energy_ewald
+    from dftk_tpu_torch.postprocess.phonon import (AMU_TO_ME, ATOMIC_MASSES_U, HARTREE_TO_CM1,
+                                                   compute_force_constants,
+                                                   phonon_band_structure, phonon_modes_q)
+    from dftk_tpu_torch.response import chi0_split as cs
+    from dftk_tpu_torch.response.phonon_dfpt import dynmat_dfpt_gamma
+    from dftk_tpu_torch.response.phonon_q import (dynmat_dfpt_q, dynmat_ewald_q,
+                                                  phonon_modes_dfpt_q)
+    from dftk_tpu_torch.response.phonon_split import dynmat_dfpt_gamma_split
+    from dftk_tpu_torch.scf.energy_eval import split_state_to_complex
+    t_phase = time.time()
+    with open(os.path.join(HERE, "tests", "data", "torch_port_phonon_q.json")) as f:
+        ref = json.load(f)
+    total, errs = {}, {}
+
+    def run(label, tag, fn):
+        return counted_run(la, smi, total, label, tag, fn)
+
+    def against(tag, label, C, want, bar, scale=None):
+        held_against(smi, tag, label, C, want, bar, scale)
+
+    def b64(d):
+        import base64
+        return np.frombuffer(base64.b64decode(d["data"]), dtype=np.dtype(d["dtype"])).reshape(
+            d["shape"])
+
+    def freqs_against(tag, label, f, f_ifc, bar):
+        diff = float(np.abs(f - f_ifc).max())
+        print(f"[{tag}] {label} (cm^-1): DFPT {np.round(f * HARTREE_TO_CM1, 4).tolist()}, "
+              f"IFC {np.round(f_ifc * HARTREE_TO_CM1, 4).tolist()}; max diff {diff:.3e} Ha "
+              f"(bar {bar:.0e}; {smi})", flush=True)
+        check(np.isfinite(f).all() and diff < bar, f"{label} within {bar} Ha")
+
+    # o1: silicon at full width
+    basis = si2_phonon_basis(dt, device, **SI_FULL_WIDTH)
+    print(f"[o1] {basis}", flush=True)
+    hold_kernels_at(la, basis, "o1 SCF", 4, errs, tag="o1", bar=KERNEL_EXACT_BAR)
+    res = run("o1 Si2 SCF", "o1", lambda: dt.self_consistent_field(basis, tol=1e-12, maxiter=60))
+    hold_kernels_at(la, dt.unfold_bz(res).basis, "o1 DFPT at q", 4, errs, tag="o1",
+                    bar=KERNEL_EXACT_BAR)
+    f_X, _ = run("o1 phonon_modes_dfpt_q at X", "o1",
+                 lambda: phonon_modes_dfpt_q(res, Q_X, **DFPT_TOLS))
+    f_q, v_q = run("o1 phonon_modes_dfpt_q at (0.25, 0, 0)", "o1",
+                   lambda: phonon_modes_dfpt_q(res, Q_QUARTER, **DFPT_TOLS))
+    print(f"[o1] frequencies at (0.25, 0, 0) (cm^-1): "
+          f"{np.round(f_q * HARTREE_TO_CM1, 4).tolist()}", flush=True)
+    C_mq = run("o1 dynmat_dfpt_q at (-0.25, 0, 0)", "o1",
+               lambda: dynmat_dfpt_q(res, [-x for x in Q_QUARTER], **DFPT_TOLS))
+    msqrt = np.repeat(np.sqrt([ATOMIC_MASSES_U[at.symbol] * AMU_TO_ME
+                               for at in basis.model.atoms]), 3)
+    C_q = mass_weighted_from_modes(f_q, v_q) * np.outer(msqrt, msqrt)
+    against("o1", "D(-q) against conj D(q) (time reversal)", C_mq, C_q.conj(), TIME_REVERSAL_BAR)
+    C0q = run("o1 dynmat_dfpt_q at q = 0", "o1", lambda: dynmat_dfpt_q(res, [0, 0, 0], **DFPT_TOLS))
+    C0 = run("o1 dynmat_dfpt_gamma without the sum rule", "o1", lambda: dynmat_dfpt_gamma(
+        res, acoustic_sum_rule=False, **DFPT_TOLS))
+    against("o1", "the q-code at q = 0 against the Gamma code (real part)", C0q.real, C0,
+            GAMMA_Q_BAR)
+    against("o1", "the q-code at q = 0 (imaginary part)", C0q.imag, np.zeros_like(C0),
+            GAMMA_Q_IMAG_BAR)
+    del res
+    hold_kernels_at(la, supercell_basis(dt, basis.model, SI_FULL_WIDTH["Ecut"],
+                                        IFC_SI["supercell_size"], IFC_SI["kgrid"], device),
+                    "o1 IFC supercell", 8, errs, tag="o1", bar=KERNEL_EXACT_BAR)
+    fc = run("o1 compute_force_constants (12 SCFs)", "o1", lambda: compute_force_constants(
+        basis.model, Ecut=SI_FULL_WIDTH["Ecut"], basis_kwargs=dict(device=device), **IFC_SI))
+    freqs_against("o1", "silicon at X, DFPT against IFC", f_X, phonon_modes_q(fc, Q_X)[0],
+                  IFC_SI_BAR)
+    bs = phonon_band_structure(fc)
+    fb = bs["frequencies"]
+    acoustic = float(np.abs(fb[0, :3]).max()) * HARTREE_TO_CM1
+    print(f"[o1] phonon_band_structure: {fb.shape[0]} q-points "
+          f"({' '.join(bs['qpath'].labels.values())}), highest "
+          f"{fb.max() * HARTREE_TO_CM1:.4f} cm^-1, acoustic at Gamma {acoustic:.2e} cm^-1",
+          flush=True)
+    check(np.isfinite(fb).all() and np.allclose(bs["qpath"].kcoords[0], 0)
+          and acoustic < ACOUSTIC_CM1, f"o1 band structure finite, acoustic < {ACOUSTIC_CM1}")
+    del basis, fc
+    torch.cuda.empty_cache()
+
+    # o2: magnesium, DFPT at X against its IFC route
+    basis = mg_phonon_basis(dt, device)
+    mg_kw = dict(n_bands=6, n_extra_bands=4)
+    hold_kernels_at(la, basis, "o2 Mg", 6, errs, tag="o2", block=10, bar=KERNEL_EXACT_BAR)
+    res = run("o2 Mg SCF", "o2", lambda: dt.self_consistent_field(basis, tol=1e-12, maxiter=80,
+                                                                  **mg_kw))
+    f_mg, _ = run("o2 Mg phonon_modes_dfpt_q at X", "o2",
+                  lambda: phonon_modes_dfpt_q(res, Q_X, **DFPT_TOLS))
+    fc = run("o2 Mg compute_force_constants (12 SCFs)", "o2", lambda: compute_force_constants(
+        basis.model, Ecut=5.0, basis_kwargs=dict(device=device), **IFC_MG))
+    freqs_against("o2", "magnesium at X, DFPT against IFC", f_mg, phonon_modes_q(fc, Q_X)[0],
+                  IFC_MG_BAR)
+    del res, basis, fc
+    torch.cuda.empty_cache()
+
+    # o3: against the JAX package's values
+    r = ref["si2_q_converged"]
+    basis = si2_phonon_basis(dt, device, Ecut=4.0, kgrid=(2, 2, 2))
+    check(list(basis.fft_size) == r["fft_size"], "o3 Si2: the JAX package's FFT size")
+    hold_kernels_at(la, basis, "o3 Si2", 4, errs, tag="o3", bar=KERNEL_EXACT_BAR)
+    res = run("o3 Si2 SCF", "o3", lambda: dt.self_consistent_field(basis, tol=1e-12, maxiter=60))
+    C = run("o3 Si2 dynmat_dfpt_q at X", "o3", lambda: dynmat_dfpt_q(res, Q_X, **DFPT_TOLS))
+    against("o3", "Si2 D(X) against the JAX package's", C, b64(r["dynmat_X"]), JAX_REL_BAR,
+            scale=True)
+    fc = run("o3 si_fc compute_force_constants (12 SCFs)", "o3", lambda: compute_force_constants(
+        basis.model, basis_kwargs=dict(device=device), **SI_FC))
+    against("o3", "si_fc Phi against the JAX package's", fc.Phi, b64(ref["si_fc"]["Phi"]),
+            PHI_REL_BAR, scale=True)
+    # the Ewald dynamical matrix at X against the fold of the (2, 1, 1)
+    # supercell's Ewald Hessian (double backward on the card)
+    a = 5.13
+    L = np.array([[0, a, a], [a, 0, a], [a, a, 0]], dtype=float)
+    pos = np.array([[0.125, 0.125, 0.125], [-0.125, -0.125, -0.125]])
+    Ls = L @ np.diag([2.0, 1.0, 1.0])
+    pos_s = np.array([np.linalg.solve(np.diag([2.0, 1.0, 1.0]), p + np.array([c, 0, 0]))
+                      for c in range(2) for p in pos])
+    with torch.enable_grad():
+        H = torch.autograd.functional.hessian(
+            lambda p: energy_ewald(Ls, np.full(4, 4.0), p, device=device),
+            torch.as_tensor(pos_s, dtype=torch.float64, device=device)).cpu().numpy()
+    Linv = np.linalg.inv(Ls)
+    Hc = np.einsum("aA,satb,bB->sAtB", Linv, H, Linv)
+    ph = np.exp(2j * np.pi * (pos @ np.asarray(Q_X)))
+    D_gauge = np.einsum("a,aibj,b->aibj", ph, dynmat_ewald_q(L, [4.0, 4.0], pos, Q_X), ph.conj())
+    fold = Hc[:2, :, :2, :] - Hc[:2, :, 2:, :]
+    against("o3", "dynmat_ewald_q at X against the supercell fold", D_gauge, fold, EWALD_FOLD_BAR)
+    against("o3", "the supercell fold against the JAX package's", fold,
+            b64(ref["ewald_q"]["fold_X"]), EWALD_FOLD_BAR)
+    del res, basis, fc
+    torch.cuda.empty_cache()
+
+    # o4: the split adapters from phase c's Si54 split SCF, on its occupied
+    # bands (its unoccupied ones left out, so that the complex path's Schur
+    # complement has nothing to act on and both paths solve one system)
+    basis, sres = si54
+    occ_np = np.asarray(torch.as_tensor(sres["occupation"]).cpu())
+    n_occ = int((occ_np > 1e-8).sum(1).max())
+    occ_res = dict(U=sres["U"][:, :n_occ], occupation=sres["occupation"][:, :n_occ],
+                   eigenvalues=sres["eigenvalues"][:, :n_occ], rho=sres["rho"], epsF=sres["epsF"])
+    hold_kernels_at(la, basis, "o4 Si54 chi0", n_occ, errs, tag="o4", block=n_occ,
+                    bar=KERNEL_EXACT_BAR)
+    ctx = cs.make_chi0_split_context(basis, prepare_split_data(basis), occ_res)
+    psi, occ = split_state_to_complex(basis, occ_res["U"], occ_res["occupation"])
+    state = SCFState(basis=basis, psi=psi, occupation=occ, eigenvalues=ctx.eigenvalues,
+                     epsF=float(sres["epsF"]),
+                     rho=torch.as_tensor(sres["rho"], dtype=torch.float64, device=device))
+    dV = localized_potential(basis)
+    print(f"[o4] Si54 split state: {n_occ} occupied bands of {sres['U'].shape[1]}, "
+          f"localized dV max {float(dV.max()):.3e}", flush=True)
+    drho_s = run("o4 Si54 apply_chi0_split_ctx", "o4",
+                 lambda: cs.apply_chi0_split_ctx(basis, ctx, dV, tol=1e-11))
+    drho_c = run("o4 Si54 apply_chi0", "o4", lambda: dt.apply_chi0(
+        dt.make_chi0_context(state, basis), basis, dV, tol=1e-11))
+    against("o4", "Si54 split chi0 against the complex chi0", drho_s.cpu().numpy(),
+            drho_c.cpu().numpy(), SPLIT_REL_BAR, scale=True)
+    drho_ds, _ = run("o4 Si54 solve_dyson_split", "o4", lambda: cs.solve_dyson_split(
+        basis, ctx, dV, sres["rho"], tol=1e-9, sternheimer_tol=1e-11))
+    drho_dc, _ = run("o4 Si54 solve_dyson", "o4", lambda: dt.solve_dyson(
+        state, dV, basis=basis, tol=1e-9, sternheimer_tol=1e-11))
+    against("o4", "Si54 split Dyson against the complex Dyson", drho_ds.cpu().numpy(),
+            drho_dc.cpu().numpy(), SPLIT_REL_BAR, scale=True)
+    del ctx, state, psi, drho_s, drho_c, drho_ds, drho_dc
+    torch.cuda.empty_cache()
+
+    # o4: the split Gamma DFPT at tests/test_phonon_split.py's sizes
+    Al = dt.ElementPsp.from_symbol("Al", psp="lda/al-q3")
+    al_model = dt.model_DFT(AL_FCC, [Al], [np.array([0.03, 0.0, 0.0])],
+                            functionals=["lda_x", "lda_c_vwn"], temperature=1e-2,
+                            symmetries=False)
+    cells = (("silicon", si2_phonon_basis(dt, device, Ecut=5.0, kgrid=(2, 2, 2)), {},
+              SPLIT_REL_BAR, True),
+             ("aluminium", dt.PlaneWaveBasis(al_model, Ecut=5.0, kgrid=(2, 2, 2), device=device),
+              dict(maxiter=80, n_bands=6, n_extra_bands=4), SPLIT_METAL_BAR, False))
+    for name, basis, kw, bar, rel in cells:
+        hold_kernels_at(la, basis, f"o4 {name} split DFPT", 4, errs, tag="o4",
+                        block=10 if kw else None, bar=KERNEL_EXACT_BAR)
+        res = run(f"o4 {name} SCF", "o4", lambda: dt.self_consistent_field(
+            basis, tol=1e-12, **{"maxiter": 60, **kw}))
+        u = dt.unfold_bz(res)
+        C_s = run(f"o4 {name} dynmat_dfpt_gamma_split", "o4", lambda: dynmat_dfpt_gamma_split(
+            u.basis, prepare_split_data(u.basis), split_result_of(u), tol=1e-8,
+            sternheimer_tol=1e-11))
+        C_c = run(f"o4 {name} dynmat_dfpt_gamma", "o4", lambda: dynmat_dfpt_gamma(
+            res, tol=1e-8, sternheimer_tol=1e-11))
+        against("o4", f"{name} split dynmat against dynmat_dfpt_gamma", C_s, C_c, bar,
+                scale=rel or None)
+        if name == "silicon":
+            against("o4", "silicon split dynmat against the JAX package's split value", C_s,
+                    b64(ref["phonon_split"]["dynmat"]), JAX_REL_BAR, scale=True)
+        del res, u
+    torch.cuda.empty_cache()
+    print(f"[o] phase o took {time.time() - t_phase:.1f} s; launches {total}", flush=True)
+    return total, errs
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -2846,8 +3158,9 @@ def main():
     filter_chain_phase(dt, la, basis, device)
 
     # ---- c. the split CheFSI SCF on Si54 (this slice's main path) -------------
-    launches, E_c = split_scf_phase(dt, la, basis, E_ref)
-    del basis
+    launches, E_c, res_c = split_scf_phase(dt, la, basis, E_ref)
+    si54 = (basis, res_c)           # phase o's split adapters start from this state
+    del basis, res_c
     torch.cuda.empty_cache()
 
     # ---- d. Si256 ---------------------------------------------------------------
@@ -2898,6 +3211,13 @@ def main():
     phonon_launches, phonon_errs = phonon_phase(dt, la, device, smi)
     for name, count in phonon_launches.items():
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # ---- o. phonons at q and the split response adapters -------------------
+    q_launches, q_errs = q_phonon_phase(dt, la, device, smi, si54)
+    for name, count in q_launches.items():
+        launches[name] += count
+    del si54
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -2921,7 +3241,9 @@ def main():
                             **({"max_abs_err_phase_m": solver_errs[name]}
                                if name in solver_errs else {}),
                             **({"max_abs_err_phase_n": phonon_errs[name]}
-                               if name in phonon_errs else {})))
+                               if name in phonon_errs else {}),
+                            **({"max_abs_err_phase_o": q_errs[name]}
+                               if name in q_errs else {})))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

@@ -32,7 +32,13 @@ derivatives at Gamma: `unfold_bz` (an IBZ result on the full k-grid),
 (DFPT phonons, insulators and metals), `elastic_tensor_response` (the
 elastic tensor by the response, HGH and UPF models), and their finite-difference checks
 `phonon_modes_finite_diff` (`postprocess/phonon.py`) and
-`postprocess.elastic.elastic_tensor`.  A meta-GGA's H
+`postprocess.elastic.elastic_tensor`.  Phonons at a commensurate q:
+`response.phonon_q.dynmat_dfpt_q` and `phonon_modes_dfpt_q` (DFPT on the
+unfolded k-grid, every k+q apply of H on the kernels), and the supercell
+route `postprocess.phonon.compute_force_constants` with `dynmat_q`,
+`phonon_modes_q` and `phonon_band_structure` along `irrfbz_path`.  The
+split SCF's response entry points (`response.chi0_split`,
+`response.phonon_split`) are adapters over the complex path.  A meta-GGA's H
 adds the DivAgrad term through the same kernels, and its split SCF filters
 with the sphere apply.  See ROADMAP.md for what is still to port.
 """
@@ -55,6 +61,7 @@ from .models.model import Model  # noqa: E402
 from .models.standard import LDA, PBE, PBEsol, model_atomic, model_DFT  # noqa: E402
 from .ops.density import guess_density, spin_density, total_density  # noqa: E402
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
+from .postprocess.bands import compute_bands, irrfbz_path  # noqa: E402
 from .postprocess.elastic_response import elastic_tensor_response  # noqa: E402
 from .postprocess.forces import compute_forces, compute_forces_cart  # noqa: E402
 from .postprocess.phonon import phonon_modes_finite_diff  # noqa: E402
@@ -84,4 +91,5 @@ __all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "ElementCoulomb",
            "direct_minimization", "apply_chi0", "make_chi0_context", "solve_dyson",
            "compute_polarizability", "make_omega_plus_k", "eigen_omega_plus_k",
            "solve_omega_plus_k", "model_atomic", "Model", "unfold_bz",
-           "phonon_modes_finite_diff", "elastic_tensor_response"]
+           "phonon_modes_finite_diff", "elastic_tensor_response", "compute_bands",
+           "irrfbz_path"]

@@ -1,20 +1,25 @@
-"""Phonon modes at Gamma.
+"""Phonon modes.
 
-Port of the Gamma part of `dftk_tpu/postprocess/phonon.py` (reference:
-DFTK `src/postprocess/phonon.jl`):
+Port of `dftk_tpu/postprocess/phonon.py` (reference: DFTK
+`src/postprocess/phonon.jl`):
   * `compute_dynmat_finite_diff` and `phonon_modes_finite_diff`: the
-    dynamical matrix from central finite differences of the forces of
-    displaced, re-converged SCF solutions (the supercell method the
-    reference's phonon tests compare DFPT against);
+    dynamical matrix at Gamma from central finite differences of the
+    forces of displaced, re-converged SCF solutions (the supercell method
+    the reference's phonon tests compare DFPT against);
   * `phonon_modes_from_dynmat`: mass-weighting and diagonalisation, used by
-    both that route and the DFPT one (`response/phonon_dfpt.py`).
+    both that route and the DFPT one (`response/phonon_dfpt.py`);
+  * the interatomic force constants of a supercell and the dynamical
+    matrices at any q (`ForceConstants`, `compute_force_constants`,
+    `dynmat_q`, `phonon_modes_q`, `phonon_band_structure`): the
+    frozen-phonon counterpart of the DFPT phonons at q
+    (`response/phonon_q.py`), exact at q commensurate with the supercell
+    and Fourier-interpolated in between.
 
 Frequencies are in Hartree atomic units (multiply by HARTREE_TO_CM1 for
-cm^-1).  The force constants of a supercell and the dynamical matrices at
-q != 0 (`ForceConstants`, `compute_force_constants`, `dynmat_q`,
-`phonon_modes_q`, `phonon_band_structure`) are not ported yet (ROADMAP
-Queue 1, item 10c) and raise NotImplementedError.
+cm^-1).
 """
+import dataclasses
+
 import numpy as np
 
 HARTREE_TO_CM1 = 219474.6313632
@@ -87,18 +92,118 @@ def phonon_modes_finite_diff(make_basis, positions0, atoms, scf_kwargs=None, del
     return phonon_modes_from_dynmat(C, atoms)
 
 
-def _item_10c(name):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name}: supercell force constants and phonons at q != 0 are not ported "
-            f"yet (ROADMAP Queue 1, item 10c)")
-    stub.__name__ = stub.__qualname__ = name
-    stub.__doc__ = "Not ported yet (ROADMAP Queue 1, item 10c): raises NotImplementedError."
-    return stub
+# ---------------------------------------------------------------------------
+# Interatomic force constants + dynamical matrices at arbitrary q
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ForceConstants:
+    """Real-space force constants Phi[s, a, cell, t, b] = dF/du and geometry.
+
+    s/t: unit-cell atom indices; a/b: Cartesian; cell: supercell lattice
+    offset index (offsets[cell] in units of the unit-cell vectors)."""
+    Phi: np.ndarray            # [na, 3, n_cells, na, 3]
+    offsets: np.ndarray        # [n_cells, 3] int
+    supercell: tuple
+    atoms: list
+    lattice: np.ndarray        # unit-cell lattice (columns = vectors)
 
 
-ForceConstants = _item_10c("ForceConstants")
-compute_force_constants = _item_10c("compute_force_constants")
-dynmat_q = _item_10c("dynmat_q")
-phonon_modes_q = _item_10c("phonon_modes_q")
-phonon_band_structure = _item_10c("phonon_band_structure")
+def _functional_names(model):
+    """The names of the model's XC functionals (the port's copy of
+    `dftk_tpu/io/scfres.py::_functional_names`)."""
+    from ..ops.terms import Xc
+    for t in model.term_types:
+        if isinstance(t, Xc):
+            return list(t.functionals)
+    return []
+
+
+def compute_force_constants(model, Ecut, supercell_size, kgrid=(1, 1, 1), scf_kwargs=None,
+                            delta=1e-3, acoustic_sum_rule=True, basis_kwargs=None):
+    """Supercell finite-difference interatomic force constants.
+
+    Displaces every unit-cell atom (the R = 0 copies) along every Cartesian
+    direction in an n1 x n2 x n3 supercell (a `model_DFT` of the model's
+    functionals, temperature, smearing and spin) and records the force
+    response of all supercell atoms (`self_consistent_field`, then
+    `compute_forces_cart`).  The resulting Phi(R) gives the exact dynamical
+    matrix at every q commensurate with the supercell.  basis_kwargs go to
+    each PlaneWaveBasis (its device among them)."""
+    from ..basis import PlaneWaveBasis
+    from ..models.standard import model_DFT
+    from ..scf.driver import self_consistent_field
+    from ..supercell import create_supercell
+    from .forces import compute_forces_cart
+
+    scf_kwargs = dict(scf_kwargs or {})
+    scf_kwargs.setdefault("tol", 1e-10)
+    basis_kwargs = dict(basis_kwargs or {})
+    sc = create_supercell(model.lattice, model.atoms, model.positions, supercell_size)
+    n1, n2, n3 = sc["size"]
+    n_cells = n1 * n2 * n3
+    na = len(model.atoms)
+    offsets = np.array([[i, j, k] for i in range(n1) for j in range(n2) for k in range(n3)],
+                       dtype=int)
+    inv_lat_sc = np.linalg.inv(sc["lattice"])
+
+    def make_basis(positions):
+        m = model_DFT(sc["lattice"], sc["atoms"], positions,
+                      functionals=_functional_names(model), temperature=model.temperature,
+                      smearing=model.smearing, spin_polarization=model.spin_polarization)
+        return PlaneWaveBasis(m, Ecut=Ecut, kgrid=kgrid, **basis_kwargs)
+
+    Phi = np.zeros((na, 3, n_cells, na, 3))
+    for s in range(na):
+        for alpha in range(3):
+            forces = []
+            for sign in (+1, -1):
+                pos = [np.array(p, dtype=float) for p in sc["positions"]]
+                # cell 0 holds atoms 0..na-1
+                pos[s] = pos[s] + inv_lat_sc @ (sign * delta * np.eye(3)[alpha])
+                res = self_consistent_field(make_basis(pos), **scf_kwargs)
+                forces.append(compute_forces_cart(res).cpu().numpy())
+            dF = (forces[0] - forces[1]) / (2 * delta)      # [n_cells*na, 3]
+            Phi[s, alpha] = -dF.reshape(n_cells, na, 3)
+
+    if acoustic_sum_rule:
+        # sum_{R, t} Phi[s, a, R, t, b] = 0: correct the self term
+        corr = Phi.sum(axis=(2, 3))                          # [na, 3, 3]
+        for s in range(na):
+            Phi[s, :, 0, s, :] -= corr[s]
+    return ForceConstants(Phi=Phi, offsets=offsets, supercell=tuple(sc["size"]),
+                          atoms=list(model.atoms), lattice=np.asarray(model.lattice, dtype=float))
+
+
+def dynmat_q(fc, q, minimum_image=True):
+    """Mass-weighted dynamical matrix D(q) [3 na, 3 na] (q reduced coords).
+
+    Exact for q commensurate with the supercell; for interpolation at other
+    q the lattice offsets are folded to their minimum-image representative."""
+    na = fc.Phi.shape[0]
+    size = np.array(fc.supercell)
+    offsets = fc.offsets.astype(float)
+    if minimum_image:
+        offsets = offsets - size * np.round(offsets / size)
+    phase = np.exp(2j * np.pi * (offsets @ np.asarray(q, dtype=float)))
+    D = np.einsum("c,sactb->satb", phase, fc.Phi).reshape(3 * na, 3 * na)
+    masses = np.array([ATOMIC_MASSES_U[at.symbol] * AMU_TO_ME for at in fc.atoms])
+    msqrt = np.repeat(np.sqrt(masses), 3)
+    D = D / np.outer(msqrt, msqrt)
+    return (D + D.conj().T) / 2
+
+
+def phonon_modes_q(fc, q, minimum_image=True):
+    """Frequencies (Ha, negatives = imaginary) + eigenvectors at one q."""
+    w2, vecs = np.linalg.eigh(dynmat_q(fc, q, minimum_image=minimum_image))
+    return np.sign(w2) * np.sqrt(np.abs(w2)), vecs
+
+
+def phonon_band_structure(fc, kline_density=20, qpath=None):
+    """Phonon frequencies along a high-symmetry q-path of the unit cell
+    (`postprocess/bands.py::irrfbz_path` unless qpath is given)."""
+    from .bands import irrfbz_path
+    if qpath is None:
+        qpath = irrfbz_path(fc.lattice, kline_density=kline_density)
+    freqs = np.stack([phonon_modes_q(fc, q)[0] for q in qpath.kcoords])
+    return dict(qpath=qpath, frequencies=freqs)

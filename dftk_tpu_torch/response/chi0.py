@@ -19,7 +19,8 @@ per step of an apply of H).  `counts` keeps the steps and the reads of the
 response's CG loops (this module's and `response/hessian.py`'s Omega + K
 solve).  Every apply of H, and the product dV psi itself, goes through
 `ops/hamiltonian.py::apply_local`: kernels A -> B -> A on a CUDA tensor
-(the pruned transforms give the full-cube product on the sphere).
+(the pruned transforms give the full-cube product on the sphere); the
+complex dV_q psi of the phonons at q (`apply_dV_q`) is two such applies.
 """
 import math
 from typing import NamedTuple
@@ -27,9 +28,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.local_apply import local_apply
 from ..models.smearing import NoSmearing, occupation_divided_difference
 from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, compute_density_derivative
+from ..ops.pruned import compact_to_sphere, sphere_to_compact
 
 
 class CGCounts:
@@ -197,6 +200,26 @@ def apply_dV(ham, psi, delta_V, kspin):
     (each k row takes its spin's channel), through the Hamiltonian's local
     apply (kernels A -> B -> A on a CUDA tensor)."""
     return hamops.apply_local(ham, psi, V_zxy=hamops.to_zxy(delta_V.to(psi.real.dtype), kspin))
+
+
+def apply_dV_q(ham, psi, dv, kspin, perm, phase):
+    """(e^{2 pi i q.x} dv) psi_k on the sphere of each row's k+q partner
+    k_perm = k + q - G0, for psi [nk, nb, nG] on the k spheres, dv [nspin,
+    n1, n2, n3] complex (the periodic part at +q; each k row takes its
+    spin's channel), perm [nk] int64 and phase [nk, n1, n2, n3] = e^{2 pi i
+    G0_k.x}.  Kernel B takes a real potential, so the sector phase is folded
+    into V'_k = dv e^{2 pi i G0_k.x}, and Re V' and Im V' are applied to the
+    same compact cube as two local applies (kernels A -> B -> A on a CUDA
+    tensor); the result is gathered on k_perm's sphere.  The compact cube
+    holds the occupied indices of every k-point, so the k+q spheres of an
+    unfolded basis lie inside it, and the phase is integral on the grid:
+    the product is the full-cube one."""
+    Vq = (dv[kspin] * phase).permute(0, 3, 1, 2)
+    xc = sphere_to_compact(psi, ham.pruned)
+    y_re = local_apply(xc, Vq.real.contiguous(), ham.pruned.factors)
+    y_im = local_apply(xc, Vq.imag.contiguous(), ham.pruned.factors)
+    pq = ham.pruned._replace(Gidx_c=ham.pruned.Gidx_c[perm])
+    return compact_to_sphere(y_re + 1j * y_im, pq, ham.mask[perm])
 
 
 def apply_chi0(ctx: Chi0Context, basis, delta_V, tol=1e-9, occupation_threshold=1e-8,

@@ -76,12 +76,18 @@ def _atom_of_projector_column(basis):
     return np.array(cols, dtype=int)
 
 
-def _nonlocal_derivative(P, dP, D, psi):
+def _nonlocal_derivative(P, dP, D, psi, P_out=None, dP_out=None):
     """dP D P^dag psi + P D dP^dag psi [nk, nb, nG]: the first-order change
-    of the nonlocal apply when the projectors P [nk, nG, nproj] move by dP."""
+    of the nonlocal apply when the projectors P [nk, nG, nproj] move by dP.
+    P_out and dP_out (default P and dP) are the projectors and their change
+    on the output side where it lies on other spheres than psi: at q, the
+    k+q partners' P[perm] (`response/phonon_q.py::_bare_rhs_q`)."""
     def DPd(Q):
         return torch.einsum("pq,knq->knp", D, torch.einsum("kgp,kng->knp", Q.conj(), psi))
-    return torch.einsum("kgp,knp->kng", dP, DPd(P)) + torch.einsum("kgp,knp->kng", P, DPd(dP))
+    P_out = P if P_out is None else P_out
+    dP_out = dP if dP_out is None else dP_out
+    return (torch.einsum("kgp,knp->kng", dP_out, DPd(P))
+            + torch.einsum("kgp,knp->kng", P_out, DPd(dP)))
 
 
 def _bare_rhs(basis, ctx, dVloc):

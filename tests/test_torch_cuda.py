@@ -27,7 +27,9 @@ Fe16, Fe54), with the up and down potentials on the two halves of the k
 rows.  One Sternheimer solve of chi0 and one apply of Omega + K on the
 card against the same on the CPU (1e-11), on a symmetric Si2 state, and
 the Gamma Si2 DFPT dynamical matrix on the card against the CPU's (1e-9
-of max|C|).  The
+of max|C|).  H at k+q through the permuted Ham against H at k_perm, and
+the complex dV_q psi (Re and Im as two local applies) against its plain
+versions, within 1e-14 of max|out|.  The
 filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
 planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
@@ -1077,3 +1079,41 @@ def test_cuda_dynmat_dfpt_gamma_matches_cpu():
     assert all(v == 0 for v in la.counts.plain.values())
     assert np.isfinite(C_gpu).all()
     assert np.abs(C_gpu - C_cpu).max() <= 1e-9 * np.abs(C_cpu).max()
+
+
+@pytest.mark.cuda
+def test_cuda_perm_ham_and_dv_q_match_plain(gpu_basis, monkeypatch):
+    """At q = X on Si2's 8 k-points: H at k+q through the permuted Ham (the
+    pruned sphere maps permuted with the rest) against H at k_perm, and the
+    complex dV_q psi of `response/chi0.py::apply_dV_q` (Re and Im of the
+    phased potential as two local applies on kernels A -> B -> A, gathered on
+    the k+q spheres) against the same with the plain versions, both within
+    1e-14 of max|out|; 4 launches of A and 2 of B for the dV_q psi, no
+    plain version called on the card."""
+    from dftk_tpu_torch.ops import hamiltonian as hamops
+    from dftk_tpu_torch.response import chi0 as chi0_mod
+    from dftk_tpu_torch.response import phonon_q as pq
+    basis = gpu_basis
+    qctx = pq.QContext(basis, [0.5, 0.0, 0.0])
+    assert (qctx.G0 != 0).any()
+    rng = np.random.default_rng(44)
+    grid = (1,) + basis.fft_size
+    V = basis.tensor(rng.normal(size=grid))
+    dv = basis.tensor(rng.normal(size=grid) + 1j * rng.normal(size=grid), basis.dtype)
+    shape = (basis.n_kpoints, 6, basis.nG_max)
+    psi = basis.tensor((rng.normal(size=shape) + 1j * rng.normal(size=shape))
+                       * basis.mask_np[:, None], basis.dtype)
+    ham = hamops.build_ham(basis.data, basis.terms.data, V, basis.pruned)
+    p = qctx.perm_t
+    la.counts.reset()
+    hq = hamops.apply_H(pq._perm_ham(ham, p), psi[p])
+    out = chi0_mod.apply_dV_q(ham, psi, dv, basis.data.kspin, p, qctx.phase)
+    torch.cuda.synchronize()
+    assert la.counts.launches["pruned_axis_dft"] == 6 and la.counts.launches["local_plane"] == 3
+    assert all(v == 0 for v in la.counts.plain.values())
+    want_hq = hamops.apply_H(ham, psi)[p]
+    monkeypatch.setattr(chi0_mod, "local_apply", la.local_apply_plain)
+    ref = chi0_mod.apply_dV_q(ham, psi, dv, basis.data.kspin, p, qctx.phase)
+    for a, b in ((hq, want_hq), (out, ref)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-14 * float(b.abs().max())
