@@ -260,11 +260,36 @@ Phases (any failure raises and exits non-zero):
      band block within 1e-14 of max|out|; every run with the kernels
      launched and no plain call, its wall, peak device memory, Sternheimer
      solves, CG steps and host reads of a residual norm
+  p. exact exchange and DFT+U in float64 (every apply of H, and every
+     Chebyshev step: with extra terms the filter applies the exact H on the
+     sphere, on kernels A -> B -> A; the exchange is torch.fft over cuFFT,
+     its ACE compression two GEMMs): p1 Si54 HSE06 at full width (bench.py's
+     geometry, pbe/si-q4, Ecut 10, 118 bands, 64^3, no symmetry) through
+     self_consistent_field and self_consistent_field_split (CheFSI), both
+     with ACE until the energy changes by less than 1e-10 Ha (the exchange
+     operator lags a step, so the density residual of the LOBPCG loop's
+     simple mixing falls slowly), their energies within 1e-7
+     Ha, and at the converged state the ACE exchange energy within 1e-9 Ha
+     of the bare one once the shift of ACE's jitter eps (eps sum(w f) / 2,
+     1.3e-9 Ha at Si54) is taken off, with one bare exchange apply timed; p2 the exchange
+     (HSE06 and bare Coulomb) of seeded orthonormal orbitals on the same
+     basis against tests/data/torch_port_exx.json's JAX values (E_x and the
+     band diagonal, 1e-10 relative); p3 HSE06 silicon (Ecut 10, Gamma) and
+     HF and PBE0 helium (Ecut 15) against the JAX package's energies
+     (1e-7 Ha); p4 HF helium on the (2, 1, 1) grid and its doubled cell at
+     Gamma in both loops, per cell within 1e-7 Ha and against JAX's; p5
+     C2 PBE+U (C_m.upf, kgrid 2^3, the occupation matrix symmetrized) in
+     both loops against JAX's total and Hubbard energies (1e-7 Ha) and each
+     other; SCFs of p3-p5 to 1e-9 from the JAX runs' seeded orbitals;
+     before each run kernels A and B against their plain versions at its
+     band block; every run with the kernels launched and no plain call,
+     its wall, peak device memory, iterations and ACE builds
   5. print the kernels' JSON line (launches from phases c, e, f, g, h, j,
-     k, l, m, n and o, times from phases 3, a, e, f, g and h, bounds from
-     the shapes; the main path's kernels also with their device time and
-     their max_abs_err at each phase-j, phase-k, phase-l and (complex128)
-     phase-m, phase-n and phase-o run's shapes), then the result line.
+     k, l, m, n, o and p, times from phases 3, a, e, f, g and h, bounds
+     from the shapes; the main path's kernels also with their device time
+     and their max_abs_err at each phase-j, phase-k, phase-l and
+     (complex128) phase-m, phase-n, phase-o and phase-p run's shapes), then
+     the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -3084,6 +3109,292 @@ def q_phonon_phase(dt, la, device, smi, si54):
     return total, errs
 
 
+# phase p: exact exchange and DFT+U; the cells of tests/data/make_torch_port_exx.py
+# (copied: this script imports nothing of tests/), the JAX package's CPU float64
+# values in tests/data/torch_port_exx.json
+EXX_LOOPS_BAR = 1e-7          # Si54 HSE06: LOBPCG against the split CheFSI SCF (Ha)
+EXX_ACE_BAR = 1e-9            # the ACE exchange energy against the bare one (Ha)
+EXX_ACE_JITTER = 1e-12        # ops/exx_ace.py::build_ace's default jitter
+EXX_JAX_REL_BAR = 1e-10       # the Si54 exchange against the JAX package's (relative)
+EXX_SCF_BAR = 1e-7            # the SCFs against the JAX package's and k-grid against supercell
+EXX_SCF_TOL = 1e-9            # the density tolerance of p3-p5's SCFs
+EXX_SI54_TOL = 1e-10          # the energy tolerance of p1's Si54 HSE06 SCFs (Ha)
+EXX_MAXITER = 150
+SI54_N_BANDS, SI54_N_OCC, SI54_SEED = 118, 108, 54
+KGRID_L, KGRID_RC, KGRID_ECUT = 8.0, 4.0, 5.0
+HUBBARD_U = 0.15
+
+
+def seeded_orbitals(mask, n_bands, seed):
+    """Orthonormal complex orbitals [nk, n_bands, nG] (numpy), zero on the
+    padding of mask [nk, nG] (tests/data/make_torch_port_exx.py)."""
+    rng = np.random.default_rng(seed)
+    shape = (mask.shape[0], n_bands, mask.shape[1])
+    psi = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * mask[:, None, :]
+    out = np.empty_like(psi)
+    for k in range(psi.shape[0]):
+        out[k] = np.linalg.qr(psi[k].T)[0].T
+    return out
+
+
+def si54_hse_basis(dt, device):
+    """bench.py's Si54 geometry (n_rep 3) under HSE06, pbe/si-q4, Ecut 10,
+    Gamma, no symmetry (64^3 grid)."""
+    lattice = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]]) * 3
+    Si = dt.ElementPsp.from_symbol("Si", psp="pbe/si-q4")
+    positions = [(b + np.array([i, j, k])) / 3 for i in range(3) for j in range(3)
+                 for k in range(3) for b in SI_POSITIONS]
+    model = dt.HSE06(lattice, [Si] * len(positions), positions, symmetries=False)
+    return dt.PlaneWaveBasis(model, Ecut=10.0, kgrid=(1, 1, 1), device=device)
+
+
+def hf_terms(dt, kernel):
+    return [dt.Kinetic(), dt.AtomicLocal(), dt.AtomicNonlocal(), dt.Ewald(),
+            dt.PspCorrection(), dt.Hartree(), dt.ExactExchange(scaling_factor=1.0, kernel=kernel)]
+
+
+def he_kgrid_bases(dt, device):
+    """HF helium with the truncated kernel of radius 4: (the cell on the
+    (2, 1, 1) grid, the doubled cell at Gamma)."""
+    He = dt.ElementPsp.from_symbol("He", psp="lda/he-q2")
+    kern = dt.SphericallyTruncatedCoulomb(rc=KGRID_RC)
+    prim = dt.Model(np.diag([KGRID_L] * 3), [He], [np.array([.5, .5, .5])],
+                    term_types=hf_terms(dt, kern), symmetries=False)
+    sc = dt.Model(np.diag([2 * KGRID_L, KGRID_L, KGRID_L]), [He, He],
+                  [np.array([.25, .5, .5]), np.array([.75, .5, .5])],
+                  term_types=hf_terms(dt, kern), symmetries=False)
+    return (dt.PlaneWaveBasis(prim, Ecut=KGRID_ECUT, kgrid=(2, 1, 1), fft_size=(16, 16, 16),
+                              device=device),
+            dt.PlaneWaveBasis(sc, Ecut=KGRID_ECUT, kgrid=(1, 1, 1), fft_size=(32, 16, 16),
+                              device=device))
+
+
+def hybrid_bases(dt, device):
+    """name -> basis of examples/hse_r2scan_silicon.py's HSE06 silicon and
+    examples/hybrid_he.py's HF and PBE0 helium."""
+    Si = dt.ElementPsp.from_symbol("Si", psp="pbe/si-q4")
+    He = dt.ElementPsp.from_symbol("He", psp="lda/he-q2")
+    si = dt.HSE06(10.26 / 2 * np.array([[0.0, 1, 1], [1, 0, 1], [1, 1, 0]]), [Si, Si],
+                  SI_POSITIONS)
+    he = {name: fn(np.eye(3) * 10.0, [He], [np.array([.5, .5, .5])], symmetries=False)
+          for name, fn in (("he_hf", dt.model_HF), ("he_pbe0", dt.PBE0))}
+    out = {"si2_hse06": dt.PlaneWaveBasis(si, Ecut=10.0, kgrid=(1, 1, 1), device=device)}
+    out.update({k: dt.PlaneWaveBasis(m, Ecut=15.0, kgrid=(1, 1, 1), device=device)
+                for k, m in he.items()})
+    return out
+
+
+def c2_hubbard_basis(dt, device):
+    """examples/hubbard.py's C2 PBE+U: C_m.upf in the silicon cell, U 0.15
+    on the p manifolds of both atoms, Ecut 10, kgrid 2^3, symmetric."""
+    C = dt.ElementPsp.from_symbol("C", psp=os.path.join(HERE, C_UPF))
+    mfs = (dt.HubbardManifold(atom_index=0, l=1, U=HUBBARD_U),
+           dt.HubbardManifold(atom_index=1, l=1, U=HUBBARD_U))
+    model = dt.model_DFT(SI_LATTICE, [C, C], SI_POSITIONS, functionals="PBE",
+                         extra_terms=[dt.Hubbard(manifolds=mfs)])
+    return dt.PlaneWaveBasis(model, Ecut=10.0, kgrid=(2, 2, 2), device=device)
+
+
+def exchange_ms(hamops, exx, psi, reps=3):
+    """ms per bare exchange apply of exx to psi (CUDA-synchronised, the
+    median of reps after one warm-up)."""
+    import torch
+    hamops.apply_exchange(exx, psi)
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hamops.apply_exchange(exx, psi)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def exx_scf(dt, la, smi, run, label, basis, loop, n_bands, tol=EXX_SCF_TOL,
+            is_converged="density", **kw):
+    """One SCF of phase p on the card: kernels A and B held at its band block
+    first, then `loop` ("lobpcg": self_consistent_field; "split":
+    self_consistent_field_split with CheFSI) under run_on_card, its
+    launches added to run["launches"].  Returns (result, energies)."""
+    from dftk_tpu_torch.ops import exx_ace
+    hold_kernels_at(la, basis, label, n_bands, run["errs"], tag="p")
+    exx_ace.counts.reset()
+
+    def show(info):
+        print(f"[p] {label} it={info['n_iter']:3d} E={info['E']:.12f} "
+              f"drho={info['drho']:.3e}", flush=True)
+    if loop == "lobpcg":
+        fn = lambda: dt.self_consistent_field(basis, tol=tol, maxiter=EXX_MAXITER,
+                                              n_bands=n_bands, is_converged=is_converged,
+                                              callback=show, **kw)
+    else:
+        fn = lambda: dt.self_consistent_field_split(
+            basis, tol=tol, maxiter=EXX_MAXITER, n_bands=n_bands, eigensolver="chefsi",
+            is_converged=is_converged, callback=show, **kw)
+    res, launches = run_on_card(la, label, smi, fn, tag="p")
+    for k, v in launches.items():
+        run["launches"][k] = run["launches"].get(k, 0) + v
+    E, n_iter, conv = ((res.energies, res.n_iter, res.converged) if loop == "lobpcg"
+                       else (res["energies"], res["n_iter"], res["converged"]))
+    print(f"[p] {label}: converged={conv} n_iter={n_iter} ACE builds "
+          f"{exx_ace.counts.builds} E={E['total']:.12f} "
+          + " ".join(f"{k}={E[k]:.12f}" for k in ("ExactExchange", "Hubbard") if k in E),
+          flush=True)
+    check(conv and np.isfinite(E["total"]), f"{label} converged")
+    return res, E
+
+
+def exx_si54(dt, la, device, smi, run, ref):
+    """p1 and p2: Si54 HSE06 through both loops, ACE against the bare
+    exchange at the converged state, and the exchange of seeded orbitals
+    against the JAX package's."""
+    import torch
+    from dftk_tpu_torch.ops import exx_ace
+    from dftk_tpu_torch.ops import hamiltonian as hamops
+    from dftk_tpu_torch.ops.coulomb import Coulomb, exx_q_kernels
+    basis = si54_hse_basis(dt, device)
+    print(f"[p] p1 {basis}", flush=True)
+    conv = dict(tol=EXX_SI54_TOL, is_converged="energy")
+    res_l, E_l = exx_scf(dt, la, smi, run, "p1 Si54 HSE06 LOBPCG", basis, "lobpcg", SI54_N_OCC,
+                         **conv)
+    _, E_s = exx_scf(dt, la, smi, run, "p1 Si54 HSE06 split CheFSI", basis, "split",
+                     SI54_N_OCC, **conv)
+    dE = abs(E_l["total"] - E_s["total"])
+    print(f"[p] p1 Si54 HSE06: LOBPCG {E_l['total']:.12f}, split {E_s['total']:.12f}, "
+          f"|dE| {dE:.3e} (bar {EXX_LOOPS_BAR:.0e}; {smi})", flush=True)
+    check(dE < EXX_LOOPS_BAR, "p1 Si54 HSE06 loops agree")
+    psi, occ = res_l.psi, torch.as_tensor(res_l.occupation, device=device)
+    bd, td, model = basis.data, basis.terms.data, basis.model
+    exx = hamops.make_exchange(bd, td, psi, occ, model.filled_occupation,
+                               model.unit_cell_volume)
+    vx = hamops.apply_exchange(exx, psi)
+    diag = torch.sum(psi.conj() * vx, -1).real                     # [nk, nb]
+    wf = bd.kweights[:, None] * occ
+    E_bare = float(0.5 * torch.sum(wf * diag))
+    xi = exx_ace.build_ace(exx)
+    band = torch.sum(psi.conj() * exx_ace.apply_ace(xi, psi), -1).real
+    E_ace = float(0.5 * torch.sum(wf * band))
+    # ACE regularises -Psi^H Vx Psi with eps = jitter max(tr, 1) (exx_ace.py):
+    # on the span Psi^H V_ACE Psi = M + eps - O(eps^2), so E_ACE = E_x + eps sum(w f) / 2
+    eps = EXX_ACE_JITTER * max(-float(diag.sum()), 1.0)
+    shift = 0.5 * eps * float(wf.sum())
+    d = abs(E_ace - E_bare - shift)
+    ms = exchange_ms(hamops, exx, psi)
+    print(f"[p] p1 Si54 HSE06 exchange at the converged state: bare {E_bare:.12f}, "
+          f"ACE {E_ace:.12f}, ACE - bare {E_ace - E_bare:.3e}, the jitter's shift "
+          f"eps sum(w f) / 2 {shift:.3e}, |ACE - bare - shift| {d:.3e} (bar "
+          f"{EXX_ACE_BAR:.0e}); one bare apply to {psi.shape[1]} bands "
+          f"({int((occ > 0).sum())} generators, grid {basis.fft_size}) {ms:.1f} ms ({smi})",
+          flush=True)
+    check(d < EXX_ACE_BAR, "p1 ACE exact on the span (but for its jitter's shift)")
+    del res_l, psi, exx, xi, vx
+    torch.cuda.empty_cache()
+
+    r54 = ref["si54_exx"]
+    check(list(basis.fft_size) == r54["fft_size"] and basis.nG_max == r54["nG"],
+          "p2 the JAX package's Si54 basis")
+    psi = torch.as_tensor(seeded_orbitals(basis.mask_np, SI54_N_BANDS, SI54_SEED),
+                          device=device)
+    occ = torch.zeros((1, SI54_N_BANDS), dtype=torch.float64, device=device)
+    occ[:, :SI54_N_OCC] = 2.0
+    for name, kern in (("hse", td.exx_kernel),
+                       ("coulomb", basis.tensor(exx_q_kernels(Coulomb(), basis)[0]))):
+        exx = hamops.make_exchange(bd, td._replace(exx_kernel=kern), psi, occ, 2.0,
+                                   model.unit_cell_volume)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vx = hamops.apply_exchange(exx, psi)
+        diag = torch.sum(psi.conj() * vx, -1).real[0].cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        E = 0.5 * float(np.sum(occ[0].cpu().numpy() * diag))
+        want = np.asarray(r54[name]["diag"])
+        d_rel = float(np.max(np.abs(diag - want)) / np.max(np.abs(want)))
+        e_rel = abs(E - r54[name]["E"]) / abs(r54[name]["E"])
+        print(f"[p] p2 Si54 {name} exchange of seeded orbitals: E_x {E:.12f} (JAX "
+              f"{r54[name]['E']:.12f}), relative {e_rel:.3e}, diagonal {d_rel:.3e} "
+              f"(bar {EXX_JAX_REL_BAR:.0e}); one apply {ms:.1f} ms (JAX CPU "
+              f"{r54[name]['apply_seconds']:.1f} s; {smi})", flush=True)
+        check(e_rel < EXX_JAX_REL_BAR and d_rel < EXX_JAX_REL_BAR, f"p2 Si54 {name} exchange")
+        del vx, exx
+    del basis, psi
+    torch.cuda.empty_cache()
+
+
+def exx_small(dt, la, device, smi, run, ref):
+    """p3-p5: the hybrids, the k-grid exchange and DFT+U against the JAX
+    package's energies."""
+    import torch
+    for name, basis in hybrid_bases(dt, device).items():
+        want = ref["hybrids"][name]
+        check(list(basis.fft_size) == want["fft_size"], f"p3 {name} grid")
+        psi0 = torch.as_tensor(seeded_orbitals(basis.mask_np, want["n_bands"], 6),
+                               device=device)
+        n_occ = basis.model.default_n_bands()
+        _, E = exx_scf(dt, la, smi, run, f"p3 {name}", basis, "lobpcg", n_occ, psi=psi0,
+                       n_extra_bands=want["n_bands"] - n_occ)
+        held_against(smi, "p", f"p3 {name} against JAX", E["total"],
+                     want["energies"]["total"], EXX_SCF_BAR)
+
+    bp, bs = he_kgrid_bases(dt, device)
+    rk = ref["he_kgrid"]
+    for loop in ("lobpcg", "split"):
+        Es = {}
+        for tag, b in (("kgrid", bp), ("supercell", bs)):
+            nb = rk[tag]["n_bands"]
+            n_occ = b.model.default_n_bands()
+            psi0 = seeded_orbitals(b.mask_np, nb, 5)
+            kw = (dict(psi=torch.as_tensor(psi0, device=device)) if loop == "lobpcg" else
+                  dict(U0=np.concatenate([psi0.real, psi0.imag], axis=-1)))
+            _, E = exx_scf(dt, la, smi, run, f"p4 He {tag} {loop}", b, loop, n_occ,
+                           n_extra_bands=nb - n_occ, **kw)
+            Es[tag] = E["total"]
+            held_against(smi, "p", f"p4 He {tag} {loop} against JAX", E["total"],
+                         rk[tag]["energies"]["total"], EXX_SCF_BAR)
+        held_against(smi, "p", f"p4 He {loop} k-grid against supercell per cell",
+                     Es["kgrid"], Es["supercell"] / 2, EXX_SCF_BAR)
+
+    basis = c2_hubbard_basis(dt, device)
+    rc = ref["c2_hubbard"]
+    check(list(basis.fft_size) == rc["fft_size"] and basis.n_kpoints == rc["n_kpoints"]
+          and len(basis.symmetries) == rc["n_symmetries"], "p5 the JAX package's C2 basis")
+    n_occ = basis.model.default_n_bands()
+    psi0 = seeded_orbitals(basis.mask_np, n_occ + 3, 8)
+    Eu = {}
+    for loop in ("lobpcg", "split"):
+        kw = (dict(psi=torch.as_tensor(psi0, device=device)) if loop == "lobpcg" else
+              dict(U0=np.concatenate([psi0.real, psi0.imag], axis=-1)))
+        _, E = exx_scf(dt, la, smi, run, f"p5 C2 PBE+U {loop}", basis, loop, n_occ,
+                       n_extra_bands=3, **kw)
+        Eu[loop] = E
+        for key in ("total", "Hubbard"):
+            held_against(smi, "p", f"p5 C2 PBE+U {loop} {key} against JAX", E[key],
+                         rc["scf"]["energies"][key], EXX_SCF_BAR)
+    held_against(smi, "p", "p5 C2 PBE+U split against LOBPCG", Eu["split"]["total"],
+                 Eu["lobpcg"]["total"], EXX_SCF_BAR)
+
+
+def exx_phase(dt, la, device, smi):
+    """Phase p: exact exchange and DFT+U on the card.  p1: Si54 HSE06 at
+    full width through both SCF loops with ACE, their energies within
+    EXX_LOOPS_BAR, the converged state's ACE exchange energy within
+    EXX_ACE_BAR of the bare one; p2: the Si54 exchange of seeded orbitals
+    (HSE06 and bare Coulomb) against the JAX package's; p3: HSE06 silicon
+    and HF and PBE0 helium against the JAX package's energies; p4: HF
+    helium on the (2, 1, 1) grid against its doubled cell at Gamma, in both
+    loops and against JAX; p5: C2 PBE+U in both loops against JAX (total
+    and Hubbard) and each other.  Kernels A and B are held against their
+    plain versions at each run's band block before it.  Returns the kernel
+    launches of its runs and each kernel's max_abs_err at each run's shapes."""
+    with open(os.path.join(HERE, "tests", "data", "torch_port_exx.json")) as f:
+        ref = json.load(f)
+    run = dict(launches={}, errs={})
+    t0 = time.time()
+    exx_si54(dt, la, device, smi, run, ref)
+    exx_small(dt, la, device, smi, run, ref)
+    print(f"[p] phase p: {time.time() - t0:.1f} s; launches {run['launches']} ({smi})",
+          flush=True)
+    return run["launches"], run["errs"]
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -3218,6 +3529,12 @@ def main():
     for name, count in q_launches.items():
         launches[name] += count
     del si54
+    torch.cuda.empty_cache()
+
+    # ---- p. exact exchange and DFT+U ------------------------------------------------
+    exx_launches, exx_errs = exx_phase(dt, la, device, smi)
+    for name, count in exx_launches.items():
+        launches[name] += count
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -3243,7 +3560,9 @@ def main():
                             **({"max_abs_err_phase_n": phonon_errs[name]}
                                if name in phonon_errs else {}),
                             **({"max_abs_err_phase_o": q_errs[name]}
-                               if name in q_errs else {})))
+                               if name in q_errs else {}),
+                            **({"max_abs_err_phase_p": exx_errs[name]}
+                               if name in exx_errs else {})))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

@@ -18,7 +18,11 @@ CUDA device (`kernels/local_apply.py`).  The JAX package `dftk_tpu` is the
 reference this port is held against; this package never imports it or jax.
 
 Crystal symmetry is on by default (`symmetries=True`): IBZ k-points and
-symmetrized densities, forces and stresses.  Mixings: Simple, Kerker,
+symmetrized densities, forces and stresses.  Hybrid functionals (`PBE0`,
+`HSE06`, `model_HF`) add exact exchange (`ExactExchange`, with the Coulomb
+kernels of `ops/coulomb.py`, at Gamma or on unreduced k-grids), and
+`Hubbard` DFT+U on `HubbardManifold`s of UPF pseudo-atomic orbitals; both
+SCF loops carry them (the exchange compressed by ACE, `use_ace=True`).  Mixings: Simple, Kerker,
 dielectric and the LDOS-based LdosMixing, KerkerDosMixing and
 HybridMixing, and Chi0Mixing (the exact chi0 by Sternheimer equations);
 band counts: FixedBands and AdaptiveBands.  The other ground-state
@@ -58,7 +62,15 @@ from .models.elements import (ElementCohenBergstresser, ElementCoulomb,  # noqa:
 from .models.psp_lincomb import PspLinComb, virtual_crystal_approximation  # noqa: E402
 from .models.psp_upf import PspUpf, load_psp_upf, parse_upf  # noqa: E402
 from .models.model import Model  # noqa: E402
-from .models.standard import LDA, PBE, PBEsol, model_atomic, model_DFT  # noqa: E402
+from .models.standard import (HSE06, LDA, PBE, PBE0, PBEsol, model_atomic,  # noqa: E402
+                              model_DFT, model_HF)
+from .ops.coulomb import (Coulomb, LongRangeCoulomb, ProbeCharge,  # noqa: E402
+                          ReplaceSingularity, ShortRangeCoulomb,
+                          SphericallyTruncatedCoulomb, VoxelAveraged,
+                          WignerSeitzTruncatedCoulomb)
+from .ops.hubbard import HubbardManifold  # noqa: E402
+from .ops.terms import (AtomicLocal, AtomicNonlocal, Entropy, Ewald,  # noqa: E402
+                        ExactExchange, Hartree, Hubbard, Kinetic, PspCorrection, Xc)
 from .ops.density import guess_density, spin_density, total_density  # noqa: E402
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
 from .postprocess.bands import compute_bands, irrfbz_path  # noqa: E402
@@ -92,4 +104,8 @@ __all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "ElementCoulomb",
            "compute_polarizability", "make_omega_plus_k", "eigen_omega_plus_k",
            "solve_omega_plus_k", "model_atomic", "Model", "unfold_bz",
            "phonon_modes_finite_diff", "elastic_tensor_response", "compute_bands",
-           "irrfbz_path"]
+           "irrfbz_path", "PBE0", "HSE06", "model_HF", "ExactExchange", "Hubbard",
+           "HubbardManifold", "Coulomb", "LongRangeCoulomb", "ProbeCharge",
+           "ReplaceSingularity", "ShortRangeCoulomb", "SphericallyTruncatedCoulomb",
+           "VoxelAveraged", "WignerSeitzTruncatedCoulomb", "Kinetic", "AtomicLocal",
+           "AtomicNonlocal", "Ewald", "PspCorrection", "Hartree", "Xc", "Entropy"]

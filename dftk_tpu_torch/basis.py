@@ -122,6 +122,7 @@ class PlaneWaveBasis:
         self.G_cube_cart = np.einsum("ab,xyzb->xyza", model.recip_lattice,
                                      self.G_cube.astype(float))
         self.G_cube_cart_norm = np.linalg.norm(self.G_cube_cart, axis=-1)
+        self.r_cube = fftops.r_vectors(self.fft_size)          # fractional [n1,n2,n3,3]
 
         self.data = BasisData(
             Gidx=self.tensor(self.Gidx_np, torch.int64),

@@ -31,12 +31,17 @@ JAX package, such a run, and any run with `compact_filter=False`, filters
 with the sphere apply (`sphere_filter_ops`): `apply_H_split` at
 'default' for the bf16 cycles, the exact apply for the others.
 
+Hybrids and DFT+U run here too.  The exchange (compressed by ACE with
+`use_ace`, else the bare operator) and the +U potential of the orbitals
+and occupations that enter the step join H as extra applies; with extra
+applies the filter leaves the compact cube, as in the JAX package: every
+Chebyshev step applies the full-precision H on the sphere plus the extra
+terms (`sphere_filter_ops`' exact apply).
+
 Not ported here (each raises NotImplementedError naming its ROADMAP item):
 `build_sandwich`/`apply_local_sandwich` (XLA's form of the same local
 chain), the k-point mesh (item 13), and the realified band representations
 ("paired", csplit), which are TPU workarounds (ROADMAP, "Not to port").
-Exact exchange and Hubbard, and with them the reference's `use_ace`, are
-item 11: their terms do not instantiate.
 """
 import dataclasses
 import math
@@ -49,12 +54,15 @@ import torch
 from ..basis import BasisData, real_dtype
 from ..kernels.local_apply import LocalFactors, local_apply, round_bf16
 from ..scf.anderson import AndersonAcceleration
+from ..scf.driver import aufbau_occupation
 from ..scf.mixing import DielectricMixing, KerkerMixing
 from . import hamiltonian as hamops
 from .density import (compute_density, compute_kinetic_energy_density, guess_density,
                       make_symmetrizer, von_weizsaecker_tau)
 from .eigen.chefsi import chefsi_step
 from .eigen.lobpcg import lobpcg, ortho_qr
+from .exx_ace import apply_ace, build_ace
+from .hubbard import HubbardSetup
 from .occupation import compute_occupation, entropy_energy
 from .pruned import PrunedFFT, compact_to_sphere, sphere_to_compact
 
@@ -105,7 +113,7 @@ def prepare_split_data(basis, dtype=None):
     td = basis.terms.data._replace(**{
         f: cast(getattr(basis.terms.data, f))
         for f in ("vloc_static", "hartree_coeffs", "P", "D", "Gsq_cart", "G_cart",
-                  "rho_core", "tau_core")
+                  "rho_core", "tau_core", "exx_kernel")
         if getattr(basis.terms.data, f) is not None})
     pf = basis.pruned._replace(factors=LocalFactors(
         fwd=tuple(f.to(dtype) for f in basis.pruned.factors.fwd),
@@ -390,7 +398,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                                 band_chunk=None, filter_precision="mixed",
                                 mesh=None, band_repr="complex", rho0=None,
                                 U0=None, adaptive_bands=None, occupation_threshold=1e-6,
-                                compact_filter=True, stall_patience=None):
+                                compact_filter=True, use_ace=True, stall_patience=None):
     """The split SCF loop (reference `self_consistent_field_split`), on
     complex tensors in `dtype` (complex128 or complex64; default the
     basis' dtype) on the basis' device.
@@ -408,7 +416,13 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
 
     compact_filter: apply H on the compact cube inside the filter
     (`compact_filter_ops`); False, or a meta-GGA model, filters with the
-    sphere apply (`sphere_filter_ops`, the DivAgrad term included).
+    sphere apply (`sphere_filter_ops`, the DivAgrad term included).  A
+    model with exact exchange or Hubbard filters with the exact sphere
+    apply plus those terms, in every cycle.
+
+    use_ace: exact exchange enters H as its ACE compression, built once per
+    step from the orbitals and occupations that enter it (the aufbau
+    occupations at the first step); False applies the bare operator.
 
     Meta-GGA models carry tau: the potential takes tau_in, tau_out comes
     from the new orbitals, and tau follows the orbitals without mixing
@@ -506,16 +520,38 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     # the DivAgrad term, or where the caller asks
     sphere_filter = needs_tau or not compact_filter
     placement = None         # the V-independent filter layout, built once
+    td = sd.terms.data
+    has_exx = td.exx_kernel is not None
+    # the JAX package's split ACE jitter: complex64 needs a larger ridge
+    ace_jitter = max(1e-12, 50 * torch.finfo(bd.kin.dtype).eps)
+    hub = HubbardSetup(basis, bd) if sd.terms.hubbard_manifolds is not None else None
 
-    def scf_step(rho_in, X_in, diagtol, n_cycles, n_exact, tau_in):
+    def scf_step(rho_in, X_in, diagtol, n_cycles, n_exact, tau_in, occ_in):
         nonlocal placement
         V, Vtau, _ = hamops.total_potential(sd.terms, rho_in, volume, tau=tau_in)
         ham = make_split_ham(sd, V, Vtau)
+        extra = []
+        if has_exx:
+            exx = hamops.make_exchange(bd, td, X_in, occ_in, filled, volume)
+            if use_ace:
+                xi = build_ace(exx, ace_jitter)
+                extra.append(lambda x: apply_ace(xi, x))
+            else:
+                extra.append(lambda x: hamops.apply_exchange(exx, x))
+        if hub is not None:
+            extra.append(hub.potential_apply(X_in, occ_in))
 
         def A(x):
-            return _apply_chunked(lambda y: hamops.apply_H(ham, y), x, band_chunk)
+            out = _apply_chunked(lambda y: hamops.apply_H(ham, y), x, band_chunk)
+            for f in extra:
+                out = out + f(x) * mask[:, None, :]
+            return out
 
-        if eigensolver == "chefsi" and sphere_filter:
+        if eigensolver == "chefsi" and extra:
+            # every filter step on the exact sphere apply plus the extra terms
+            res = chefsi_step(A, X_in, mask, degree=chebyshev_degree, n_conv=n_bands,
+                              cycles=n_cycles, band_chunk=band_chunk)
+        elif eigensolver == "chefsi" and sphere_filter:
             if placement is None and "default" in filter_precs:
                 placement = default_ham(ham)
             applies = [A if p == "highest" else
@@ -549,6 +585,12 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                                                      band_chunk, symmetrizer=symmetrizer)
         _, _, energies = hamops.total_potential(sd.terms, rho_out, volume, tau=tau_out)
         energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
+        if has_exx:
+            energies["ExactExchange"] = hamops.exchange_energy(
+                hamops.make_exchange(bd, td, res.X, occ, filled, volume), res.X, occ,
+                bd.kweights)
+        if hub is not None:
+            energies["Hubbard"] = hub.energy(res.X, occ)
         if sd.terms.has_entropy:
             energies["Entropy"] = entropy_energy(res.eigenvalues, bd.kweights, epsF,
                                                  model.temperature, model.smearing,
@@ -583,6 +625,10 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     cycles_cur = chefsi_cycles
     mixed_exact_latch = False
     tau = von_weizsaecker_tau(rho, sd.terms.data.G_cart) if needs_tau else None
+    # exchange and Hubbard take the occupations of the orbitals that enter
+    # the step: the aufbau guess at the first
+    occ_x = aufbau_occupation(basis, nbr).to(bd.kin.dtype) if has_exx or hub is not None \
+        else None
     for it in range(maxiter):
         # CheFSI finisher: drho stalling across 3 iterations means the
         # filter depth is the accuracy ceiling -- deepen it
@@ -602,7 +648,8 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         else:
             n_exact_cur = 1
         rho_out, X, eigvals, occ, epsF, energies, tau_out = scf_step(
-            rho, X, diagtol, cycles_cur, n_exact_cur, tau)
+            rho, X, diagtol, cycles_cur, n_exact_cur, tau, occ_x)
+        occ_x = occ
         if auto_eps and it == 0:
             eps_r_cur = _penn_eps_r(eigvals, model.n_electrons, filled, volume)
         rho_mixed, drho_dev = mix_step(rho, rho_out, damping_cur, eps_r_cur)
@@ -657,6 +704,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
             extra = torch.randn((basis.n_kpoints, add, basis.nG_max), dtype=cdt,
                                 device=device, generator=generator)
             X = ortho_qr(torch.cat([X, extra * mask[:, None, :]], dim=1))
+            occ_x = torch.nn.functional.pad(occ_x, (0, add))   # grown bands start empty
             nbr, n_bands = nbr + add, n_bands + add
             stall_best, stall_it = np.inf, it
             if callback:

@@ -24,6 +24,12 @@ def G_vectors_cube(fft_size):
     return np.stack([G1, G2, G3], axis=-1)
 
 
+def r_vectors(fft_size):
+    """Fractional real-space grid points, numpy [n1,n2,n3,3] in [0,1)^3."""
+    axes = [np.arange(n) / n for n in fft_size]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+
+
 def index_G_vectors(fft_size, G):
     """Flat cube index of integer G vectors [..., 3]; -1 if out of range
     (DFTK `index_G_vectors`, PlaneWaveBasis.jl:464-494)."""

@@ -23,6 +23,14 @@ nonlocal GEMMs on operands rounded to bf16 (P rounded once where the
 complex64 Ham is made, `ops/engine_split.py::default_ham`), as the compact
 filter's 'default' apply rounds them.
 
+Exact (Fock) exchange, where the Ham carries an `Exchange`, is torch ops
+over cuFFT, as XLA computed it in the JAX package: per generating orbital
+a pair product on the full real-space cube, a forward FFT, a multiply by
+the Coulomb kernel, an inverse FFT and an accumulation (`apply_exchange`;
+at Gamma k-diagonal, on a k-grid every generator (k', m) acts on every
+same-spin k through the kernel at G + (k - k')).  The SCF loops apply it
+compressed (`ops/exx_ace.py`).
+
 The total local potential V fuses AtomicLocal + Hartree(rho) + Xc(rho); the
 XC potential is the `torch.autograd` gradient of the XC energy, and under a
 meta-GGA Vtau is its gradient in tau.  With an NLCC core density the
@@ -30,13 +38,41 @@ functional sees rho + rho_core (and tau + tau_core).  Under collinear spin
 V has one channel per spin, and each k-point row applies its own spin's
 channel (`basis_data.kspin`).
 """
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..kernels.local_apply import local_apply, round_bf16
 from .density import density_gradients
+from .fft import gather_from_cube, scatter_to_cube
 from .pruned import PrunedFFT, compact_to_sphere, sphere_to_compact
+
+
+class Exchange(NamedTuple):
+    """The Fock exchange operator of a set of generating orbitals."""
+    kernel: torch.Tensor     # [n1,n2,n3] at Gamma; [nq, n1,n2,n3] with iq
+    psi: torch.Tensor        # [nk, nx, nG] generating orbitals
+    occ: torch.Tensor        # [nk, nx] generator weights w_k f / filled
+    Gidx: torch.Tensor       # [nk, nG] flat full-cube indices of the spheres
+    mask: torch.Tensor       # [nk, nG]
+    volume: float
+    iq: Optional[torch.Tensor] = None     # [nk, nk] q index of k - k' (k-grids)
+    kspin: Optional[torch.Tensor] = None  # [nk] spin of each k row (k-grids)
+
+
+def make_exchange(basis_data, terms_data, psi, occupation, filled, volume):
+    """The Exchange of generators psi [nk, nx, nG] at occupations [nk, nx]
+    (weights w_k f / filled): the one kernel of a basis with one spatial
+    k-point (exchange is then k-diagonal), else the kernels at G + q with
+    their index map."""
+    kern = terms_data.exx_kernel
+    gamma = kern.shape[0] == 1
+    return Exchange(kernel=kern[0] if gamma else kern, psi=psi,
+                    occ=basis_data.kweights[:, None] * occupation / filled,
+                    Gidx=basis_data.Gidx, mask=basis_data.mask, volume=volume,
+                    iq=None if gamma else terms_data.exx_iq,
+                    kspin=None if gamma else basis_data.kspin)
 
 
 class Ham(NamedTuple):
@@ -50,6 +86,7 @@ class Ham(NamedTuple):
     pruned: PrunedFFT
     Vtau_zxy: Optional[torch.Tensor] = None   # [nk, n3, n1, n2] meta-GGA Vtau
     Gpk: Optional[torch.Tensor] = None        # [nk, nG, 3] Cartesian k+G (with Vtau)
+    exx: Optional[Exchange] = None            # the bare Fock exchange term
 
 
 def to_zxy(V, kspin):
@@ -58,12 +95,12 @@ def to_zxy(V, kspin):
     return V[kspin].permute(0, 3, 1, 2).contiguous()
 
 
-def build_ham(basis_data, terms_data, V, pruned: PrunedFFT, Vtau=None):
+def build_ham(basis_data, terms_data, V, pruned: PrunedFFT, Vtau=None, exx=None):
     return Ham(mask=basis_data.mask, kin=terms_data.kinetic_scale * basis_data.kin,
                V_zxy=to_zxy(V, basis_data.kspin), P=terms_data.P, D=terms_data.D,
                pruned=pruned,
                Vtau_zxy=None if Vtau is None else to_zxy(Vtau, basis_data.kspin),
-               Gpk=None if Vtau is None else basis_data.Gpk_cart)
+               Gpk=None if Vtau is None else basis_data.Gpk_cart, exx=exx)
 
 
 def apply_local(ham: Ham, psi, V_zxy=None, precision="highest"):
@@ -101,7 +138,54 @@ def apply_H(ham: Ham, psi, precision="highest"):
         r = round_bf16 if precision == "default" else (lambda a: a)
         DPd = _p_dag(ham, r(psi)) @ ham.D.to(psi.dtype).T
         out = out + torch.einsum("kgp,knp->kng", ham.P, r(DPd))
+    if ham.exx is not None:
+        out = out + apply_exchange(ham.exx, psi)
     return out * ham.mask[:, None, :]
+
+
+def apply_exchange(exx: Exchange, phi):
+    """(Vx phi) for phi [nk, nb, nG] (reference operators.jl:192-210):
+
+        (Vx phi)_kn(r) = - sum_{k'm} w_k' (f_k'm / filled) u_k'm(r)
+                           Poisson_{k-k'}[u_k'm^* u_kn](r)
+
+    on the periodic parts u; the Bloch phase difference q = k - k' moves
+    into the kernel at G + q (exx.kernel[exx.iq[k, k']]).  One batched
+    Poisson solve over all (k, n) per generating orbital; generators of
+    zero weight add exactly nothing and are skipped."""
+    fft_size = tuple(exx.kernel.shape[-3:])
+    N = math.prod(fft_size)
+    scale = N / math.sqrt(exx.volume)
+    dims = (-3, -2, -1)
+    phir = torch.fft.ifftn(scatter_to_cube(phi, exx.Gidx, exx.mask, fft_size), dim=dims) * scale
+    psir = phir if phi is exx.psi else torch.fft.ifftn(
+        scatter_to_cube(exx.psi.to(phi.dtype), exx.Gidx, exx.mask, fft_size), dim=dims) * scale
+    occ = exx.occ.to(phi.real.dtype)
+    kern = exx.kernel.to(phi.real.dtype)
+    acc = torch.zeros_like(phir)
+    if exx.iq is None:
+        for m in torch.nonzero(occ.ne(0).any(0)).flatten().tolist():
+            psin = psir[:, m]                                    # [nk, grid]
+            V = torch.fft.fftn(psin.conj()[:, None] * phir, dim=dims)
+            V = torch.fft.ifftn(V.mul_(kern), dim=dims)
+            acc.sub_(V.mul_((occ[:, m, None, None, None] * psin)[:, None]))
+    else:
+        # every generator (k', m) acts on the bands of every same-spin k
+        iq, kspin = exx.iq, exx.kspin
+        for kp, m in torch.nonzero(occ.ne(0)).tolist():
+            psin = psir[kp, m]                                   # [grid]
+            w = occ[kp, m] * (kspin == kspin[kp]).to(occ.dtype)  # [nk]
+            V = torch.fft.fftn(psin.conj() * phir, dim=dims)
+            V = torch.fft.ifftn(V.mul_(kern[iq[:, kp]][:, None]), dim=dims)
+            acc.sub_(V.mul_(w[:, None, None, None, None] * psin))
+    back = torch.fft.fftn(acc, dim=dims) * (math.sqrt(exx.volume) / N)
+    return gather_from_cube(back, exx.Gidx, exx.mask)
+
+
+def exchange_energy(exx: Exchange, psi, occupation, kweights):
+    """E_x = 1/2 sum_kn w_k f_kn <psi_kn | Vx psi_kn> (operator-consistent)."""
+    band_e = torch.sum(psi.conj() * apply_exchange(exx, psi), -1).real
+    return 0.5 * torch.sum(kweights[:, None] * occupation * band_e)
 
 
 # ---------------------------------------------------------------------------

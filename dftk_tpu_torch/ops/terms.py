@@ -1,9 +1,12 @@
 """Energy terms and their instantiation on a PlaneWaveBasis.
 
 Port of `dftk_tpu/ops/terms.py::instantiate_terms` for the terms of the
-semilocal DFT path: Kinetic, AtomicLocal, AtomicNonlocal, Hartree, Xc (LDA,
-GGA and meta-GGA), Ewald, PspCorrection and Entropy, with any element
-(HGH or UPF pseudopotentials, Coulomb, Gaussian, Cohen-Bergstresser).
+DFT and hybrid paths: Kinetic, AtomicLocal, AtomicNonlocal, Hartree, Xc
+(LDA, GGA and meta-GGA), Ewald, PspCorrection, Entropy, ExactExchange
+(its Coulomb kernels at G + q for every k-point difference, from
+`ops/coulomb.py::exx_q_kernels`) and Hubbard (its manifolds; the projectors
+are built where the SCF starts, `ops/hubbard.py`), with any element (HGH
+or UPF pseudopotentials, Coulomb, Gaussian, Cohen-Bergstresser).
 Density-independent data (the local potential, the Hartree kernel, the
 nonlocal projectors P and couplings D, the Ewald and psp correction
 energies, the Cartesian G of the cube for gradients, and the NLCC core
@@ -14,7 +17,7 @@ through the lattice) and held as tensors on the basis' device in
 `Terms.data`; the density-dependent potentials are assembled each SCF step
 by `ops/hamiltonian.py`.
 
-Any other term raises NotImplementedError naming its ROADMAP item.
+Any other term raises NotImplementedError naming its ROADMAP item (11b).
 """
 import dataclasses
 import math
@@ -79,6 +82,24 @@ class Entropy:
     (`ops/occupation.py::entropy_energy`)."""
 
 
+@dataclasses.dataclass(frozen=True)
+class Hubbard:
+    """DFT+U on pseudo-atomic orbital manifolds (`ops/hubbard.py`);
+    manifolds: a tuple of HubbardManifold."""
+    manifolds: tuple = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactExchange:
+    """(Screened) Hartree-Fock exchange (reference terms/exact_exchange.jl):
+    E = -1/2 sum_nm (f_n f_m / filled) <nm|kernel|mn>, the kernel from
+    `ops/coulomb.py` (default: Coulomb with ProbeCharge).  At Gamma, and on
+    unreduced uniform k-grids (symmetries=False) through the kernels at
+    G + q, as in the JAX package."""
+    scaling_factor: float = 1.0
+    kernel: object = None
+
+
 class TermsData(NamedTuple):
     """Tensors consumed by the Hamiltonian and the SCF step."""
     vloc_static: torch.Tensor     # [n1,n2,n3] static local potential
@@ -90,6 +111,9 @@ class TermsData(NamedTuple):
     G_cart: Optional[torch.Tensor] = None   # [n1,n2,n3,3] Cartesian G (gradients)
     rho_core: Optional[torch.Tensor] = None  # [n1,n2,n3] NLCC core density
     tau_core: Optional[torch.Tensor] = None  # [n1,n2,n3] core kinetic density (meta-GGA)
+    exx_kernel: Optional[torch.Tensor] = None  # [nq, n1,n2,n3] exchange kernels at G + q,
+    #                                             the scaling factor included
+    exx_iq: Optional[torch.Tensor] = None      # [nk, nk] int64 q index of k - k'
 
 
 @dataclasses.dataclass
@@ -103,6 +127,9 @@ class Terms:
     has_entropy: bool = False
     rho_core_np: Optional[np.ndarray] = None   # NLCC core density on the grid
     tau_core_np: Optional[np.ndarray] = None   # its kinetic-energy density (meta-GGA)
+    exx_kernel_np: Optional[np.ndarray] = None  # [nq, n1,n2,n3] (TermsData.exx_kernel)
+    exx_iq_np: Optional[np.ndarray] = None      # [nk, nk] int32
+    hubbard_manifolds: Optional[tuple] = None
 
     @property
     def needs_tau(self):
@@ -124,6 +151,7 @@ def instantiate_terms(basis) -> Terms:
     kinetic_scale = 1.0
     has_entropy = False
     rho_core = tau_core = None
+    exx_kernel = exx_iq = hubbard_manifolds = None
     Gsq = basis.G_cube_cart_norm ** 2
 
     for term in model.term_types:
@@ -156,12 +184,22 @@ def instantiate_terms(basis) -> Terms:
             E_psp = _energy_psp_correction(model)
         elif isinstance(term, Entropy):
             has_entropy = True
+        elif isinstance(term, ExactExchange):
+            # kernels for every k-difference q = k - k' (one cube at Gamma,
+            # the reference's Gamma-only kernel)
+            from .coulomb import Coulomb, exx_q_kernels
+            vq, exx_iq = exx_q_kernels(term.kernel if term.kernel is not None
+                                       else Coulomb(), basis)
+            exx_kernel = term.scaling_factor * np.asarray(vq)
+        elif isinstance(term, Hubbard):
+            hubbard_manifolds = tuple(term.manifolds)
         else:
             raise NotImplementedError(
                 f"Term {term} is not ported yet: the port has Kinetic, "
                 f"AtomicLocal, AtomicNonlocal, Hartree, Xc, Ewald, "
-                f"PspCorrection and Entropy (exact exchange, Hubbard and the "
-                f"other terms: ROADMAP Queue 1, item 11)")
+                f"PspCorrection, Entropy, ExactExchange and Hubbard (Magnetic, "
+                f"Anyonic, PairwisePotential, LocalNonlinearity and the "
+                f"External* terms: ROADMAP Queue 1, item 11b)")
 
     data = TermsData(
         vloc_static=basis.tensor(vloc), hartree_coeffs=basis.tensor(hartree_coeffs),
@@ -169,10 +207,13 @@ def instantiate_terms(basis) -> Terms:
         Gsq_cart=basis.tensor(Gsq), kinetic_scale=float(kinetic_scale),
         G_cart=basis.tensor(basis.G_cube_cart),
         rho_core=None if rho_core is None else basis.tensor(rho_core),
-        tau_core=None if tau_core is None else basis.tensor(tau_core))
+        tau_core=None if tau_core is None else basis.tensor(tau_core),
+        exx_kernel=None if exx_kernel is None else basis.tensor(exx_kernel),
+        exx_iq=None if exx_iq is None else basis.tensor(exx_iq, torch.int64))
     return Terms(E_ewald=E_ewald, E_psp_correction=E_psp, xc=xc_functionals,
                  xc_scaling=xc_scaling, data=data, has_entropy=has_entropy,
-                 rho_core_np=rho_core, tau_core_np=tau_core)
+                 rho_core_np=rho_core, tau_core_np=tau_core, exx_kernel_np=exx_kernel,
+                 exx_iq_np=exx_iq, hubbard_manifolds=hubbard_manifolds)
 
 
 def _atomic_local_potential(basis):

@@ -1,17 +1,17 @@
 """Exchange-correlation functionals as differentiable torch expressions.
 
-Port of `dftk_tpu/ops/xc/functionals.py` but for gga_x_wpbeh (names follow
-libxc): lda_x (Slater exchange), lda_c_vwn (VWN5), lda_c_pw (PW92),
+Port of `dftk_tpu/ops/xc/functionals.py` (names follow libxc): lda_x (Slater exchange), lda_c_vwn (VWN5), lda_c_pw (PW92),
 lda_xc_teter93 (Teter's Pade fit of LDA exchange and correlation),
-gga_x_pbe, gga_c_pbe, gga_x_pbe_sol and gga_c_pbe_sol, the meta-GGAs
+gga_x_pbe, gga_c_pbe, gga_x_pbe_sol and gga_c_pbe_sol, the HJS omega-PBE
+short-range exchange gga_x_wpbeh of the HSE06 hybrid (`make_gga_x_wpbeh`),
+the meta-GGAs
 mgga_x_scan, mgga_x_r2scan, mgga_x_tpss and mgga_c_tpss (`ops/xc/mgga.py`),
 the potential-only mgga_x_tb09 (`ops/xc/tb09.py`), and the sets LDA, PBE,
 PBEsol, SCAN, r2SCAN, TPSS and TB09.  Potentials come from
 `torch.autograd` through the energy (`ops/hamiltonian.py::total_potential`),
 the GGA divergence term included, since the density gradient is taken
 spectrally inside the graph; for a meta-GGA the gradient in tau is the
-DivAgrad coefficient Vtau.  gga_x_wpbeh (hybrids) is ROADMAP Queue 1 item
-11.
+DivAgrad coefficient Vtau.
 
 rho has shape [nspin, ...] with nspin in {1, 2}; sigma, the contracted
 gradients, [1, ...] for nspin 1 and [3, ...] (aa, ab, bb) for nspin 2; tau
@@ -217,6 +217,60 @@ def gga_c_pbe_sol_energy(rho, sigma):
     return _gga_c_pbe(rho, sigma, _PBESOL_BETA)
 
 
+# HJS omega-PBE short-range exchange (Henderson, Janesko, Scuseria, J. Chem.
+# Phys. 128, 194105 (2008)): the erfc-screened exchange of a model PBE hole,
+# the semilocal short-range part of HSE06 (reference src/standard_models.jl:
+# 163-166).  The shape function H(s) is the JAX package's rational refit
+# (its F(s, nu = 0) matches PBE to ~1e-5 for s in [0, 30]); the constants
+# and the clamps (s at 50, zeta at 1e-30) are those of
+# dftk_tpu/ops/xc/functionals.py:289-421, so autograd sees the same floors.
+_HJS_A = 0.757211
+_HJS_B = -0.106364
+_HJS_C = -0.118649
+_HJS_D = 0.609650
+# zeta(s) = s^2 H(s), H(s) = (a1 s^2 + ... + a6 s^7)/(1 + b1 s + ... + b9 s^9)
+_HJS_HA = (0.01539809, -0.03415762, 0.03319737, -0.01392621, -0.0003318682,
+           0.002161391)
+_HJS_HB = (-2.61897, 3.066503, -2.046006, 0.8732485, -0.2491473, 0.04988374,
+           -0.003572147, -0.0001762652, 0.001713341)
+
+
+def _hjs_fx_sr(s, nu):
+    """HJS short-range enhancement factor F(s, nu), nu = omega / kF > 0."""
+    s = torch.clamp(s, max=50.0)          # zeta is flat beyond s ~ 30
+    num = sum(a * s ** (i + 4) for i, a in enumerate(_HJS_HA))
+    den = 1.0 + sum(b * s ** (i + 1) for i, b in enumerate(_HJS_HB))
+    zet = torch.clamp(num / den, min=1e-30)    # sqrt(zeta) needs zeta > 0
+    eta = _HJS_A + zet
+    lam = _HJS_D + zet
+    F = 1.0 - s ** 2 / (27.0 * _HJS_C * (1.0 + s ** 2 / 4.0)) - zet / (2.0 * _HJS_C)
+    EG = (-(2.0 / 5.0) * _HJS_C * F * lam
+          - (4.0 / 15.0) * _HJS_B * lam ** 2
+          - (6.0 / 5.0) * _HJS_A * lam ** 3
+          - (4.0 / 5.0) * math.sqrt(math.pi) * lam ** 3.5
+          - (12.0 / 5.0) * lam ** 3.5 * (torch.sqrt(zet) - torch.sqrt(eta)))
+    nu2 = nu ** 2
+    chi = nu / torch.sqrt(lam + nu2)
+    szl = torch.sqrt(zet + nu2)
+    sel = torch.sqrt(eta + nu2)
+    sll = torch.sqrt(lam + nu2)
+    return (_HJS_A
+            - (4.0 / 9.0) * _HJS_B / lam * (1.0 - chi)
+            - (4.0 / 9.0) * _HJS_C * F / lam ** 2 * (1.0 - 1.5 * chi + 0.5 * chi ** 3)
+            - (8.0 / 9.0) * EG / lam ** 3
+            * (1.0 - 1.875 * chi + 1.25 * chi ** 3 - 0.375 * chi ** 5)
+            + 2.0 * nu * (szl - sel)
+            + 2.0 * zet * torch.log((nu + szl) / (nu + sll))
+            - 2.0 * eta * torch.log((nu + sel) / (nu + sll)))
+
+
+def _wpbeh_unpol(rho, sigma, omega):
+    r = _safe_rho(rho)
+    kf = (3 * math.pi ** 2 * r) ** (1 / 3)
+    s = torch.sqrt(torch.clamp(sigma, min=1e-30) / _den_floor((2 * kf * r) ** 2))
+    return _CX * r ** (4 / 3) * _hjs_fx_sr(s, omega / kf)
+
+
 @dataclasses.dataclass(frozen=True)
 class Functional:
     name: str
@@ -240,6 +294,20 @@ def _tb09_potential(rho, G_cart, tau):
     return tb09_potential(rho, G_cart, tau)
 
 
+def make_gga_x_wpbeh(omega=0.11):
+    """Short-range (erfc-screened) omega-PBE exchange functional."""
+    if not omega > 0:
+        raise ValueError("gga_x_wpbeh needs omega > 0 (use gga_x_pbe at 0)")
+
+    def energy(rho, sigma):
+        if rho.shape[0] == 1:
+            return _wpbeh_unpol(rho[0], sigma[0], omega)
+        # exact spin scaling, as for PBE exchange
+        return (_wpbeh_unpol(2 * rho[0], 4 * sigma[0], omega)
+                + _wpbeh_unpol(2 * rho[1], 4 * sigma[2], omega)) / 2
+    return Functional(f"gga_x_wpbeh@{omega:g}", "gga", energy)
+
+
 FUNCTIONALS = {
     "lda_x": Functional("lda_x", "lda", lda_x_energy),
     "lda_c_vwn": Functional("lda_c_vwn", "lda", lda_c_vwn_energy),
@@ -253,6 +321,7 @@ FUNCTIONALS = {
     "mgga_x_r2scan": Functional("mgga_x_r2scan", "mgga", _mgga("r2scan_energy")),
     "mgga_x_tpss": Functional("mgga_x_tpss", "mgga", _mgga("tpss_x_energy")),
     "mgga_c_tpss": Functional("mgga_c_tpss", "mgga", _mgga("tpss_c_energy")),
+    "gga_x_wpbeh": make_gga_x_wpbeh(0.11),
     "mgga_x_tb09": Functional("mgga_x_tb09", "mgga", None, _tb09_potential),
 }
 
@@ -285,10 +354,6 @@ def resolve_functionals(functionals):
             fun = name
         elif name in FUNCTIONALS:
             fun = FUNCTIONALS[name]
-        elif name == "gga_x_wpbeh":
-            raise NotImplementedError(
-                "gga_x_wpbeh is not ported yet (ROADMAP Queue 1, item 11, with "
-                "exact exchange)")
         else:
             raise KeyError(f"unknown functional {name!r}; the port has "
                            f"{sorted(FUNCTIONALS)}")

@@ -16,7 +16,7 @@ held fixed.  A meta-GGA's tau is the result's (`scfres.tau`), or, where it
 has none (the split adapters), the kinetic-energy density of its orbitals.
 
 Potential-only functionals (TB09) have no energy, so no forces; classical
-pairwise forces are not ported (ROADMAP Queue 1, item 11).  Both raise
+pairwise forces are not ported (ROADMAP Queue 1, item 11b).  Both raise
 NotImplementedError.
 """
 import math
@@ -41,7 +41,7 @@ def check_supported(basis, scfres, what):
     if getattr(basis.terms, "pairwise_forces", None) is not None:
         raise NotImplementedError(
             f"{what} with classical pairwise terms are not ported yet (ROADMAP "
-            f"Queue 1, item 11)")
+            f"Queue 1, item 11b)")
 
 
 def f64(basis, arr):

@@ -33,7 +33,7 @@ so the six T_bc are built once outside the graph (from the density of
 the graph holds the 3 x 3 metric only.
 
 Potential-only functionals (TB09) have no energy, so no stress; classical
-pairwise terms are not ported (ROADMAP Queue 1, item 11).  Both raise
+pairwise terms are not ported (ROADMAP Queue 1, item 11b).  Both raise
 NotImplementedError.
 """
 import math

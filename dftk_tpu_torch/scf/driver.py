@@ -22,8 +22,12 @@ orbitals, and tau follows psi without mixing, from the von Weizsaecker
 tau of the first density.  The JAX package jit-compiles the step; here it
 runs eagerly on the basis' device.
 
-Not ported, and refused when requested: exact exchange and Hubbard (their
-terms do not instantiate, ROADMAP Queue 1 item 11).
+Exact exchange and Hubbard lag one step, as in the JAX package: H at step
+n uses the orbitals and the occupations that went into step n (the aufbau
+occupations at the first step, and zeros for bands AdaptiveBands adds).
+With `use_ace` (default) the Fock operator of those orbitals is compressed
+once per step (`ops/exx_ace.py`) and LOBPCG applies two GEMMs for it; the
+exchange energy is evaluated with the bare operator of the new orbitals.
 """
 import dataclasses
 import math
@@ -37,6 +41,8 @@ from ..ops import hamiltonian as hamops
 from ..ops.density import (compute_density, compute_kinetic_energy_density,
                            guess_density, make_symmetrizer, von_weizsaecker_tau)
 from ..ops.eigen.lobpcg import lobpcg, ortho_qr
+from ..ops.exx_ace import apply_ace, build_ace
+from ..ops.hubbard import HubbardSetup
 from ..ops.occupation import compute_occupation, entropy_energy
 from ..response.chi0 import Chi0Context
 from .anderson import AndersonAcceleration
@@ -77,6 +83,18 @@ def random_orbitals(basis, n_bands, seed=42, generator=None):
     X = torch.randn(shape, dtype=basis.dtype, device=basis.device,
                     generator=generator)
     return ortho_qr(X * basis.data.mask[:, None, :])
+
+
+def aufbau_occupation(basis, n_bands):
+    """[nk, n_bands]: the filled occupation on the lowest
+    n_electrons / filled bands of every k row (the first step's generator
+    occupations of exact exchange and Hubbard)."""
+    model = basis.model
+    filled = model.filled_occupation
+    n_occ = int(round(model.n_electrons / filled))
+    occ = torch.zeros((basis.n_kpoints, n_bands), dtype=basis.rdtype, device=basis.device)
+    occ[:, :n_occ] = filled
+    return occ
 
 
 def default_mixing(model):
@@ -123,6 +141,7 @@ def self_consistent_field(
         maxtime: Optional[float] = None,      # seconds; soft SCF timeout
         seed: int = 42,
         generator: Optional[torch.Generator] = None,
+        use_ace: bool = True,    # compress the Fock exchange (Lin Lin's ACE)
 ) -> SCFResult:
     t0 = time.time()
     model = basis.model
@@ -158,11 +177,32 @@ def self_consistent_field(
     volume = model.unit_cell_volume
     dvol = basis.dvol
     needs_tau = terms.needs_tau
+    filled = model.filled_occupation
+    has_exx = td.exx_kernel is not None
+    hub = HubbardSetup(basis) if terms.hubbard_manifolds is not None else None
 
-    def scf_step(rho_in, psi_in, diagtol, tau_in):
+    def scf_step(rho_in, psi_in, diagtol, tau_in, occ_in):
         V, Vtau, _ = hamops.total_potential(terms, rho_in, volume, tau=tau_in)
-        ham = hamops.build_ham(bd, td, V, basis.pruned, Vtau=Vtau)
-        res = lobpcg(lambda p: hamops.apply_H(ham, p), psi_in, ham.kin, bd.mask,
+        exx = (hamops.make_exchange(bd, td, psi_in, occ_in, filled, volume)
+               if has_exx else None)
+        ham = hamops.build_ham(bd, td, V, basis.pruned, Vtau=Vtau,
+                               exx=None if use_ace else exx)
+        extra = []
+        if has_exx and use_ace:
+            # compress the Fock operator once per step: the eigensolver then
+            # applies two GEMMs instead of one Poisson solve per orbital
+            xi = build_ace(exx)
+            extra.append(lambda p: apply_ace(xi, p))
+        if hub is not None:
+            extra.append(hub.potential_apply(psi_in, occ_in))
+
+        def applyH(p):
+            out = hamops.apply_H(ham, p)
+            for x in extra:
+                out = out + x(p) * bd.mask[:, None, :]
+            return out
+
+        res = lobpcg(applyH, psi_in, ham.kin, bd.mask,
                      tol=diagtol, maxiter=eigensolver_maxiter, n_conv=n_bands)
         occ, epsF = compute_occupation(res.eigenvalues, bd.kweights,
                                        model.n_electrons, model.filled_occupation,
@@ -177,6 +217,12 @@ def self_consistent_field(
                                                      nspin, symmetrizer=symmetrizer)
         V_out, _, energies = hamops.total_potential(terms, rho_out, volume, tau=tau_out)
         energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
+        if has_exx:
+            energies["ExactExchange"] = hamops.exchange_energy(
+                hamops.make_exchange(bd, td, res.X, occ, filled, volume), res.X, occ,
+                bd.kweights)
+        if hub is not None:
+            energies["Hubbard"] = hub.energy(res.X, occ)
         if terms.has_entropy:
             energies["Entropy"] = entropy_energy(
                 res.eigenvalues, bd.kweights, epsF, model.temperature,
@@ -191,9 +237,14 @@ def self_consistent_field(
     n_matvec_total = 0
     E_const = {"Ewald": terms.E_ewald, "PspCorrection": terms.E_psp_correction}
     tau = von_weizsaecker_tau(rho, td.G_cart) if needs_tau else None
+    # exchange and Hubbard take the occupations of psi_in: the aufbau guess
+    # at the first step
+    occ_x = aufbau_occupation(basis, psi.shape[1]) if has_exx or hub is not None else None
     for it in range(maxiter):
-        rho_out, res, occ, epsF, energies, V_out, tau_out = scf_step(rho, psi, diagtol, tau)
+        rho_out, res, occ, epsF, energies, V_out, tau_out = scf_step(rho, psi, diagtol, tau,
+                                                                     occ_x)
         psi = res.X
+        occ_x = occ
         n_matvec_total += res.n_matvec
         delta_F = rho_out - rho
         energies_h = {k: float(v) for k, v in energies.items()}
@@ -224,6 +275,8 @@ def self_consistent_field(
                 if extra > 0:
                     pad = random_orbitals(basis, extra, generator=generator)
                     psi = ortho_qr(torch.cat([psi, pad], dim=1))
+                    if occ_x is not None:      # the new bands start unoccupied
+                        occ_x = torch.nn.functional.pad(occ_x, (0, extra))
         if converged:
             break
         tau = tau_out            # tau follows psi (no mixing)

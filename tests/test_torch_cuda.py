@@ -29,7 +29,9 @@ card against the same on the CPU (1e-11), on a symmetric Si2 state, and
 the Gamma Si2 DFPT dynamical matrix on the card against the CPU's (1e-9
 of max|C|).  H at k+q through the permuted Ham against H at k_perm, and
 the complex dV_q psi (Re and Im as two local applies) against its plain
-versions, within 1e-14 of max|out|.  The
+versions, within 1e-14 of max|out|.  The exchange apply and the ACE build
+and apply on the card against the CPU's (1e-12 of max|out|), at Gamma and
+on a k-grid.  The
 filter-stage probe kernels (`kernels/filter_stages.py`)
 are held against their plain versions at small, unequal sizes, with 1 and 4
 planes per block: f32 stage sets at 1e-5 of max|out|, the bf16 'full' by
@@ -1117,3 +1119,50 @@ def test_cuda_perm_ham_and_dv_q_match_plain(gpu_basis, monkeypatch):
     for a, b in ((hq, want_hq), (out, ref)):
         assert a.shape == b.shape and bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 1e-14 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gamma", "kgrid"])
+def test_cuda_exchange_and_ace_match_cpu(case):
+    """The bare exchange apply (torch.fft over cuFFT) and the ACE build and
+    apply (Cholesky and two GEMMs) on the card against the same on the CPU,
+    within 1e-12 of max|out|: HF helium at Gamma (L = 8, Ecut 8) and on the
+    (2, 1, 1) k-grid with the truncated kernel, on seeded orthonormal
+    orbitals with occupations 2 and 0.5 on the first two bands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from dftk_tpu_torch.ops import hamiltonian as hamops
+    from dftk_tpu_torch.ops.exx_ace import apply_ace, build_ace
+    He = dt.ElementPsp.from_symbol("He", psp="lda/he-q2")
+
+    def basis(device):
+        if case == "gamma":
+            model = dt.model_HF(np.eye(3) * 8.0, [He], [np.array([0.5, 0.5, 0.5])],
+                                symmetries=False)
+            return dt.PlaneWaveBasis(model, Ecut=8.0, kgrid=(1, 1, 1), device=device)
+        terms = [dt.Kinetic(), dt.AtomicLocal(), dt.AtomicNonlocal(), dt.Ewald(),
+                 dt.PspCorrection(), dt.Hartree(),
+                 dt.ExactExchange(kernel=dt.SphericallyTruncatedCoulomb(rc=4.0))]
+        model = dt.Model(np.eye(3) * 8.0, [He], [np.array([0.5, 0.5, 0.5])],
+                         term_types=terms, symmetries=False)
+        return dt.PlaneWaveBasis(model, Ecut=5.0, kgrid=(2, 1, 1), fft_size=(16, 16, 16),
+                                 device=device)
+
+    outs = {}
+    for device in ("cpu", "cuda"):
+        b = basis(device)
+        rng = np.random.default_rng(8)
+        shape = (b.n_kpoints, 4, b.nG_max)
+        X = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * b.mask_np[:, None]
+        X = np.stack([np.linalg.qr(x.T)[0].T for x in X])
+        psi = b.tensor(X, b.dtype)
+        occ = torch.zeros((b.n_kpoints, 4), dtype=torch.float64, device=device)
+        occ[:, 0], occ[:, 1] = 2.0, 0.5
+        exx = hamops.make_exchange(b.data, b.terms.data, psi, occ, 2.0,
+                                   b.model.unit_cell_volume)
+        assert (exx.iq is None) == (case == "gamma")
+        outs[device] = [t.cpu() for t in (hamops.apply_exchange(exx, psi),
+                                          apply_ace(build_ace(exx), psi))]
+    for a, ref in zip(outs["cuda"], outs["cpu"]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - ref).abs().max()) <= 1e-12 * float(ref.abs().max())

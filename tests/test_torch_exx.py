@@ -1,0 +1,256 @@
+"""dftk_tpu_torch's exact exchange and hybrids against the JAX package.
+
+Torch at one thread, float64, on injected states, against the JAX package's
+values recorded in tests/data/torch_port_exx.json (each entry's `command`
+reruns tests/data/make_torch_port_exx.py, whose constructors and seeded
+orbitals this file imports):
+  * every Coulomb kernel and regularisation on the free cubic cell, their
+    legacy basis-free forms, and exx_q_kernels on HF helium at kgrid
+    (2, 2, 1) and at Gamma: 1e-12 (relative to max(1, |value|));
+  * gga_x_wpbeh's energy density e and its autograd derivatives on seeded
+    samples, unpolarised and collinear: e, de/drho and sigma de/dsigma
+    within 1e-12 (de/dsigma enters the potential through |grad rho|^2, as
+    sigma de/dsigma; at densities near 1e-6 the HJS factor at large
+    nu = omega / kF is a difference of O(nu) terms, and the two packages'
+    orders of differentiation leave up to 4e-11 relative in de/dsigma
+    itself);
+  * the exchange apply, its band diagonal and E_x on seeded orbitals at
+    Gamma (bare Coulomb and the HSE06 kernel) and on the He 2-point k-grid:
+    1e-12;
+  * ACE against the bare operator on the generating span: 1e-10;
+  * the HF helium SCF from the same seeded orbitals, in both loops:
+    iteration-1 and converged energies (density residual 1e-8; JAX's
+    1e-10) within 1e-8 Ha of JAX's with ACE, as the JAX run, and the
+    LOBPCG loop's converged energy with the bare operator in every apply
+    (use_ace=False; its first eigensolve differs, as V_ACE equals Vx only
+    on the span);
+  * the split-engine adapters (`ops/exx_split.py`) against the complex
+    path: 1e-10;
+  * the item-11b terms (the JAX package's Magnetic, Anyonic,
+    PairwisePotential, LocalNonlinearity and External* terms) still raise
+    NotImplementedError naming item 11b.
+"""
+import importlib.util
+import json
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import dftk_tpu_torch as dt
+from dftk_tpu_torch.ops import exx_split
+from dftk_tpu_torch.ops import hamiltonian as H
+from dftk_tpu_torch.ops.coulomb import exx_q_kernels, kernel_fourier_cube
+from dftk_tpu_torch.ops.exx_ace import apply_ace, build_ace
+from dftk_tpu_torch.ops.xc.functionals import make_gga_x_wpbeh
+
+DATA = pathlib.Path(__file__).parent / "data"
+_spec = importlib.util.spec_from_file_location("make_exx", DATA / "make_torch_port_exx.py")
+make = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make)
+with open(DATA / "torch_port_exx.json") as _f:
+    REF = json.load(_f)
+BAR = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    torch.set_num_threads(1)   # tier-1 runs 6 xdist workers on 8 cores
+
+
+def _close(out, ref, bar=BAR):
+    out, ref = np.asarray(out, dtype=float), np.asarray(ref, dtype=float)
+    err = float(np.max(np.abs(out - ref)))
+    assert err < bar * max(1.0, float(np.max(np.abs(ref)))), err
+    return err
+
+
+def _summary_close(cube, ref):
+    got = make.table_summary(cube)
+    assert got["size"] == ref["size"]
+    for key in ("first", "sum", "wsum", "sample"):
+        _close(got[key], ref[key])
+
+
+@pytest.mark.parametrize("name", sorted(REF["coulomb"]["cubes"]))
+def test_coulomb_kernel_cube(name):
+    basis = make.free_basis(dt, 10.0, device="cpu")
+    assert list(basis.fft_size) == REF["coulomb"]["fft_size"]
+    kernel = make.coulomb_kernels(dt)[name]
+    _summary_close(kernel_fourier_cube(kernel, basis), REF["coulomb"]["cubes"][name])
+    if name in REF["coulomb"]["legacy"]:
+        Gsq = np.array(REF["coulomb"]["legacy_Gsq"])
+        _close(kernel.fourier(Gsq, 500.0), REF["coulomb"]["legacy"][name])
+
+
+@pytest.fixture(scope="module")
+def he_kgrid():
+    return make.he_kgrid_bases(dt, device="cpu")
+
+
+@pytest.mark.parametrize("table", sorted(REF["coulomb"]["q_tables"]))
+def test_exx_q_kernels(table):
+    name, kg = table.split("@")
+    He = dt.ElementPsp.from_symbol("He", psp="lda/he-q2")
+    kernel = make.q_kernels(dt)[name]
+    model = dt.Model(np.diag([make.KGRID_L] * 3), [He], make.HE_POS,
+                     term_types=make.hf_terms(dt, kernel), symmetries=False)
+    basis = dt.PlaneWaveBasis(model, Ecut=make.KGRID_ECUT, kgrid=tuple(int(c) for c in kg),
+                              fft_size=(16, 16, 16), device="cpu")
+    vq, iq = exx_q_kernels(kernel, basis)
+    ref = REF["coulomb"]["q_tables"][table]
+    assert list(vq.shape) == ref["shape"]
+    np.testing.assert_array_equal(iq, ref["iq"])
+    for v, r in zip(vq, ref["vq"]):
+        _summary_close(v, r)
+    if kg == "111":         # the Gamma stack is the Gamma kernel, exactly
+        assert np.array_equal(vq[0], kernel_fourier_cube(kernel, basis))
+    # the term's table: the kernel stack times the scaling factor
+    assert np.array_equal(basis.terms.exx_kernel_np, vq)
+
+
+@pytest.mark.parametrize("case", sorted(k for k in REF["wpbeh"] if "_" in k and k[0].isdigit()))
+def test_wpbeh(case):
+    omega, tag = case.split("_")
+    rho1, sig1, rho2, sig2 = make.wpbeh_samples()
+    rho, sig = (rho1, sig1) if tag == "unpol" else (rho2, sig2)
+    f = make_gga_x_wpbeh(float(omega))
+    r = torch.tensor(rho, requires_grad=True)
+    s = torch.tensor(sig, requires_grad=True)
+    e = f.energy(r, s)
+    vr, vs = torch.autograd.grad(e.sum(), (r, s))
+    ref = REF["wpbeh"][case]
+    for out, key in ((e, "e"), (vr, "vrho"), (vs, "vsigma")):
+        assert bool(torch.isfinite(out).all())
+        out, want = out.detach().numpy(), np.asarray(ref[key])
+        if key == "vsigma":
+            out, want = sig * out, sig * want
+        _close(out, want)
+
+
+def _exchange(basis, psi, occ, kernel=None):
+    td = basis.terms.data if kernel is None else basis.terms.data._replace(exx_kernel=kernel)
+    return H.make_exchange(basis.data, td, torch.as_tensor(psi), torch.as_tensor(occ),
+                           basis.model.filled_occupation, basis.model.unit_cell_volume)
+
+
+@pytest.fixture(scope="module")
+def he_gamma():
+    basis = make.he_box_basis(dt, dt.model_HF, device="cpu")
+    assert list(basis.fft_size) == REF["he_gamma"]["fft_size"]
+    psi = make.seeded_orbitals(basis.mask_np, 4, 1)
+    occ = make.aufbau(1, 4, 1)
+    occ[:, 1] = 0.5
+    return basis, psi, occ
+
+
+def _state(case, he_gamma, he_kgrid):
+    """(basis, orbitals, occupations, exchange, reference) of a case."""
+    if case == "kgrid":
+        basis = he_kgrid[0]
+        psi = make.seeded_orbitals(basis.mask_np, 3, 4)
+        occ = make.aufbau(basis.n_kpoints, 3, 1)
+        occ[:, 1] = 0.5
+        return basis, psi, occ, _exchange(basis, psi, occ), REF["he_kgrid"]["apply"]
+    basis, psi, occ = he_gamma
+    kernel = None
+    if case == "hse":
+        kernel = 0.25 * torch.as_tensor(exx_q_kernels(dt.ShortRangeCoulomb(mu=0.11), basis)[0])
+    return basis, psi, occ, _exchange(basis, psi, occ, kernel), REF["he_gamma"][case]
+
+
+@pytest.mark.parametrize("case", ["coulomb", "hse", "kgrid"])
+def test_exchange_apply(he_gamma, he_kgrid, case):
+    basis, psi, occ, exx, ref = _state(case, he_gamma, he_kgrid)
+    assert (exx.iq is not None) == (case == "kgrid")
+    vx = H.apply_exchange(exx, torch.as_tensor(psi))
+    ref_vx = make.as_complex(ref["vx"])
+    err = float(np.max(np.abs(vx.numpy() - ref_vx)))
+    assert err < BAR * max(1.0, float(np.max(np.abs(ref_vx))))
+    diag = torch.sum(torch.as_tensor(psi).conj() * vx, -1).real
+    _close(diag.numpy(), ref["diag"])
+    E = float(H.exchange_energy(exx, torch.as_tensor(psi), torch.as_tensor(occ),
+                                basis.data.kweights))
+    print(f"exchange {case}: Vx psi {err:.1e}, E_x {abs(E - ref['E']):.1e}")
+    assert abs(E - ref["E"]) < BAR
+
+
+@pytest.mark.parametrize("case", ["coulomb", "kgrid"])
+def test_ace_exact_on_span(he_gamma, he_kgrid, case):
+    _, psi, _, exx, _ = _state(case, he_gamma, he_kgrid)
+    psi = torch.as_tensor(psi)
+    d = float((apply_ace(build_ace(exx), psi) - H.apply_exchange(exx, psi)).abs().max())
+    print(f"ACE vs bare exchange on the span ({case}): {d:.1e}")
+    assert d < 1e-10
+
+
+@pytest.mark.parametrize("loop, use_ace", [("lobpcg", True), ("lobpcg", False),
+                                           ("split", True)])
+def test_hf_scf_matches_jax(he_gamma, loop, use_ace):
+    basis = he_gamma[0]
+    ref = REF["he_gamma"]["scf"]
+    psi0 = torch.as_tensor(make.seeded_orbitals(basis.mask_np, 4, 2))
+    # the exchange lags a step, so the density residual wanders near 1e-8
+    # for tens of iterations before it falls further (the energy is then
+    # within 1e-14 of the fixed point's)
+    kw = dict(tol=1e-8, maxiter=150, is_converged="density", use_ace=use_ace)
+    if loop == "lobpcg":
+        res = dt.self_consistent_field(basis, psi=psi0, **kw)
+        E1, E, conv = res.history_Etot[0], res.total_energy, res.converged
+    else:
+        res = dt.self_consistent_field_split(basis, U0=torch.cat([psi0.real, psi0.imag], -1),
+                                             **kw)
+        E1, E, conv = res["history"][0][0], res["energies"]["total"], res["converged"]
+    print(f"HF He {loop}, ACE {use_ace}: iteration 1 {abs(E1 - ref['history'][0]):.1e}, "
+          f"converged {abs(E - ref['energies']['total']):.1e} Ha")
+    assert conv and ref["converged"]
+    if use_ace:       # the bare operator's first eigensolve differs off the span
+        assert abs(E1 - ref["history"][0]) < 1e-8
+    assert abs(E - ref["energies"]["total"]) < 1e-8
+
+
+def _rows(X):
+    return torch.cat([X.real, X.imag], -1)
+
+
+@pytest.mark.parametrize("what", ["apply", "energy", "ace", "apply_kgrid", "ace_kgrid"])
+def test_split_adapters(he_gamma, he_kgrid, what):
+    case = "kgrid" if what.endswith("kgrid") else "coulomb"
+    basis, psi, occ, exx, _ = _state(case, he_gamma, he_kgrid)
+    psi, occ = torch.as_tensor(psi), torch.as_tensor(occ)
+    bd = basis.data
+    args = (exx.kernel, _rows(psi), exx.occ)
+    geo = (bd.Gidx, bd.mask, basis.fft_size, basis.model.unit_cell_volume)
+    kq = dict(iq=exx.iq, kspin=exx.kspin)
+    if what.startswith("apply"):
+        out = exx_split.apply_exchange_split(*args, _rows(psi), *geo, **kq)
+        ref = _rows(H.apply_exchange(exx, psi))
+    elif what == "energy":
+        out = exx_split.exchange_energy_split(exx.kernel, _rows(psi), exx.occ, occ,
+                                              bd.kweights, *geo, **kq)
+        ref = H.exchange_energy(exx, psi, occ, bd.kweights)
+    else:
+        xi = exx_split.build_ace_split(*args, *geo, **kq)
+        out = exx_split.apply_ace_split(xi, _rows(psi))
+        ref = _rows(apply_ace(build_ace(exx), psi))
+    _close(out.numpy(), ref.numpy(), 1e-10)
+
+
+@pytest.mark.parametrize("term", ["Magnetic", "Anyonic", "PairwisePotential",
+                                  "LocalNonlinearity", "ExternalFromReal",
+                                  "ExternalFromFourier", "ExternalFromValues"])
+def test_item_11b_terms_raise(term):
+    import dftk_tpu as dftk
+    inst = {"Magnetic": lambda: dftk.Magnetic(Apot=lambda r: 0 * r),
+            "Anyonic": lambda: dftk.Anyonic(hbar=1.0, beta=0.5),
+            "PairwisePotential": lambda: dftk.PairwisePotential(V=lambda d2: d2, params={}),
+            "LocalNonlinearity": lambda: dftk.LocalNonlinearity(f=lambda rho: rho ** 2),
+            "ExternalFromReal": lambda: dftk.ExternalFromReal(lambda r: r[..., 0]),
+            "ExternalFromFourier": lambda: dftk.ExternalFromFourier(lambda G: G[..., 0]),
+            "ExternalFromValues": lambda: dftk.ExternalFromValues(np.zeros((9, 9, 9)))}[term]()
+    He = dt.ElementPsp.from_symbol("He", psp="lda/he-q2")
+    model = dt.Model(np.eye(3) * 5.0, [He], make.HE_POS, term_types=[dt.Kinetic(), inst],
+                     symmetries=False)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")

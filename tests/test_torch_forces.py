@@ -3,7 +3,10 @@
 Si2 with atom 0 displaced, Ecut 7, fft_size (18,18,18), no symmetry, torch
 at one thread.  The state is seeded random orbitals (4 occupied bands, 2
 empty) and the JAX package's guess density, carried over with
-`dftk_tpu_torch.interop`, on MonkhorstPack((2,2,2)):
+`dftk_tpu_torch.interop`, on MonkhorstPack((2,2,2)): the inputs of
+tests/data/make_torch_port_scf.py::entry_forces, whose JAX values
+tests/data/torch_port_scf.json records (the entry's `command` reruns it;
+the JAX package's gradients run there under jax.jit):
   * the Ewald energy and its position and lattice gradients, and the numpy
     twins, against the JAX package's: 1e-12;
   * compute_forces, compute_forces_cart and compute_forces_split against
@@ -22,13 +25,10 @@ in tests/data/torch_port_si2_derivatives.json with the command that made
 them.  Unported cases raise; NLCC derivatives equal central differences
 of their energy; the derivatives symmetrized over the
 displaced cell's four operations equal the JAX package's (1e-12).
-
-The JAX package's Ewald, compute_forces, energy_at_lattice and
-compute_stresses_cart gradients run here under jax.jit: called eagerly
-they spend most of the file's time compiling op by op.
 """
 import copy
 import dataclasses
+import importlib.util
 import json
 import pathlib
 import types
@@ -36,19 +36,6 @@ import types
 import numpy as np
 import pytest
 import torch
-
-import jax
-import jax.numpy as jnp
-
-import dftk_tpu as dftk
-from dftk_tpu import symmetry as jax_symmetry
-from dftk_tpu.ops import ewald as jax_ewald
-from dftk_tpu.ops.density import guess_density as jax_guess_density
-from dftk_tpu.ops.engine_split import prepare_split_data as jax_prepare_split_data
-from dftk_tpu.ops.forces_split import compute_forces_split as jax_forces_split
-from dftk_tpu.ops.stresses_split import compute_stresses_split as jax_stresses_split
-from dftk_tpu.postprocess import forces as jax_forces
-from dftk_tpu.postprocess import stresses as jax_stresses
 
 import dftk_tpu_torch as dt
 from dftk_tpu_torch.interop import state_from_numpy
@@ -59,19 +46,18 @@ from dftk_tpu_torch.ops.forces_split import compute_forces_split
 from dftk_tpu_torch.ops.stresses_split import compute_stresses_split
 from dftk_tpu_torch.postprocess import forces, stresses
 
-A_SI = 5.131570667152971
-SI_LATTICE = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
-POSITIONS = [np.array([0.127, 0.125, 0.123]), -np.ones(3) / 8]
-OCC = [2.0, 2.0, 2.0, 2.0, 0.0, 0.0]
-BAR = 1e-12
 DATA = pathlib.Path(__file__).parent / "data"
+_spec = importlib.util.spec_from_file_location("make_scf", DATA / "make_torch_port_scf.py")
+make = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make)
+SI_LATTICE = make.SI_LATTICE
+POSITIONS = make.DISPLACED
+OCC = make.FORCES_OCC
+BAR = 1e-12
 
 
 def _si2(pkg, kgrid, **kw):
-    Si = pkg.ElementPsp.from_symbol("Si", psp="lda/si-q4")
-    model = pkg.model_DFT(SI_LATTICE, [Si, Si], POSITIONS,
-                          functionals=["lda_x", "lda_c_vwn"], symmetries=False)
-    return pkg.PlaneWaveBasis(model, Ecut=7.0, kgrid=kgrid, fft_size=(18, 18, 18), **kw)
+    return make.si2_kgrid_basis(pkg, POSITIONS, kgrid, **kw)
 
 
 def _max_diff(a, b):
@@ -84,70 +70,37 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def state():
-    """The same injected state in both packages: (JAX basis, JAX state,
-    port basis, port state).  The orbitals are seeded numpy normals,
-    orthonormalised on each k-point's sphere."""
-    jb = _si2(dftk, dftk.MonkhorstPack((2, 2, 2)))
+def ref():
+    with open(DATA / "torch_port_scf.json") as f:
+        return json.load(f)["forces"]
+
+
+@pytest.fixture(scope="module")
+def state(ref):
+    """The injected state of the port: (the JAX entry, port basis, port
+    state).  The orbitals are seeded numpy normals, orthonormalised on each
+    k-point's sphere."""
     tb = _si2(dt, dt.MonkhorstPack((2, 2, 2)), device="cpu")
-    rng = np.random.default_rng(1)
-    shape = (jb.n_kpoints, jb.nG_max, len(OCC))
-    X = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * tb.mask_np[:, :, None]
-    psi = np.linalg.qr(X)[0].transpose(0, 2, 1).copy()
-    rho = np.asarray(jax_guess_density(jb))
-    occ = np.tile(OCC, (jb.n_kpoints, 1))
-    js = types.SimpleNamespace(basis=jb, psi=jnp.asarray(psi), occupation=jnp.asarray(occ),
-                               rho=jnp.asarray(rho))
-    psi_t, rho_t = state_from_numpy(psi=psi, rho=rho, device="cpu")
+    psi = make.forces_state(tb.mask_np)
+    occ = np.tile(OCC, (tb.n_kpoints, 1))
+    psi_t, rho_t = state_from_numpy(psi=psi, rho=np.array(ref["rho"]), device="cpu")
     ts = types.SimpleNamespace(basis=tb, psi=psi_t, occupation=torch.as_tensor(occ),
                                rho=rho_t)
-    return jb, js, tb, ts
-
-
-def _jax_energy_at_lattice(basis, psi, occupation):
-    """The JAX package's energy_at_lattice of a fixed state, jitted."""
-    return jax.jit(lambda L: jax_stresses.energy_at_lattice(basis, psi, occupation, L))
-
-
-def _jax_stresses(basis, psi, occupation):
-    """The JAX package's compute_stresses_cart, its gradient jitted."""
-    L0 = jnp.asarray(basis.model.lattice)
-    energy = _jax_energy_at_lattice(basis, psi, occupation)
-    grad = jax.jit(jax.grad(lambda eps: energy((jnp.eye(3) + (eps + eps.T) / 2) @ L0)))
-    g = np.asarray(grad(jnp.zeros((3, 3)))) / basis.model.unit_cell_volume
-    return jax_stresses.symmetrize_stresses(basis, (g + g.T) / 2)
-
-
-def _jax_forces(basis, res):
-    """The JAX package's compute_forces, its gradient jitted (the constants
-    its energy turns into numpy evaluated while tracing)."""
-    def energy(pos):
-        with jax.ensure_compile_time_eval():
-            return jax_forces._positions_energy(basis, res.psi, res.occupation, res.rho, pos)
-    return -np.asarray(jax.jit(jax.grad(energy))(jnp.asarray(np.stack(basis.model.positions))))
+    return ref, tb, ts
 
 
 @pytest.fixture(scope="module")
-def jax_derivatives(state):
-    jb, js, _, _ = state
-    F = _jax_forces(jb, js)
-    # compute_forces_cart's conversion
-    Fc = jax_forces.symmetrize_forces(jb, F) @ np.linalg.inv(jb.model.lattice)
-    return dict(forces=F, forces_cart=Fc, stresses=_jax_stresses(jb, js.psi, js.occupation))
+def jax_derivatives(ref):
+    return dict(forces=np.array(ref["forces"]), forces_cart=np.array(ref["forces_cart"]),
+                stresses=np.array(ref["stresses"]))
 
 
 @pytest.fixture(scope="module")
-def jax_ewald_values():
+def jax_ewald_values(ref):
     """The JAX package's Ewald energy and its position and lattice gradients
     for Si2's charges and positions."""
-    q = jnp.array([4.0, 4.0])
-    pos = jnp.asarray(np.stack(POSITIONS))
-    eta = jax_ewald.default_eta(SI_LATTICE)
-    boxes = dict(zip(("Gbox", "Rbox"), jax_ewald.ewald_sum_bounds(SI_LATTICE, pos, eta)))
-    E, (g_L, g_pos) = jax.jit(jax.value_and_grad(
-        lambda L, p: jax_ewald.energy_ewald(L, q, p, eta=eta, **boxes), argnums=(0, 1)))(
-        jnp.asarray(SI_LATTICE), pos)
-    return float(E), np.asarray(g_pos), np.asarray(g_L)
+    e = ref["ewald"]
+    return e["E"], np.array(e["g_pos"]), np.array(e["g_L"])
 
 
 @pytest.mark.parametrize("what", ["energy", "forces", "lattice_gradient",
@@ -174,7 +127,7 @@ def test_ewald_matches(jax_ewald_values, what):
 
 
 def test_forces_match(state, jax_derivatives):
-    _, _, tb, ts = state
+    _, tb, ts = state
     F = dt.compute_forces(ts)
     Fc = dt.compute_forces_cart(ts)
     assert F.dtype == torch.float64 and F.shape == (2, 3)
@@ -186,29 +139,24 @@ def test_forces_match(state, jax_derivatives):
 
 def test_forces_split_matches(state, jax_derivatives):
     """From the port's realified U (rows [x; y]) and occupation [nk, nb]."""
-    jb, js, tb, ts = state
+    ref, tb, ts = state
     U = torch.cat([ts.psi.real, ts.psi.imag], -1)
     F = compute_forces_split(tb, prepare_split_data(tb), U, ts.occupation, ts.rho)
-    F_split = np.asarray(jax_forces_split(
-        jb, jax_prepare_split_data(jb, dtype=jnp.float64), jnp.asarray(U.numpy()),
-        js.occupation, js.rho))
+    F_split = np.array(ref["forces_split"])
     d, ds = _max_diff(F, jax_derivatives["forces"]), _max_diff(F, F_split)
     print(f"split forces vs JAX: complex path {d:.2e}, split path {ds:.2e}")
     assert d < BAR and ds < BAR
 
 
 def test_energy_at_lattice_matches(state):
-    jb, js, tb, ts = state
-    strain = np.eye(3) + 1e-2 * np.array([[1.0, 0.3, -0.2], [0.3, -0.5, 0.1],
-                                          [-0.2, 0.1, 0.7]])
-    energy_ref = _jax_energy_at_lattice(jb, js.psi, js.occupation)
-    for L in (SI_LATTICE, strain @ SI_LATTICE):
+    ref, tb, ts = state
+    for L, E_ref in zip((SI_LATTICE, make.STRAIN @ SI_LATTICE), ref["energy_at_lattice"]):
         E = stresses.energy_at_lattice(tb, ts.psi, ts.occupation, torch.as_tensor(L))
-        assert abs(float(E) - float(energy_ref(jnp.asarray(L)))) < BAR
+        assert abs(float(E) - E_ref) < BAR
 
 
 def test_stresses_match(state, jax_derivatives):
-    _, _, _, ts = state
+    ts = state[2]
     S = dt.compute_stresses_cart(ts)
     d = _max_diff(S, jax_derivatives["stresses"])
     print(f"stresses vs JAX: {d:.2e}")
@@ -219,12 +167,10 @@ def test_stresses_split_matches(state, jax_derivatives):
     """The JAX split path takes its Ewald and PspCorrection part by central
     finite differences: the port is held to it within the difference the
     JAX package shows between its own two paths."""
-    jb, js, tb, ts = state
+    ref, tb, ts = state
     U = torch.cat([ts.psi.real, ts.psi.imag], -1)
     S = compute_stresses_split(tb, prepare_split_data(tb), U, ts.occupation)
-    S_split = np.asarray(jax_stresses_split(
-        jb, jax_prepare_split_data(jb, dtype=jnp.float64), jnp.asarray(U.numpy()),
-        js.occupation))
+    S_split = np.array(ref["stresses_split"])
     d = _max_diff(S, jax_derivatives["stresses"])
     ds = _max_diff(S, S_split)
     d_jax = _max_diff(S_split, jax_derivatives["stresses"])
@@ -316,7 +262,7 @@ def test_unported_raise(state, what, derivative):
     of their energy (tests/test_torch_upf.py holds the NLCC and meta-GGA
     derivatives against the JAX package's); "tau" (item 8b): a tau on an LDA
     result does not enter its derivatives."""
-    jb, js, tb, ts = state
+    ref, tb, ts = state
     basis, res = copy.copy(tb), copy.copy(ts)
     fn = dt.compute_forces_cart if derivative == "forces" else dt.compute_stresses_cart
     if what == "nlcc":
@@ -332,18 +278,15 @@ def test_unported_raise(state, what, derivative):
     else:
         Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
         basis.symmetries = symmetry_operations(SI_LATTICE, [Si, Si], POSITIONS)
-        jbs = copy.copy(jb)
-        jbs.symmetries = [jax_symmetry.SymOp.make(op.W, op.w) for op in basis.symmetries]
         assert len(basis.symmetries) == 4
         if derivative == "forces":
             out = dt.compute_forces_cart(res, basis).numpy()
-            ref = jax_forces.symmetrize_forces(jbs, _jax_forces(jb, js)) \
-                @ np.linalg.inv(jb.model.lattice)
+            want = np.array(ref["symmetrized"]["forces_cart"])
         else:
             out = dt.compute_stresses_cart(res, basis).numpy()
-            ref = _jax_stresses(jbs, js.psi, js.occupation)
-        print(f"symmetrized {derivative} vs JAX: {_max_diff(out, ref):.2e}")
-        assert _max_diff(out, ref) < BAR
+            want = np.array(ref["symmetrized"]["stresses"])
+        print(f"symmetrized {derivative} vs JAX: {_max_diff(out, want):.2e}")
+        assert _max_diff(out, want) < BAR
         return
     with pytest.raises(NotImplementedError, match="item 11"):
         fn(res, basis)

@@ -3,7 +3,9 @@ against the JAX package.
 
 Si2 Gamma at Ecut 6 (tests/testcases.py::make_silicon_model, no symmetry),
 float64, from the same realified orbitals U0 and the JAX package's guess
-density rho0 (the two packages draw different random numbers):
+density rho0, the inputs of tests/data/make_torch_port_scf.py::entry_split,
+whose JAX values tests/data/torch_port_scf.json records (the entry's
+`command` reruns it; the two packages draw different random numbers):
   * the split SCF, CheFSI (degree 8, 2 cycles, filter 'highest'), LOBPCG
     and the Penn-model dielectric mixing: total energy within 1e-9 Ha and
     occupied eigenvalues within 1e-6, the bars of tests/test_engine_split.py::
@@ -12,36 +14,34 @@ density rho0 (the two packages draw different random numbers):
     split adapters (realify, apply_H, density, potential, energies): 1e-12;
   * one chefsi_step from the same X0, H and ub: eigenvalues within 1e-10;
   * refine_split_energy against the JAX package's evaluate_total_energy on
-    the same state: 1e-10 Ha;
+    the same state (the port's CheFSI SCF result, which the entry computes
+    as this file does): 1e-10 Ha;
   * the mixing pieces (Kerker, dielectric, the Anderson step against the
     reference's ring buffer): 1e-12.
 Port-only checks, with the bars of tests/test_engine_split.py:130-210: the
 "mixed" filter (bf16 cycles, exact finish) against "highest" (1e-7 Ha), the
 stall exit in complex64, the warm restart, and the refusals.
 """
+import importlib.util
+import json
+import pathlib
+
 import numpy as np
 import pytest
 import torch
-
-import jax.numpy as jnp
-
-import dftk_tpu as dftk
-from dftk_tpu.ops import engine_split as jes
-from dftk_tpu.ops import hamiltonian as jax_ham
-from dftk_tpu.ops.density import guess_density as jax_guess_density
-from dftk_tpu.ops.eigen.chefsi import chefsi_step as jax_chefsi_step
-from dftk_tpu.scf.energy_eval import evaluate_total_energy as jax_evaluate_total_energy
-from testcases import make_silicon_model, silicon
 
 import dftk_tpu_torch as dt
 from dftk_tpu_torch.kernels import local_apply as la
 from dftk_tpu_torch.ops import engine_split as tes
 from dftk_tpu_torch.ops import hamiltonian as ham_ops
 from dftk_tpu_torch.ops.eigen.chefsi import chefsi_step, estimate_upper_bound
-from dftk_tpu_torch.scf.energy_eval import split_state_to_complex
 
-N_BANDS, N_EXTRA = 4, 4
-CHEFSI = dict(eigensolver="chefsi", chebyshev_degree=8, chefsi_cycles=2)
+DATA = pathlib.Path(__file__).parent / "data"
+_spec = importlib.util.spec_from_file_location("make_scf", DATA / "make_torch_port_scf.py")
+make = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make)
+N_BANDS, N_EXTRA = make.SPLIT_N_BANDS, make.SPLIT_N_EXTRA
+CHEFSI = make.CHEFSI
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,23 +50,19 @@ def _one_torch_thread():
 
 
 def _port_model(**kw):
-    Si = dt.ElementPsp.from_symbol("Si", psp=silicon["psp"])
-    return dt.model_DFT(silicon["lattice"], [Si, Si], silicon["positions"],
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    return dt.model_DFT(make.SI_LATTICE, [Si, Si], make.SI_POSITIONS,
                         functionals=["lda_x", "lda_c_vwn"], symmetries=False, **kw)
 
 
 @pytest.fixture(scope="module")
 def si():
-    jb = dftk.PlaneWaveBasis(make_silicon_model(symmetries=False), Ecut=6.0,
-                             kgrid=(1, 1, 1))
-    tb = dt.PlaneWaveBasis(_port_model(), Ecut=6.0, kgrid=(1, 1, 1), device="cpu")
-    rng = np.random.default_rng(11)
-    shape = (N_BANDS + N_EXTRA, tb.nG_max)
-    X0 = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * tb.mask_np[0]
-    X0 = np.linalg.qr(X0.T)[0].T[None]                 # orthonormal rows
-    U0 = np.concatenate([X0.real, X0.imag], axis=-1)
-    rho0 = np.array(jax_guess_density(jb))
-    return jb, tb, X0, U0, rho0
+    """(the JAX entry, port basis, X0, U0, rho0)."""
+    with open(DATA / "torch_port_scf.json") as f:
+        ref = json.load(f)["split"]
+    tb = make.si2_gamma_basis(dt, device="cpu")
+    X0, U0 = make.split_start(tb.mask_np)
+    return ref, tb, X0, U0, np.array(ref["rho0"])
 
 
 @pytest.fixture(scope="module")
@@ -77,12 +73,6 @@ def port_chefsi_highest(si):
         U0=U0, rho0=rho0, filter_precision="highest", **CHEFSI)
 
 
-def _jax_potential(jb, rho):
-    V, _ = jax_ham.total_potential(jb.terms, jnp.asarray(rho),
-                                   jnp.asarray(jb.G_cube_cart), jb.model.unit_cell_volume)
-    return V
-
-
 def _port_ham(tb, rho):
     V, _, _ = ham_ops.total_potential(tb.terms, torch.as_tensor(rho), tb.model.unit_cell_volume)
     return ham_ops.build_ham(tb.data, tb.terms.data, V, tb.pruned)
@@ -90,17 +80,16 @@ def _port_ham(tb, rho):
 
 @pytest.mark.parametrize("case", ["chefsi", "lobpcg", "auto_eps"])
 def test_split_scf_matches_jax(si, port_chefsi_highest, case):
-    jb, tb, _, U0, rho0 = si
+    ref, tb, _, U0, rho0 = si
     kw = dict(tol=1e-10, maxiter=60, n_bands=N_BANDS, n_extra_bands=N_EXTRA)
     kw.update({"chefsi": dict(filter_precision="highest", **CHEFSI), "lobpcg": {},
                "auto_eps": dict(mixing_eps_r="auto")}[case])
-    res_j = jes.self_consistent_field_split(jb, dtype=jnp.float64, U0=jnp.asarray(U0),
-                                            rho0=jnp.asarray(rho0), **kw)
+    res_j = ref["scf"][case]
     res_t = (port_chefsi_highest if case == "chefsi" else
              dt.self_consistent_field_split(tb, U0=U0, rho0=rho0, **kw))
     assert res_j["converged"] and res_t["converged"]
-    dE = abs(res_t["energies"]["total"] - res_j["energies"]["total"])
-    ev_t, ev_j = res_t["eigenvalues"][:, :N_BANDS], res_j["eigenvalues"][:, :N_BANDS]
+    dE = abs(res_t["energies"]["total"] - res_j["total"])
+    ev_t, ev_j = res_t["eigenvalues"][:, :N_BANDS], np.array(res_j["eigenvalues"])[:, :N_BANDS]
     dev = np.max(np.abs(ev_t - ev_j))
     print(f"split SCF {case}: |dE| = {dE:.1e} Ha, max |d eig| = {dev:.1e}, "
           f"iterations {res_t['n_iter']} (port) / {res_j['n_iter']} (JAX)")
@@ -110,19 +99,16 @@ def test_split_scf_matches_jax(si, port_chefsi_highest, case):
 
 
 def test_compact_filter_matches_jax(si):
-    jb, tb, X0, U0, rho0 = si
-    volume = jb.model.unit_cell_volume
-    sd = jes.prepare_split_data(jb, dtype=jnp.float64)
-    enter_j, leave_j, apply_j = jes.compact_filter_ops(
-        jes.make_split_ham(sd, _jax_potential(jb, rho0)), volume, precision="highest")
-    ref = np.asarray(leave_j(apply_j(enter_j(jnp.asarray(U0)))))
+    ref, tb, X0, U0, rho0 = si
+    volume = tb.model.unit_cell_volume
+    want = np.array(ref["compact_filter"])
     enter, leave, apply_c = tes.compact_filter_ops(_port_ham(tb, rho0), volume,
                                                    precision="highest")
     out = leave(apply_c(enter(torch.as_tensor(X0))))
     out = torch.cat([out.real, out.imag], dim=-1).numpy()
-    err = np.max(np.abs(out - ref))
-    print(f"compact filter apply: max abs err {err:.1e}, max|ref| {np.max(np.abs(ref)):.1e}")
-    assert err < 1e-12 * max(1.0, np.max(np.abs(ref)))
+    err = np.max(np.abs(out - want))
+    print(f"compact filter apply: max abs err {err:.1e}, max|ref| {np.max(np.abs(want)):.1e}")
+    assert err < 1e-12 * max(1.0, np.max(np.abs(want)))
     # the placement does not depend on V: one built at another potential
     placement = tes.place_compact(_port_ham(tb, 2 * rho0), ("highest",))
     _, _, apply_p = tes.compact_filter_ops(_port_ham(tb, rho0), volume,
@@ -132,29 +118,27 @@ def test_compact_filter_matches_jax(si):
 
 
 def test_chefsi_step_matches_jax(si):
-    jb, tb, X0, _, rho0 = si
-    ham_j = jax_ham.build_ham(jb.data, jb.terms.data, _jax_potential(jb, rho0))
+    ref, tb, X0, _, rho0 = si
     ham_t = _port_ham(tb, rho0)
     apply_t = lambda p: ham_ops.apply_H(ham_t, p)
     ub = round(estimate_upper_bound(apply_t, torch.as_tensor(X0), tb.data.mask), 3)
+    assert ub == ref["chefsi_step"]["ub"]       # the JAX step ran at this bound
     kw = dict(degree=8, ub=ub, n_conv=N_BANDS, cycles=2)
-    res_j = jax_chefsi_step(lambda p: jax_ham.apply_H(ham_j, p, jb.fft_size,
-                                                      jb.model.unit_cell_volume),
-                            jnp.asarray(X0), jb.data.mask, **kw)
     res_t = chefsi_step(apply_t, torch.as_tensor(X0), tb.data.mask, **kw)
     assert res_t.upper_bound == ub
-    err = np.max(np.abs(res_t.eigenvalues.numpy() - np.asarray(res_j.eigenvalues)))
+    err = np.max(np.abs(res_t.eigenvalues.numpy() - np.array(ref["chefsi_step"]["eigenvalues"])))
     print(f"chefsi_step: max |d eig| {err:.1e}")
     assert err < 1e-10
 
 
 def test_refine_matches_jax_evaluate_total_energy(si, port_chefsi_highest):
-    jb, tb, _, _, _ = si
+    ref, tb, _, _, _ = si
     res = port_chefsi_highest
     E_t = dt.refine_split_energy(tb, res)
-    psi, occ = split_state_to_complex(tb, res["U"], res["occupation"])
-    E_j = jax_evaluate_total_energy(jb, jnp.asarray(psi.numpy()), jnp.asarray(occ.numpy()))
+    E_j = ref["refine"]["energies"]
     assert set(E_t) == set(E_j)
+    # the JAX package evaluated the port's result, which this run reproduces
+    assert abs(res["energies"]["total"] - ref["refine"]["port_total"]) < 1e-12
     print(f"refine: |dE| vs JAX {abs(E_t['total'] - E_j['total']):.1e} Ha")
     assert abs(E_t["total"] - E_j["total"]) < 1e-10
     assert abs(E_t["total"] - res["energies"]["total"]) < 1e-9
@@ -163,67 +147,57 @@ def test_refine_matches_jax_evaluate_total_energy(si, port_chefsi_highest):
 @pytest.mark.parametrize("what", ["realify", "apply_H", "density", "potential",
                                   "psi_energies"])
 def test_split_adapters_match_jax(si, what):
-    jb, tb, X0, U0, rho0 = si
-    volume = jb.model.unit_cell_volume
-    sd_j, sd_t = jes.prepare_split_data(jb, dtype=jnp.float64), tes.prepare_split_data(tb)
+    ref, tb, X0, U0, rho0 = si
+    volume = tb.model.unit_cell_volume
+    sd_t = tes.prepare_split_data(tb)
     occ = np.tile([2.0] * N_BANDS + [0.0] * N_EXTRA, (1, 1))
     U = torch.as_tensor(U0)
+    want = ref["adapters"][what]
     if what == "realify":
         out = tes.realify_orbitals(torch.as_tensor(X0)).numpy()
-        ref = np.asarray(jes.realify_orbitals(jnp.asarray(X0)))
     elif what == "apply_H":
         V_t, _, _ = ham_ops.total_potential(tb.terms, torch.as_tensor(rho0), volume)
         out = tes.apply_H_split(tes.make_split_ham(sd_t, V_t), U, tb.fft_size, volume,
                                 band_chunk=3).numpy()
-        ref = np.asarray(jes.apply_H_split(jes.make_split_ham(sd_j, _jax_potential(jb, rho0)),
-                                           jnp.asarray(U0), jb.fft_size, volume))
     elif what == "density":
         out = tes.compute_density_split(sd_t, U, torch.as_tensor(occ), tb.fft_size, volume,
                                         1, band_chunk=3).numpy()
-        ref = np.asarray(jes.compute_density_split(sd_j, jnp.asarray(U0), jnp.asarray(occ),
-                                                   jb.fft_size, volume, 1))
     elif what == "potential":
         out = tes.total_potential_split(tb.terms, sd_t, torch.as_tensor(rho0), volume)[0].numpy()
-        ref = np.asarray(jes.total_potential_split(jb.terms, sd_j, jnp.asarray(rho0),
-                                                   volume)[0])
     else:
         E_t = tes.psi_energies_split(sd_t, U, torch.as_tensor(occ))
-        E_j = jes.psi_energies_split(sd_j, jnp.asarray(U0), jnp.asarray(occ))
-        assert set(E_t) == set(E_j)
+        assert set(E_t) == set(want)
         out = np.array([float(E_t[k]) for k in sorted(E_t)])
-        ref = np.array([float(E_j[k]) for k in sorted(E_j)])
-    assert out.shape == ref.shape
-    assert np.max(np.abs(out - ref)) < 1e-12 * max(1.0, np.max(np.abs(ref)))
+        want = [want[k] for k in sorted(want)]
+    ref_arr = np.array(want)
+    assert out.shape == ref_arr.shape
+    assert np.max(np.abs(out - ref_arr)) < 1e-12 * max(1.0, np.max(np.abs(ref_arr)))
 
 
 @pytest.mark.parametrize("what", ["kerker", "dielectric", "anderson"])
 def test_mixing_matches_jax(si, what):
-    jb, tb, _, _, rho0 = si
+    ref, tb, _, _, rho0 = si
     rng = np.random.default_rng(5)
     Gsq = tb.terms.data.Gsq_cart
-    Gsq_j = jnp.asarray(Gsq.numpy())
     if what == "kerker":
         dF = rng.normal(size=rho0.shape)
         out = tes.kerker_mix_split(torch.as_tensor(dF), Gsq).numpy()
-        ref = np.asarray(jes.kerker_mix_split(jnp.asarray(dF), Gsq_j))
+        want = np.array(ref["mixing"]["kerker"])
     elif what == "dielectric":
         dF = rng.normal(size=rho0.shape)
         out = tes.dielectric_mix(torch.as_tensor(dF), 12.0, Gsq).numpy()
         factor = (0.64 + Gsq.numpy()) / (12.0 * 0.64 + Gsq.numpy())
-        ref = np.fft.ifftn(factor * np.fft.fftn(dF[0])).real[None]
+        want = np.fft.ifftn(factor * np.fft.fftn(dF[0])).real[None]
     else:
         m = 3
-        step_t, step_j = tes.make_mix_step(None, m), jes.make_mix_step(None, m)
-        st_j = (jnp.zeros((m,) + rho0.shape),) * 2 + (jnp.asarray(0),)
-        rho_t, rho_j = torch.as_tensor(rho0), jnp.asarray(rho0)
-        for _ in range(5):      # fills the history window and slides it
+        step_t = tes.make_mix_step(None, m)
+        rho_t = torch.as_tensor(rho0)
+        for drho_j in ref["mixing"]["anderson_drho"]:  # fills the window and slides it
             noise = 0.01 * rng.normal(size=rho0.shape)
             rho_t, drho_t = step_t(rho_t, rho_t + torch.as_tensor(noise), 0.8, 0.0)
-            rho_j, *st_j, drho_j = step_j(rho_j, rho_j + noise, *st_j,
-                                          jnp.asarray(0.8), jnp.asarray(0.0))
-            assert abs(float(drho_t) - float(drho_j)) < 1e-12
-        out, ref = rho_t.numpy(), np.asarray(rho_j)
-    assert np.max(np.abs(out - ref)) < 1e-12
+            assert abs(float(drho_t) - drho_j) < 1e-12
+        out, want = rho_t.numpy(), np.array(ref["mixing"]["anderson_rho"])
+    assert np.max(np.abs(out - want)) < 1e-12
 
 
 def test_mixed_filter_matches_highest(si, port_chefsi_highest):
@@ -282,10 +256,10 @@ def test_split_scf_refusals(si, what):
         assert la.counts.plain["local_plane[bf16]"] > 0
         return
     if what in ("temperature", "symmetric"):
-        Si = dt.ElementPsp.from_symbol("Si", psp=silicon["psp"])
+        Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
         kw = (dict(symmetries=False, temperature=0.01) if what == "temperature"
               else dict(symmetries=True, magnetic_moments=[1.0, 1.0]))
-        model = dt.model_DFT(silicon["lattice"], [Si, Si], silicon["positions"],
+        model = dt.model_DFT(make.SI_LATTICE, [Si, Si], make.SI_POSITIONS,
                              functionals=["lda_x"], **kw)
         res = dt.self_consistent_field_split(
             dt.PlaneWaveBasis(model, Ecut=6.0, device="cpu"), maxiter=1)
@@ -307,13 +281,12 @@ def test_basis_defaults_to_the_card():
         dt.PlaneWaveBasis(_port_model(), Ecut=6.0)
 
 
-def test_create_supercell_matches_jax():
-    from dftk_tpu.supercell import create_supercell as jax_create_supercell
-    args = (silicon["lattice"], ["a", "b"], silicon["positions"], (2, 1, 3))
-    sc_t, sc_j = dt.create_supercell(*args), jax_create_supercell(*args)
+def test_create_supercell_matches_jax(si):
+    sc_j = si[0]["supercell"]
+    sc_t = dt.create_supercell(make.SI_LATTICE, ["a", "b"], make.SI_POSITIONS, (2, 1, 3))
     np.testing.assert_array_equal(sc_t["lattice"], sc_j["lattice"])
     np.testing.assert_array_equal(sc_t["positions"], sc_j["positions"])
-    assert sc_t["atoms"] == sc_j["atoms"] and sc_t["size"] == sc_j["size"]
+    assert sc_t["atoms"] == sc_j["atoms"] and tuple(sc_t["size"]) == tuple(sc_j["size"])
 
 
 def test_run_si_big_options_and_basis():
