@@ -284,12 +284,38 @@ Phases (any failure raises and exits non-zero):
      before each run kernels A and B against their plain versions at its
      band block; every run with the kernels launched and no plain call,
      its wall, peak device memory, iterations and ACE builds
+  q. the model Hamiltonians' terms in float64, on 3D, 2D (n3 = 1) and 1D
+     (n2 = n3 = 1) grids, against tests/data/torch_port_terms.json (the JAX
+     package's CPU float64 values): q1 bench.py's Si54 with BlowupCHV, the
+     external potential 0.05 sum_a cos(2 pi x_a) and Lennard-Jones between
+     the Si atoms: its explicit kinetic, pairwise energy and forces and one
+     apply of H to 8 seeded orbitals against JAX (1e-10 relative), the
+     LOBPCG and the split SCF ("mixed": under the blow-up its CheFSI takes
+     LOBPCG steps, bf16 then exact) to 1e-8 within 1e-7 Ha of each other,
+     and the force on atom 0 against a central difference of two SCF
+     energies (+-1e-3 bohr, bar 1e-5 Ha/bohr); q2 Fock-Darwin at Ecut 24
+     against its exact spectrum (2e-4), total (5e-4), energy bookkeeping
+     (1e-10) and L_z = -1 from compute_current (1e-3), and the rotating 2D
+     GP by 600 iterations of direct minimization from seeded orbitals
+     against JAX (1e-7 Ha; neither run converges in 600), with its Magnetic
+     energy below -1e-3 and an in-plane current above 1e-4; q3 anyons at
+     Ecut 20 from the winding start within 5e-3 of 4.64955 with
+     e(1,1)/(2 pi) in [1.1, 1.3], and the hand operator against
+     torch.autograd (1e-12 of max); q4 the 1D GP of
+     examples/custom_potential.py (Ecut 500) with its forces and the 3D GP
+     by direct minimization against JAX (1e-7 Ha; forces 1e-7 Ha/bohr,
+     |F0 + F1| < 1e-5); before each run kernels A and B against their
+     plain versions at its band block (bf16 too where the run launches it
+     or on the unit-axis grids), and the unit-axis launches timed with
+     their bounds; every run with the kernels launched (bf16 too in the
+     split run) and no plain call, its wall, iterations and peak device
+     memory
   5. print the kernels' JSON line (launches from phases c, e, f, g, h, j,
-     k, l, m, n, o and p, times from phases 3, a, e, f, g and h, bounds
+     k, l, m, n, o, p and q, times from phases 3, a, e, f, g and h, bounds
      from the shapes; the main path's kernels also with their device time
      and their max_abs_err at each phase-j, phase-k, phase-l and
-     (complex128) phase-m, phase-n, phase-o and phase-p run's shapes), then
-     the result line.
+     (complex128) phase-m, phase-n, phase-o, phase-p and phase-q run's
+     shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -3395,6 +3421,323 @@ def exx_phase(dt, la, device, smi):
           flush=True)
     return run["launches"], run["errs"]
 
+# ---------------------------------------------------------------------------
+# q. the model Hamiltonians' terms: the cells of
+#    tests/data/make_torch_port_terms.py (loaded, with the port as their
+#    package), whose JAX values phase q reads
+# ---------------------------------------------------------------------------
+
+Q_LOOPS_BAR = 1e-7            # q1: the LOBPCG against the split SCF (Ha)
+Q_FD_STEP = 1e-3              # q1: the central difference's step (bohr)
+Q_FD_BAR = 1e-5               # q1: forces against the central difference (Ha/bohr)
+Q_JAX_REL_BAR = 1e-10         # q1: the apply and the pairwise term against JAX (relative)
+Q_JAX_E_BAR = 1e-7            # q2-q4: energies against the JAX package's (Ha)
+FD_BARS = dict(spectrum=2e-4, total=5e-4, parts=1e-10, lz=1e-3)   # tests/test_magnetic.py
+ANYON_E, ANYON_E_BAR = 4.64955, 5e-3             # tests/test_anyonic.py:189
+GP2D_MAXITER = 600
+
+
+def load_terms_cells():
+    """tests/data/make_torch_port_terms.py as a module: its constructors take
+    the package as an argument, and loading it imports nothing of JAX
+    (checked here)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_port_terms", os.path.join(HERE, "tests", "data", "make_torch_port_terms.py"))
+    make = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make)
+    check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dftk_tpu")],
+          "phase q: loading the cells imported no JAX")
+    return make
+
+
+def summary_against(smi, label, make, table, want, bar):
+    """A table's fingerprint (make_torch_port_exx.py::table_summary) against
+    the JAX one's: each part within bar of the largest of its own size and
+    the table's scale (the largest magnitude of the sampled values)."""
+    got = make.table_summary(table)
+    check(got["size"] == want["size"], f"{label}: size")
+    scale = max(np.abs(want["sample"]).max(), abs(want["first"]))
+    for key in ("first", "sum", "wsum", "sample"):
+        held_against(smi, "q", f"{label} {key}", got[key], want[key],
+                     bar * max(scale, float(np.abs(want[key]).max())))
+
+
+def time_unit_axes(la, basis, label, n_bands, smi):
+    """ms per launch (CUDA events, median of 10) of kernels A (forward and
+    backward) and B, complex128 and bf16, and of their plain versions, on a
+    band block of a 2D or 1D basis (compact axes of 8 over grid axes of
+    1), with their bounds.  Not counted: called outside the runs."""
+    import torch
+    pf, n = basis.pruned, basis.fft_size
+    rng = np.random.default_rng(7)
+    shape = (basis.n_kpoints, n_bands) + pf.m_shape
+    xc_np = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    V_np = rng.normal(size=(basis.n_kpoints, n[2], n[0], n[1]))
+    for dtype, prec, esize in ((torch.complex128, "highest", 16), (torch.complex64, "default", 8)):
+        fac = la.LocalFactors(fwd=tuple(f.to(dtype) for f in pf.factors.fwd),
+                              bwd=tuple(f.to(dtype) for f in pf.factors.bwd))
+        xc = torch.as_tensor(xc_np, device=basis.device).to(dtype)
+        V = torch.as_tensor(V_np, device=basis.device).to(
+            torch.float64 if prec == "highest" else torch.float32)
+        t = la.pruned_axis_dft_plain(xc, fac.fwd[2], True, prec).contiguous()
+        kind = "complex128" if prec == "highest" else "bf16"
+        work = {"A forward": axis_dft_work(tuple(xc.shape), pf.m_shape[2], n[2], esize),
+                "A backward": axis_dft_work(tuple(t.shape), n[2], pf.m_shape[2], esize),
+                "B": local_plane_work(tuple(t.shape), n[0], n[1], esize)}
+        for name, kern, plain in (
+                ("A forward", lambda: la.pruned_axis_dft(xc, fac.fwd[2], True, prec),
+                 lambda: la.pruned_axis_dft_plain(xc, fac.fwd[2], True, prec)),
+                ("A backward", lambda: la.pruned_axis_dft(t, fac.bwd[2], False, prec),
+                 lambda: la.pruned_axis_dft_plain(t, fac.bwd[2], False, prec)),
+                ("B", lambda: la.local_plane(t, V, fac, precision=prec),
+                 lambda: la.local_plane_plain(t, V, fac, prec))):
+            bound_ms, by = bound(*(work[name], kind))
+            print(f"[q] {label} {name} {kind} at x {tuple(xc.shape)}, grid {n}: "
+                  f"{cuda_ms(kern):.4f} ms, plain {cuda_ms(plain):.4f} ms, bound "
+                  f"{bound_ms:.5f} ms ({by}) ({smi})", flush=True)
+
+
+def q_run(la, smi, run, label, fn, n_iter_of, bf16=False):
+    """One run of phase q under run_on_card: its launches added to
+    run["launches"], its iterations printed; bf16: the bf16 kernels must
+    have launched too."""
+    out, launches = run_on_card(la, label, smi, fn, tag="q")
+    for k, v in launches.items():
+        run["launches"][k] = run["launches"].get(k, 0) + v
+    if bf16:
+        check(launches["pruned_axis_dft[bf16]"] > 0 and launches["local_plane[bf16]"] > 0,
+              f"{label}: every bf16 kernel launched")
+    print(f"[q] {label}: {n_iter_of(out)} iterations", flush=True)
+    return out
+
+
+def terms_q1(dt, la, device, smi, run, ref, make):
+    """q1: Si54 at full width with the kinetic blow-up, the external
+    potential and the pairwise term."""
+    import torch
+    from dftk_tpu_torch.ops import hamiltonian as hamops
+    t0 = time.time()
+    basis = make.si54_q1_basis(dt, device=device)
+    print(f"[q] q1 {basis} set up in {time.time() - t0:.1f} s; explicit kinetic up to "
+          f"{float(basis.terms.data.kin.max()):.6e} Ha", flush=True)
+    check(list(basis.fft_size) == ref["fft_size"] and basis.nG_max == ref["nG"],
+          "q1: the JAX package's basis")
+    summary_against(smi, "q1 explicit kinetic", make, basis.terms.kin_np, ref["kin"], Q_JAX_REL_BAR)
+    held_against(smi, "q", "q1 pairwise E against JAX", basis.terms.E_pairwise,
+                 ref["E_pairwise"], Q_JAX_REL_BAR, scale=True)
+    # the perfect crystal's pairwise forces vanish: held in units of its energy
+    held_against(smi, "q", "q1 pairwise F against JAX", basis.terms.pairwise_forces,
+                 np.array(ref["F_pairwise"]), Q_JAX_REL_BAR * abs(ref["E_pairwise"]))
+    vol = basis.model.unit_cell_volume
+    V, _, _ = hamops.total_potential(basis.terms, dt.guess_density(basis), vol)
+    ham = hamops.build_ham(basis.data, basis.terms.data, V, basis.pruned)
+    psi = torch.as_tensor(make.seeded_orbitals(basis.mask_np, 8, 54), device=device)
+    hold_kernels_at(la, basis, "q1 apply", 8, run["errs"], tag="q", block=8)
+    Hpsi = run_on_card(la, "q1 one apply of H to 8 bands", smi,
+                       lambda: hamops.apply_H(ham, psi), tag="q")[0]
+    diag = torch.sum(psi.conj() * Hpsi, -1).real[0].cpu().numpy()
+    held_against(smi, "q", "q1 apply: band diagonal against JAX", diag, np.array(ref["diag"]),
+                 Q_JAX_REL_BAR, scale=True)
+    summary_against(smi, "q1 apply: Re H psi", make, Hpsi.real.cpu().numpy(), ref["Hpsi_re"],
+                    Q_JAX_REL_BAR)
+    summary_against(smi, "q1 apply: Im H psi", make, Hpsi.imag.cpu().numpy(), ref["Hpsi_im"],
+                    Q_JAX_REL_BAR)
+    del ham, psi, Hpsi
+
+    def show(info):
+        print(f"[q] q1 it={info['n_iter']:3d} E={info['E']:.12f} drho={info['drho']:.3e}",
+              flush=True)
+
+    n_bands = basis.model.default_n_bands()
+    hold_kernels_at(la, basis, "q1 Si54 blow-up", n_bands, run["errs"], bf16=True, tag="q")
+    res = q_run(la, smi, run, "q1 Si54 blow-up LOBPCG",
+                lambda: dt.self_consistent_field(basis, tol=1e-8, is_converged="density",
+                                                 callback=show), lambda r: r.n_iter)
+    check(res.converged, "q1 LOBPCG converged")
+    split = q_run(la, smi, run, "q1 Si54 blow-up split (mixed)",
+                  lambda: dt.self_consistent_field_split(
+                      basis, tol=1e-8, is_converged="density", eigensolver="chefsi",
+                      diagtol_min=1e-10, callback=show), lambda r: r["n_iter"], bf16=True)
+    check(split["converged"], "q1 split converged")
+    # the same loop without its bf16 LOBPCG cycles (exact LOBPCG on every
+    # step): the walls of the two say what the bf16 cycles buy
+    exact = q_run(la, smi, run, "q1 Si54 blow-up split (highest)",
+                  lambda: dt.self_consistent_field_split(
+                      basis, tol=1e-8, is_converged="density", eigensolver="chefsi",
+                      filter_precision="highest", diagtol_min=1e-10, callback=show),
+                  lambda r: r["n_iter"])
+    check(exact["converged"], "q1 split (highest) converged")
+    E = {"lobpcg": res.energies, "split": split["energies"], "split_highest": exact["energies"]}
+    print(f"[q] q1 energies {E}", flush=True)
+    for name in ("split", "split_highest"):
+        held_against(smi, "q", f"q1 {name} against LOBPCG", E[name]["total"],
+                     E["lobpcg"]["total"], Q_LOOPS_BAR)
+    check(E["lobpcg"]["PairwisePotential"] == basis.terms.E_pairwise
+          and E["split"]["PairwisePotential"] == basis.terms.E_pairwise,
+          "q1: both loops carry the pairwise energy")
+    t0 = time.time()
+    F = dt.compute_forces_cart(res).cpu().numpy()
+    print(f"[q] q1 forces in {time.time() - t0:.2f} s: F[0] = {F[0]}, sum {F.sum(0)}",
+          flush=True)
+    Es = []
+    for sign in (1, -1):
+        b = make.si54_q1_basis(dt, shift=sign * Q_FD_STEP, device=device)
+        r = q_run(la, smi, run, f"q1 Si54 atom 0 moved by {sign * Q_FD_STEP:+.0e} bohr",
+                  lambda: dt.self_consistent_field(b, tol=1e-10, is_converged="density",
+                                                   psi=res.psi, rho=res.rho),
+                  lambda r: r.n_iter)
+        check(r.converged, "q1 displaced SCF converged")
+        Es.append(r.total_energy)
+        del b, r
+    F_fd = -(Es[0] - Es[1]) / (2 * Q_FD_STEP)
+    held_against(smi, "q", "q1 force on atom 0 along x against the central difference",
+                 F[0, 0], F_fd, Q_FD_BAR)
+    return E["lobpcg"]["total"]
+
+
+def terms_q2(dt, la, device, smi, run, ref, make):
+    """q2: Fock-Darwin at Ecut 24 against its exact spectrum, and the
+    rotating 2D GP by direct minimization."""
+    import torch
+    from dftk_tpu_torch.postprocess.current import compute_current
+    b = make.fock_darwin_basis(dt, device=device)
+    hold_kernels_at(la, b, "q2 Fock-Darwin", 6, run["errs"], bf16=True, tag="q")
+    time_unit_axes(la, b, "q2 Fock-Darwin (n3 = 1)", 9, smi)
+    res = q_run(la, smi, run, "q2 Fock-Darwin LOBPCG",
+                lambda: dt.self_consistent_field(b, tol=1e-10, n_bands=6, maxiter=30),
+                lambda r: r.n_iter)
+    B = make.FD_B
+    Om = np.sqrt(make.FD_W0 ** 2 + B ** 2 / 4)
+    exact = np.sort([Om, 2 * Om - B / 2, 2 * Om + B / 2, 3 * Om - B, 3 * Om, 3 * Om + B])
+    held_against(smi, "q", "q2 Fock-Darwin spectrum against exact",
+                 np.sort(res.eigenvalues[0, :6]), exact, FD_BARS["spectrum"])
+    held_against(smi, "q", "q2 Fock-Darwin total against exact", res.total_energy,
+                 3 * Om - B / 2, FD_BARS["total"])
+    E = res.energies
+    held_against(smi, "q", "q2 Fock-Darwin bookkeeping", E["Kinetic"] + E["AtomicLocal"]
+                 + E["Magnetic"], res.total_energy, FD_BARS["parts"])
+    Lz = make.lz(b, compute_current(res).cpu().numpy())
+    held_against(smi, "q", "q2 Fock-Darwin L_z from compute_current", Lz, -1.0, FD_BARS["lz"])
+
+    b = make.gp2d_basis(dt, device=device)
+    want = ref["gp_direct"]["gp2d"]
+    check(list(b.fft_size) == want["fft_size"], "q2 GP2D: the JAX package's grid")
+    hold_kernels_at(la, b, "q2 rotating GP2D", 1, run["errs"], tag="q", block=1)
+    psi0 = torch.as_tensor(make.seeded_orbitals(b.mask_np, 1, 1), device=device)
+    d = q_run(la, smi, run, "q2 rotating GP2D direct minimization",
+              lambda: dt.direct_minimization(b, tol=1e-6, maxiter=GP2D_MAXITER, psi=psi0),
+              lambda r: r.n_iter)
+    J = compute_current(d).cpu().numpy()
+    j_norm = float(np.abs(J[0]).max() + np.abs(J[1]).max())
+    print(f"[q] q2 GP2D: converged={d.converged} energies {d.energies}, in-plane current "
+          f"{j_norm:.4f}", flush=True)
+    check(d.converged == want["converged"], "q2 GP2D: converged as the JAX run")
+    check(d.energies["Magnetic"] < -1e-3 and j_norm > 1e-4,
+          "q2 GP2D: rotation lowers E and carries a current")
+    held_against(smi, "q", "q2 GP2D against JAX", d.total_energy, want["energies"]["total"],
+                 Q_JAX_E_BAR)
+
+
+def terms_q3(dt, la, device, smi, run, make):
+    """q3: anyons at Ecut 20 from the winding start, and the hand operator
+    against torch.autograd at that size."""
+    import torch
+    from dftk_tpu_torch.ops.anyonic import anyonic_energy, apply_anyonic
+    from dftk_tpu_torch.ops.density import compute_density
+    b = make.anyon_basis(dt, Ecut=20.0, device=device)
+    hold_kernels_at(la, b, "q3 anyons", 1, run["errs"], tag="q", block=1)
+    psi0 = torch.as_tensor(make.winding_start(b), device=device)
+    res = q_run(la, smi, run, "q3 anyons direct minimization",
+                lambda: dt.direct_minimization(b, tol=1e-9, maxiter=4000, psi=psi0),
+                lambda r: r.n_iter)
+    E = res.total_energy
+    s = 2
+    e11 = (math.pi / 2 * (2 * (s + 1) / s) ** ((s + 2) / s) * (s / (s + 2)) ** (2 * (s + 1) / s)
+           * E ** ((s + 2) / s) / make.ANYON_BETA) / (2 * math.pi)
+    print(f"[q] q3 anyons: converged={res.converged} energies {res.energies}, "
+          f"e(1,1)/(2 pi) = {e11:.4f}", flush=True)
+    check(res.converged, "q3 anyons converged")
+    held_against(smi, "q", "q3 anyons against tests/test_anyonic.py's energy", E, ANYON_E,
+                 ANYON_E_BAR)
+    check(1.1 <= e11 <= 1.3, "q3 e(1,1)/(2 pi) in the reference test's window")
+    hbar, beta, rho_ref, Aref = b.terms.anyonic
+    occ = torch.ones((1, 1), dtype=torch.float64, device=device)
+    vol = b.model.unit_cell_volume
+
+    def args(p, rho):
+        return (occ, torch.sum(rho, dim=0), b.tensor(rho_ref), b.tensor(Aref),
+                b.terms.data.G_cart, hbar, beta, b.fft_size, vol)
+
+    psi = res.psi
+    with torch.enable_grad():
+        x = psi.clone().requires_grad_(True)
+        r = compute_density(b.data, x, occ, b.fft_size, vol, 1)
+        (g,) = torch.autograd.grad(anyonic_energy(b.data, x, *args(x, r)), x)
+    rho = compute_density(b.data, psi, occ, b.fft_size, vol, 1)
+    hand = 2 * apply_anyonic(b.data, psi, *args(psi, rho))
+    held_against(smi, "q", "q3 hand operator against torch.autograd", hand.cpu().numpy(),
+                 g.cpu().numpy(), 1e-12, scale=True)
+
+
+def terms_q4(dt, la, device, smi, run, ref, make):
+    """q4: the 1D GP with its forces, and the 3D GP by direct minimization,
+    against the JAX package's energies from the same starts."""
+    import torch
+    b = make.gp1d_basis(dt, device=device)
+    want = ref["gp1d"]
+    check(list(b.fft_size) == want["fft_size"], "q4 GP1D: the JAX package's grid")
+    hold_kernels_at(la, b, "q4 GP1D", 1, run["errs"], bf16=True, tag="q", block=4)
+    time_unit_axes(la, b, "q4 GP1D (n2 = n3 = 1)", 4, smi)
+    psi0 = torch.as_tensor(make.seeded_orbitals(b.mask_np, 4, 26), device=device)
+    rho0 = torch.zeros((1,) + b.fft_size, dtype=torch.float64, device=device)
+    res = q_run(la, smi, run, "q4 GP1D LOBPCG",
+                lambda: dt.self_consistent_field(b, tol=1e-10, maxiter=60, psi=psi0, rho=rho0),
+                lambda r: r.n_iter)
+    check(res.converged, "q4 GP1D converged")
+    held_against(smi, "q", "q4 GP1D against JAX", res.total_energy, want["energies"]["total"],
+                 Q_JAX_E_BAR)
+    F = dt.compute_forces(res).cpu().numpy()
+    held_against(smi, "q", "q4 GP1D forces against JAX", F, np.array(want["forces"]), 1e-7)
+    check(abs(F[0, 0] + F[1, 0]) < 1e-5, "q4 GP1D: |F0 + F1| < 1e-5")
+
+    b = make.gp3d_basis(dt, device=device)
+    want = ref["gp_direct"]["gp3d"]
+    check(list(b.fft_size) == want["fft_size"], "q4 GP3D: the JAX package's grid")
+    hold_kernels_at(la, b, "q4 GP3D", 1, run["errs"], tag="q", block=1)
+    psi0 = torch.as_tensor(make.seeded_orbitals(b.mask_np, 1, 2), device=device)
+    d = q_run(la, smi, run, "q4 GP3D direct minimization",
+              lambda: dt.direct_minimization(b, tol=1e-9, maxiter=300, psi=psi0),
+              lambda r: r.n_iter)
+    check(d.converged, "q4 GP3D converged")
+    held_against(smi, "q", "q4 GP3D against JAX", d.total_energy, want["energies"]["total"],
+                 Q_JAX_E_BAR)
+
+
+def terms_phase(dt, la, device, smi):
+    """Phase q: the model Hamiltonians' terms on the card (the kinetic
+    blow-up, External*, LocalNonlinearity, Magnetic with the current,
+    Anyonic, PairwisePotential), on 3D, 2D (n3 = 1) and 1D (n2 = n3 = 1)
+    grids.  Kernels A and B are held against their plain versions at each
+    run's band block before it.  Returns the kernel launches of its runs
+    and each kernel's max_abs_err at each run's shapes."""
+    with open(os.path.join(HERE, "tests", "data", "torch_port_terms.json")) as f:
+        ref = json.load(f)
+    make = load_terms_cells()
+    run = dict(launches={}, errs={})
+    t0 = time.time()
+    for name, fn in (("q1", lambda: terms_q1(dt, la, device, smi, run, ref["si54_q1"], make)),
+                     ("q2", lambda: terms_q2(dt, la, device, smi, run, ref, make)),
+                     ("q3", lambda: terms_q3(dt, la, device, smi, run, make)),
+                     ("q4", lambda: terms_q4(dt, la, device, smi, run, ref, make))):
+        t1 = time.time()
+        fn()
+        print(f"[q] {name}: {time.time() - t1:.1f} s ({smi})", flush=True)
+    print(f"[q] phase q: {time.time() - t0:.1f} s; launches {run['launches']} ({smi})",
+          flush=True)
+    return run["launches"], run["errs"]
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -3535,6 +3878,12 @@ def main():
     exx_launches, exx_errs = exx_phase(dt, la, device, smi)
     for name, count in exx_launches.items():
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # ---- q. the model Hamiltonians' terms -------------------------------------------
+    terms_launches, terms_errs = terms_phase(dt, la, device, smi)
+    for name, count in terms_launches.items():
+        launches[name] += count
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -3562,7 +3911,9 @@ def main():
                             **({"max_abs_err_phase_o": q_errs[name]}
                                if name in q_errs else {}),
                             **({"max_abs_err_phase_p": exx_errs[name]}
-                               if name in exx_errs else {})))
+                               if name in exx_errs else {}),
+                            **({"max_abs_err_phase_q": terms_errs[name]}
+                               if name in terms_errs else {})))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

@@ -17,6 +17,15 @@ local-potential part of H psi runs through hand-written CUDA kernels on a
 CUDA device (`kernels/local_apply.py`).  The JAX package `dftk_tpu` is the
 reference this port is held against; this package never imports it or jax.
 
+The model Hamiltonians beyond Kohn-Sham DFT run too: the energy-cutoff
+blow-ups of the kinetic term (`BlowupCHV`, `BlowupAbinit`;
+`model_DFT(..., kinetic_blowup=...)`), user external potentials
+(`ExternalFromReal`, `ExternalFromFourier`, `ExternalFromValues`), a local
+nonlinearity (`LocalNonlinearity`: Gross-Pitaevskii), a vector potential
+(`Magnetic`, with `compute_current`), classical pairwise potentials
+(`PairwisePotential`, with `ops.pairwise.lennard_jones`) and average-field
+anyons (`Anyonic`, by `direct_minimization`), on 1D, 2D and 3D cells.
+
 Crystal symmetry is on by default (`symmetries=True`): IBZ k-points and
 symmetrized densities, forces and stresses.  Hybrid functionals (`PBE0`,
 `HSE06`, `model_HF`) add exact exchange (`ExactExchange`, with the Coulomb
@@ -69,11 +78,15 @@ from .ops.coulomb import (Coulomb, LongRangeCoulomb, ProbeCharge,  # noqa: E402
                           SphericallyTruncatedCoulomb, VoxelAveraged,
                           WignerSeitzTruncatedCoulomb)
 from .ops.hubbard import HubbardManifold  # noqa: E402
-from .ops.terms import (AtomicLocal, AtomicNonlocal, Entropy, Ewald,  # noqa: E402
-                        ExactExchange, Hartree, Hubbard, Kinetic, PspCorrection, Xc)
+from .ops.terms import (Anyonic, AtomicLocal, AtomicNonlocal, BlowupAbinit,  # noqa: E402
+                        BlowupCHV, BlowupIdentity, Entropy, Ewald, ExactExchange,
+                        ExternalFromFourier, ExternalFromReal, ExternalFromValues,
+                        Hartree, Hubbard, Kinetic, LocalNonlinearity, Magnetic,
+                        PairwisePotential, PspCorrection, Xc)
 from .ops.density import guess_density, spin_density, total_density  # noqa: E402
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
 from .postprocess.bands import compute_bands, irrfbz_path  # noqa: E402
+from .postprocess.current import compute_current  # noqa: E402
 from .postprocess.elastic_response import elastic_tensor_response  # noqa: E402
 from .postprocess.forces import compute_forces, compute_forces_cart  # noqa: E402
 from .postprocess.phonon import phonon_modes_finite_diff  # noqa: E402
@@ -108,4 +121,7 @@ __all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "ElementCoulomb",
            "HubbardManifold", "Coulomb", "LongRangeCoulomb", "ProbeCharge",
            "ReplaceSingularity", "ShortRangeCoulomb", "SphericallyTruncatedCoulomb",
            "VoxelAveraged", "WignerSeitzTruncatedCoulomb", "Kinetic", "AtomicLocal",
-           "AtomicNonlocal", "Ewald", "PspCorrection", "Hartree", "Xc", "Entropy"]
+           "AtomicNonlocal", "Ewald", "PspCorrection", "Hartree", "Xc", "Entropy",
+           "BlowupIdentity", "BlowupCHV", "BlowupAbinit", "ExternalFromReal",
+           "ExternalFromFourier", "ExternalFromValues", "LocalNonlinearity", "Magnetic",
+           "Anyonic", "PairwisePotential", "compute_current"]

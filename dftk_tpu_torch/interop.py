@@ -21,11 +21,14 @@ def _t(a, dtype, device):
 
 def basis_arrays_from_numpy(*, Gidx, mask, kin, Gpk_cart, kweights, kspin,
                             vloc_static, hartree_coeffs, P, D, Gsq_cart,
-                            kinetic_scale=1.0, device="cuda",
-                            dtype=torch.complex128):
+                            kinetic_scale=1.0, kin_explicit=None, Apot=None,
+                            device="cuda", dtype=torch.complex128):
     """The JAX package's `basis.data` and `basis.terms.data` arrays as the
     port's (BasisData, TermsData) on `device`, complex `dtype` and its real
-    counterpart (NLCC core densities: `mgga_from_numpy`)."""
+    counterpart (NLCC core densities: `mgga_from_numpy`).  kin_explicit is
+    the JAX terms' explicit kinetic [nk, nG] (`terms.kin_np`: a blow-up or
+    a kinetic scaling) and Apot its vector potential [n1, n2, n3, 3]
+    (`terms.Apot_np`), or None."""
     rdt = real_dtype(dtype)
     bd = BasisData(Gidx=_t(Gidx, torch.int64, device), mask=_t(mask, rdt, device),
                    kin=_t(kin, rdt, device), Gpk_cart=_t(Gpk_cart, rdt, device),
@@ -35,7 +38,9 @@ def basis_arrays_from_numpy(*, Gidx, mask, kin, Gpk_cart, kweights, kspin,
                    hartree_coeffs=_t(hartree_coeffs, rdt, device),
                    P=_t(P, dtype, device), D=_t(D, rdt, device),
                    Gsq_cart=_t(Gsq_cart, rdt, device),
-                   kinetic_scale=float(kinetic_scale))
+                   kinetic_scale=float(kinetic_scale),
+                   kin=None if kin_explicit is None else _t(kin_explicit, rdt, device),
+                   Apot=None if Apot is None else _t(Apot, rdt, device))
     return bd, td
 
 

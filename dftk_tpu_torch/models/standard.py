@@ -1,32 +1,35 @@
 """Standard model constructors (reference `src/standard_models.jl`).
 
 Port of `model_atomic`, `model_DFT`, `LDA`, `PBE`, `PBEsol`, the hybrids
-`PBE0` and `HSE06`, and `model_HF` from `dftk_tpu/models/standard.py`.
+`PBE0` and `HSE06`, and `model_HF` from `dftk_tpu/models/standard.py`;
+`model_atomic` and `model_DFT` take a `kinetic_blowup` (`BlowupCHV`,
+`BlowupAbinit`, `BlowupIdentity` or None) for their Kinetic term.
 """
 from ..ops.terms import (AtomicLocal, AtomicNonlocal, Entropy, Ewald, ExactExchange,
                          Hartree, Kinetic, PspCorrection, Xc)
 from .model import Model
 
 
-def _base_terms(temperature):
-    terms = [Kinetic(), AtomicLocal(), AtomicNonlocal(), Ewald(),
+def _base_terms(temperature, kinetic_blowup=None):
+    terms = [Kinetic(blowup=kinetic_blowup), AtomicLocal(), AtomicNonlocal(), Ewald(),
              PspCorrection(), Hartree()]
     if temperature and temperature > 0:
         terms.append(Entropy())
     return terms
 
 
-def model_atomic(lattice, atoms, positions, temperature=0.0, extra_terms=(), **kwargs):
+def model_atomic(lattice, atoms, positions, temperature=0.0, extra_terms=(),
+                 kinetic_blowup=None, **kwargs):
     """The base terms without an XC term (Hartree included, as in the JAX
     package)."""
-    terms = _base_terms(temperature) + list(extra_terms)
+    terms = _base_terms(temperature, kinetic_blowup) + list(extra_terms)
     return Model(lattice=lattice, atoms=list(atoms), positions=list(positions),
                  temperature=temperature, term_types=terms, **kwargs)
 
 
 def model_DFT(lattice, atoms, positions, functionals="LDA", temperature=0.0,
-              extra_terms=(), **kwargs):
-    terms = _base_terms(temperature) + [Xc(_as_names(functionals))] \
+              extra_terms=(), kinetic_blowup=None, **kwargs):
+    terms = _base_terms(temperature, kinetic_blowup) + [Xc(_as_names(functionals))] \
         + list(extra_terms)
     return Model(lattice=lattice, atoms=list(atoms), positions=list(positions),
                  temperature=temperature, term_types=terms, **kwargs)

@@ -38,6 +38,26 @@ applies the filter leaves the compact cube, as in the JAX package: every
 Chebyshev step applies the full-precision H on the sphere plus the extra
 terms (`sphere_filter_ops`' exact apply).
 
+The kinetic blow-ups enter through the explicit kinetic (the H apply, the
+filters and LOBPCG's preconditioner read it).  A blow-up stretches H's
+spectrum to max(kin) (1.95e6 Ha at Si54, Ecut 10, against ~10 bare), over
+which a Chebyshev filter of degree 10 damps nothing (the filter's gain on
+a wanted eigenvalue a distance d below its lower bound is ~1 + m^2 d / e,
+e half the filter's interval); so CheFSI with a blown-up kinetic takes
+LOBPCG steps instead, whose TPA preconditioner divides the kinetic out: on
+the bf16 sphere apply (kernels A -> B -> A in bf16, tolerance floor 1e-3)
+in the bf16 cycles of "mixed", before its exact latch, and on the exact
+apply everywhere else, so that every other setting keeps an exact
+Rayleigh-Ritz.  The External*
+potentials enter through the static local potential, and a
+PairwisePotential's energy joins the constant energies, as in the complex
+loop (the JAX split SCF leaves it out of its energies while its split
+forces add it).  The JAX package's split data carry no vector potential
+and its split potential no nonlinearity, and its split SCF drops the
+Anyonic term: `prepare_split_data` raises for a Magnetic,
+LocalNonlinearity or Anyonic model and names `self_consistent_field` (or
+`direct_minimization`).
+
 Not ported here (each raises NotImplementedError naming its ROADMAP item):
 `build_sandwich`/`apply_local_sandwich` (XLA's form of the same local
 chain), the k-point mesh (item 13), and the realified band representations
@@ -54,7 +74,7 @@ import torch
 from ..basis import BasisData, real_dtype
 from ..kernels.local_apply import LocalFactors, local_apply, round_bf16
 from ..scf.anderson import AndersonAcceleration
-from ..scf.driver import aufbau_occupation
+from ..scf.driver import aufbau_occupation, constant_energies
 from ..scf.mixing import DielectricMixing, KerkerMixing
 from . import hamiltonian as hamops
 from .density import (compute_density, compute_kinetic_energy_density, guess_density,
@@ -65,6 +85,7 @@ from .exx_ace import apply_ace, build_ace
 from .hubbard import HubbardSetup
 from .occupation import compute_occupation, entropy_energy
 from .pruned import PrunedFFT, compact_to_sphere, sphere_to_compact
+from .terms import refuse_anyonic, refuse_terms
 
 KTF = 0.8            # Thomas-Fermi screening wavevector of Kerker/dielectric
 
@@ -98,7 +119,13 @@ def prepare_split_data(basis, dtype=None):
     """basis.data (its Cartesian k+G among them, for meta-GGA),
     basis.terms (the NLCC core densities among them) and basis.pruned cast
     to the complex `dtype` (default: the basis' own) and its real
-    counterpart."""
+    counterpart.  Raises for the terms the JAX package's split path drops
+    (module docstring)."""
+    refuse_anyonic(basis.model, "the split SCF")
+    refuse_terms(basis.model, "the split SCF", ["Magnetic", "LocalNonlinearity"],
+                 "the JAX package's split data carry no vector potential and its split "
+                 "potential no nonlinearity (dftk_tpu/ops/engine_split.py:736-781,"
+                 "881-932); use self_consistent_field")
     dtype = basis.dtype if dtype is None else dtype
     if dtype == basis.dtype:
         return SplitTermsData(basis.data, basis.terms, basis.pruned)
@@ -113,7 +140,7 @@ def prepare_split_data(basis, dtype=None):
     td = basis.terms.data._replace(**{
         f: cast(getattr(basis.terms.data, f))
         for f in ("vloc_static", "hartree_coeffs", "P", "D", "Gsq_cart", "G_cart",
-                  "rho_core", "tau_core", "exx_kernel")
+                  "rho_core", "tau_core", "exx_kernel", "kin")
         if getattr(basis.terms.data, f) is not None})
     pf = basis.pruned._replace(factors=LocalFactors(
         fwd=tuple(f.to(dtype) for f in basis.pruned.factors.fwd),
@@ -218,10 +245,7 @@ def total_potential_split(terms, sd: SplitTermsData, rho, volume, tau=None):
 
 
 def _psi_energies(sd: SplitTermsData, X, occupation):
-    td = sd.terms.data
-    ham = hamops.Ham(mask=sd.basis_data.mask,
-                     kin=td.kinetic_scale * sd.basis_data.kin, V_zxy=None,
-                     P=td.P, D=td.D, pruned=sd.pruned)
+    ham = hamops.build_ham(sd.basis_data, sd.terms.data, None, sd.pruned)
     return hamops.psi_energies(ham, X, occupation, sd.basis_data.kweights)
 
 
@@ -510,7 +534,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
            else guess_density(basis)).to(bd.kin.dtype)
 
     filled = model.filled_occupation
-    E_const = {"Ewald": sd.terms.E_ewald, "PspCorrection": sd.terms.E_psp_correction}
+    E_const = constant_energies(sd.terms)
     mixed = filter_precision == "mixed"
     # the filter's precisions: bf16 cycles, then exact ones, under "mixed"
     filter_precs = {"mixed": ("default", "highest"), "highest": ("highest",),
@@ -525,6 +549,12 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     # the JAX package's split ACE jitter: complex64 needs a larger ridge
     ace_jitter = max(1e-12, 50 * torch.finfo(bd.kin.dtype).eps)
     hub = HubbardSetup(basis, bd) if sd.terms.hubbard_manifolds is not None else None
+    # a kinetic blow-up stretches H's spectrum to max(kin) (1.95e6 Ha at
+    # Si54, Ecut 10), over which no Chebyshev filter of a usable degree damps
+    # anything: CheFSI then takes LOBPCG steps, whose preconditioner divides
+    # the blow-up out, on the bf16 sphere apply in the bf16 cycles of
+    # "mixed" (before its exact latch) and on the exact apply otherwise
+    blown = eigensolver == "chefsi" and td.kin is not None
 
     def scf_step(rho_in, X_in, diagtol, n_cycles, n_exact, tau_in, occ_in):
         nonlocal placement
@@ -547,7 +577,24 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                 out = out + f(x) * mask[:, None, :]
             return out
 
-        if eigensolver == "chefsi" and extra:
+        if blown and mixed and n_exact == 0:
+            # the bf16 cycles: LOBPCG on the bf16 apply, to its noise floor
+            if placement is None:
+                placement = default_ham(ham)
+            apply_d = sphere_filter_ops(ham, ("default",), band_chunk, base=placement)[0]
+
+            def A_d(x):
+                out = apply_d(x).to(x.dtype)
+                for f in extra:
+                    out = out + f(x) * mask[:, None, :]
+                return out
+
+            res = lobpcg(A_d, X_in, ham.kin, mask, tol=max(diagtol, 1e-3),
+                         maxiter=eigensolver_maxiter, n_conv=n_bands)
+        elif eigensolver == "lobpcg" or blown:
+            res = lobpcg(A, X_in, ham.kin, mask, tol=diagtol,
+                         maxiter=eigensolver_maxiter, n_conv=n_bands)
+        elif eigensolver == "chefsi" and extra:
             # every filter step on the exact sphere apply plus the extra terms
             res = chefsi_step(A, X_in, mask, degree=chebyshev_degree, n_conv=n_bands,
                               cycles=n_cycles, band_chunk=band_chunk)
@@ -572,9 +619,6 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                               cycles=n_cycles, apply_filter=applies[0],
                               apply_filter_last=applies[-1], n_exact_last=n_exact,
                               band_chunk=band_chunk, filter_wrap=(enter, leave))
-        else:
-            res = lobpcg(A, X_in, ham.kin, mask, tol=diagtol,
-                         maxiter=eigensolver_maxiter, n_conv=n_bands)
         occ, epsF = compute_occupation(res.eigenvalues, bd.kweights, model.n_electrons,
                                        filled, model.temperature, model.smearing)
         rho_out = compute_density(bd, res.X, occ, fft_size, volume, nspin, band_chunk,

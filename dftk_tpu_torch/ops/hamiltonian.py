@@ -23,6 +23,12 @@ nonlocal GEMMs on operands rounded to bf16 (P rounded once where the
 complex64 Ham is made, `ops/engine_split.py::default_ham`), as the compact
 filter's 'default' apply rounds them.
 
+The Magnetic term A.(-i grad) (a Ham with `Apot`) is torch ops over cuFFT
+on the whole cube, as XLA computed it in the JAX package
+(`apply_magnetic`, the symmetrised 1/2 {A, p}).  The kinetic part is the
+terms' explicit kinetic where one is set (a blow-up's), else
+kinetic_scale |k+G|^2 / 2.
+
 Exact (Fock) exchange, where the Ham carries an `Exchange`, is torch ops
 over cuFFT, as XLA computed it in the JAX package: per generating orbital
 a pair product on the full real-space cube, a forward FFT, a multiply by
@@ -31,8 +37,10 @@ at Gamma k-diagonal, on a k-grid every generator (k', m) acts on every
 same-spin k through the kernel at G + (k - k')).  The SCF loops apply it
 compressed (`ops/exx_ace.py`).
 
-The total local potential V fuses AtomicLocal + Hartree(rho) + Xc(rho); the
-XC potential is the `torch.autograd` gradient of the XC energy, and under a
+The total local potential V fuses AtomicLocal (with the External*
+potentials) + Hartree(rho) + Xc(rho) + LocalNonlinearity(rho); the XC and
+the nonlinearity's potentials are the `torch.autograd` gradients of their
+energies, and under a
 meta-GGA Vtau is its gradient in tau.  With an NLCC core density the
 functional sees rho + rho_core (and tau + tau_core).  Under collinear spin
 V has one channel per spin, and each k-point row applies its own spin's
@@ -85,8 +93,10 @@ class Ham(NamedTuple):
     D: torch.Tensor          # [nproj, nproj]
     pruned: PrunedFFT
     Vtau_zxy: Optional[torch.Tensor] = None   # [nk, n3, n1, n2] meta-GGA Vtau
-    Gpk: Optional[torch.Tensor] = None        # [nk, nG, 3] Cartesian k+G (with Vtau)
+    Gpk: Optional[torch.Tensor] = None        # [nk, nG, 3] Cartesian k+G (Vtau, Apot)
     exx: Optional[Exchange] = None            # the bare Fock exchange term
+    Apot: Optional[torch.Tensor] = None       # [n1,n2,n3,3] vector potential (Magnetic)
+    Gidx: Optional[torch.Tensor] = None       # [nk, nG] full-cube indices (with Apot)
 
 
 def to_zxy(V, kspin):
@@ -95,12 +105,25 @@ def to_zxy(V, kspin):
     return V[kspin].permute(0, 3, 1, 2).contiguous()
 
 
+def kinetic(basis_data, terms_data):
+    """The kinetic energies [nk, nG]: the terms' explicit kinetic (a
+    blow-up's) where one is set, else kinetic_scale |k+G|^2 / 2."""
+    if getattr(terms_data, "kin", None) is not None:
+        return terms_data.kin
+    return terms_data.kinetic_scale * basis_data.kin
+
+
 def build_ham(basis_data, terms_data, V, pruned: PrunedFFT, Vtau=None, exx=None):
-    return Ham(mask=basis_data.mask, kin=terms_data.kinetic_scale * basis_data.kin,
-               V_zxy=to_zxy(V, basis_data.kspin), P=terms_data.P, D=terms_data.D,
-               pruned=pruned,
+    """The Ham of the potential V [nspin, grid] (and Vtau), with the terms'
+    kinetic, projectors and vector potential; V None gives a Ham for the
+    parts that need no local potential (`psi_energies`)."""
+    Apot = getattr(terms_data, "Apot", None)
+    return Ham(mask=basis_data.mask, kin=kinetic(basis_data, terms_data),
+               V_zxy=None if V is None else to_zxy(V, basis_data.kspin),
+               P=terms_data.P, D=terms_data.D, pruned=pruned,
                Vtau_zxy=None if Vtau is None else to_zxy(Vtau, basis_data.kspin),
-               Gpk=None if Vtau is None else basis_data.Gpk_cart, exx=exx)
+               Gpk=None if Vtau is None and Apot is None else basis_data.Gpk_cart, exx=exx,
+               Apot=Apot, Gidx=None if Apot is None else basis_data.Gidx)
 
 
 def apply_local(ham: Ham, psi, V_zxy=None, precision="highest"):
@@ -138,9 +161,35 @@ def apply_H(ham: Ham, psi, precision="highest"):
         r = round_bf16 if precision == "default" else (lambda a: a)
         DPd = _p_dag(ham, r(psi)) @ ham.D.to(psi.dtype).T
         out = out + torch.einsum("kgp,knp->kng", ham.P, r(DPd))
+    if ham.Apot is not None:
+        out = out + apply_magnetic(ham, psi)
     if ham.exx is not None:
         out = out + apply_exchange(ham.exx, psi)
     return out * ham.mask[:, None, :]
+
+
+def apply_magnetic(ham: Ham, psi):
+    """The Magnetic term A.(-i grad) psi for psi [nk, nb, nG], symmetrised,
+    1/2 sum_a (A_a p_a + p_a A_a) with p = k + G (reference
+    terms/magnetic.jl; exact when div A = 0), on the whole cube."""
+    fft_size = tuple(ham.Apot.shape[:3])
+    dims = (-3, -2, -1)
+    Apot = ham.Apot.to(psi.real.dtype)
+    p = ham.Gpk.to(psi.real.dtype)
+
+    def to_r(x):
+        return torch.fft.ifftn(scatter_to_cube(x, ham.Gidx, ham.mask, fft_size), dim=dims)
+
+    def to_g(xr):
+        return gather_from_cube(torch.fft.fftn(xr, dim=dims), ham.Gidx, ham.mask)
+
+    psir = to_r(psi)
+    out = 0.0
+    for a in range(3):
+        A = Apot[..., a]
+        out = out + 0.5 * (to_g(A * to_r(p[:, None, :, a] * psi))
+                           + p[:, None, :, a] * to_g(A * psir))
+    return out
 
 
 def apply_exchange(exx: Exchange, phi):
@@ -270,7 +319,21 @@ def total_potential(terms, rho, volume, tau=None):
                     raise ValueError(f"{f.name} needs tau")
                 V = V + (terms.xc_scaling * fscale) * f.potential(
                     rho_xc, td.G_cart.to(rho.dtype), tau_xc)
+    if terms.local_nonlinearity is not None:
+        with torch.enable_grad():
+            r = rho.detach().requires_grad_(True)
+            e_nl = nonlinearity_energy(terms, r, volume)
+            (v_nl,) = torch.autograd.grad(e_nl, r)
+        energies["LocalNonlinearity"] = e_nl.detach()
+        V = V + v_nl / dvol
     return V, Vtau, energies
+
+
+def nonlinearity_energy(terms, rho, volume):
+    """The LocalNonlinearity energy int f(rho_total) of rho [nspin, grid], a
+    0-d tensor differentiable in rho (Gross-Pitaevskii: f = C rho^alpha;
+    a non-integer alpha takes no negative density)."""
+    return torch.sum(terms.local_nonlinearity(torch.sum(rho, dim=0))) * (volume / rho[0].numel())
 
 
 def _local_hartree(td, rho, dvol):
@@ -300,10 +363,11 @@ def _require_energy_functionals(terms, what):
 
 def density_energies(terms, rho, volume):
     """The rho-dependent energies of `total_potential` (AtomicLocal, Hartree,
-    Xc), as differentiable functions of rho: what `total_potential` returns
-    with its Xc energy detached, here with the graph kept through the XC
-    density (NLCC core included), so that autograd of an energy of the
-    orbitals carries the XC potential (direct minimization).  Functionals
+    Xc, LocalNonlinearity), as differentiable functions of rho: what
+    `total_potential` returns with its Xc and nonlinearity energies
+    detached, here with the graph kept through the XC density (NLCC core
+    included) and the nonlinearity, so that autograd of an energy of the
+    orbitals carries their potentials (direct minimization).  Functionals
     of rho alone (LDA, GGA)."""
     _require_energy_functionals(terms, "density_energies")
     td = terms.data
@@ -311,6 +375,8 @@ def density_energies(terms, rho, volume):
     if terms.xc:
         energies["Xc"] = xc_energy(terms.xc, _xc_density(terms, rho), volume,
                                    terms.xc_scaling, td.G_cart)
+    if terms.local_nonlinearity is not None:
+        energies["LocalNonlinearity"] = nonlinearity_energy(terms, rho, volume)
     return energies
 
 
@@ -332,8 +398,21 @@ def xc_potential_derivative(terms, rho, drho, volume):
     return dvxc / dvol
 
 
+def nonlinearity_potential_derivative(terms, rho, drho, volume):
+    """dV_nl/drho . drho [nspin, grid] of the LocalNonlinearity potential
+    at rho (double backward through `nonlinearity_energy`, over dvol): the
+    term's part of the response kernel K, as the JAX package's jvp of
+    `total_potential` carries it."""
+    dvol = volume / rho[0].numel()
+    with torch.enable_grad():
+        r = rho.detach().requires_grad_(True)
+        (v,) = torch.autograd.grad(nonlinearity_energy(terms, r, volume), r, create_graph=True)
+        (dv,) = torch.autograd.grad(v, r, grad_outputs=drho.to(r.dtype), allow_unused=True)
+    return (torch.zeros_like(rho) if dv is None else dv) / dvol
+
+
 def psi_energies(ham: Ham, psi, occupation, kweights):
-    """Kinetic and nonlocal energies from the orbitals."""
+    """Kinetic, nonlocal and Magnetic energies from the orbitals."""
     energies = {}
     wocc = kweights[:, None] * occupation
     abs2 = psi.real ** 2 + psi.imag ** 2
@@ -342,4 +421,7 @@ def psi_energies(ham: Ham, psi, occupation, kweights):
         Pd = _p_dag(ham, psi)
         band_e = torch.einsum("knp,pq,knq->kn", Pd.conj(), ham.D.to(Pd.dtype), Pd).real
         energies["AtomicNonlocal"] = torch.sum(wocc * band_e)
+    if ham.Apot is not None:
+        band_m = torch.sum(psi.conj() * apply_magnetic(ham, psi), -1).real
+        energies["Magnetic"] = torch.sum(wocc * band_m)
     return energies

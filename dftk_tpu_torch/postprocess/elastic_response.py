@@ -201,7 +201,9 @@ def elastic_tensor_response(scfres, cg_tol=1e-9, cg_maxiter=200, dyson_tol=1e-8,
     converged result (an SCFResult, or an `interop.SCFState`).  A strain
     perturbation does not have the crystal symmetry: the result is unfolded
     onto the full k-point set first."""
+    from .stresses import refuse_unstrained_terms
     from .unfold import unfold_bz
+    refuse_unstrained_terms((scfres.basis).model, "elastic_tensor_response")
     scfres = unfold_bz(scfres)
     basis = scfres.basis
     model = basis.model

@@ -15,8 +15,11 @@ core density no XC term depends on the positions, and the occupations are
 held fixed.  A meta-GGA's tau is the result's (`scfres.tau`), or, where it
 has none (the split adapters), the kinetic-energy density of its orbitals.
 
-Potential-only functionals (TB09) have no energy, so no forces; classical
-pairwise forces are not ported (ROADMAP Queue 1, item 11b).  Both raise
+A PairwisePotential's forces (`ops/pairwise.py`, by autograd at setup)
+join the total, as in the JAX package.  The other terms of the model
+Hamiltonians (External*, LocalNonlinearity, Magnetic, Anyonic and the
+kinetic blow-ups) do not depend on the positions.  Potential-only
+functionals (TB09) have no energy, so no forces: they raise
 NotImplementedError.
 """
 import math
@@ -38,10 +41,6 @@ def check_supported(basis, scfres, what):
         raise NotImplementedError(
             f"{what} are undefined for potential-only functionals (TB09/mBJ has "
             f"no energy functional to differentiate)")
-    if getattr(basis.terms, "pairwise_forces", None) is not None:
-        raise NotImplementedError(
-            f"{what} with classical pairwise terms are not ported yet (ROADMAP "
-            f"Queue 1, item 11b)")
 
 
 def f64(basis, arr):
@@ -222,7 +221,10 @@ def compute_forces(scfres, basis=None):
         positions = f64(basis, np.stack(basis.model.positions)).requires_grad_(True)
         E = _positions_energy(basis, psi, occ, rho, positions, tau)
         (grad,) = torch.autograd.grad(E, positions)
-    return -grad
+    F = -grad
+    if basis.terms.pairwise_forces is not None:
+        F = F + f64(basis, basis.terms.pairwise_forces)
+    return F
 
 
 def compute_forces_cart(scfres, basis=None):

@@ -32,9 +32,13 @@ so the six T_bc are built once outside the graph (from the density of
 (q_b + q_c) psi by the polarisation identity) and symmetrized there, and
 the graph holds the 3 x 3 metric only.
 
-Potential-only functionals (TB09) have no energy, so no stress; classical
-pairwise terms are not ported (ROADMAP Queue 1, item 11b).  Both raise
-NotImplementedError.
+Potential-only functionals (TB09) have no energy, so no stress: they
+raise NotImplementedError.  So do the model Hamiltonians' terms, which the
+JAX package's `energy_at_lattice` leaves out without an error (it has no
+pairwise, external, magnetic, nonlinear or anyonic part, and takes the
+bare kinetic energy: dftk_tpu/postprocess/stresses.py:27-213, :47-54;
+ROADMAP Queue 3): the stresses, the split stresses and the elastic tensors
+(by response and by finite differences of the stresses) refuse them.
 """
 import math
 
@@ -44,11 +48,22 @@ import torch
 from ..ops.density import compute_density, make_symmetrizer
 from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
 from ..ops.hamiltonian import xc_energy
-from ..ops.terms import Hartree, projector_form_factors
+from ..ops.terms import Hartree, projector_form_factors, refuse_terms
 from .forces import (check_supported, core_atoms, core_on_grid, f64, has_local,
                      nonlocal_group_energy, psp_groups, structure_factor)
 
 DENSITY_BAND_CHUNK = 64     # bands per batch of full-grid cubes in the density
+
+# the terms the JAX package's lattice energy leaves out (module docstring)
+UNSTRAINED_TERMS = ("PairwisePotential", "ExternalFromReal", "ExternalFromFourier",
+                    "ExternalFromValues", "Magnetic", "LocalNonlinearity", "Anyonic",
+                    "Kinetic blow-up")
+
+
+def refuse_unstrained_terms(model, what):
+    refuse_terms(model, what, UNSTRAINED_TERMS,
+                 "the JAX package's energy_at_lattice leaves these terms out and takes "
+                 "the bare kinetic energy (dftk_tpu/postprocess/stresses.py:27-213)")
 
 
 def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
@@ -57,6 +72,7 @@ def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
     vectors).  psi and occupation are held fixed (Hellmann-Feynman);
     positions (fractional) default to the model's."""
     model = basis.model
+    refuse_unstrained_terms(model, "energy_at_lattice")
     terms = basis.terms
     bd = basis.data
     fft_size = basis.fft_size

@@ -33,6 +33,7 @@ from ..models.smearing import NoSmearing, occupation_divided_difference
 from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, compute_density_derivative
 from ..ops.pruned import compact_to_sphere, sphere_to_compact
+from ..ops.terms import refuse_anyonic
 
 
 class CGCounts:
@@ -184,6 +185,7 @@ def make_chi0_context(scfres, basis=None):
     its orbitals, occupations, eigenvalues and Fermi level on the basis'
     device."""
     basis = basis or scfres.basis
+    refuse_anyonic(basis.model, "the response")
 
     def real(a):
         return torch.as_tensor(a, dtype=basis.rdtype, device=basis.device)

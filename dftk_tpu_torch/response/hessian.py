@@ -5,9 +5,12 @@ Port of `dftk_tpu/response/hessian.py` (reference
   * `gmres`: restarted GMRES with the Arnoldi loop on the host, and the
     inexact mode of the reference's inexact_gmres.jl (Simoncini-Szyld),
     which relaxes each matvec's tolerance as the outer residual shrinks;
-  * `apply_kernel`: K drho = d(V_H + V_xc)/drho . drho, exactly: the
-    Hartree part is linear, the XC part the Hessian of the XC energy
-    applied to drho (`ops/hamiltonian.py::xc_potential_derivative`);
+  * `apply_kernel`: K drho = d(V_H + V_xc + V_nl)/drho . drho, exactly:
+    the Hartree part is linear, the XC part the Hessian of the XC energy
+    applied to drho (`ops/hamiltonian.py::xc_potential_derivative`), and a
+    LocalNonlinearity's part the Hessian of its energy
+    (`nonlinearity_potential_derivative`), as the JAX package's jvp of
+    `total_potential` carries all three;
   * `solve_dyson` ((1 - chi0 K) drho = chi0 dV_ext by GMRES) and
     `compute_polarizability`;
   * `make_omega_plus_k`, `eigen_omega_plus_k`, `solve_omega_plus_k`: the
@@ -25,19 +28,23 @@ import torch
 
 from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, compute_density_derivative
+from ..ops.terms import refuse_anyonic
 from .chi0 import _project_out, apply_chi0, apply_dV, counts, make_chi0_context
 
 
 def apply_kernel(basis, rho0, drho):
-    """K drho [nspin, grid]: the derivative of the Hartree + XC potential
-    at rho0 along drho (reference terms/Hamiltonian.jl:127).  Functionals
-    of rho alone: TB09 and the meta-GGAs raise."""
-    td = basis.terms.data
+    """K drho [nspin, grid]: the derivative of the Hartree + XC (+
+    LocalNonlinearity) potential at rho0 along drho (reference
+    terms/Hamiltonian.jl:127).  Functionals of rho alone: TB09 and the
+    meta-GGAs raise."""
+    terms = basis.terms
+    vol = basis.model.unit_cell_volume
     drho_tot = torch.sum(drho, dim=0)
-    dVH = torch.fft.ifftn(td.hartree_coeffs * torch.fft.fftn(drho_tot)).real
-    dVxc = hamops.xc_potential_derivative(basis.terms, rho0, drho,
-                                          basis.model.unit_cell_volume)
-    return dVH[None] + dVxc
+    dVH = torch.fft.ifftn(terms.data.hartree_coeffs * torch.fft.fftn(drho_tot)).real
+    dV = dVH[None] + hamops.xc_potential_derivative(terms, rho0, drho, vol)
+    if terms.local_nonlinearity is not None:
+        dV = dV + hamops.nonlinearity_potential_derivative(terms, rho0, drho, vol)
+    return dV
 
 
 def solve_dyson(scfres, dV_ext, basis=None, tol=1e-7, maxiter=60, sternheimer_tol=1e-10,
@@ -150,6 +157,7 @@ def make_omega_plus_k(basis, psi, occupation, rho=None, include_K=True):
     TPA preconditioner (reference hessian.jl apply_Omega, apply_K);
     include_K=False gives the bare Omega = P_c (H - eps_n) P_c."""
     model = basis.model
+    refuse_anyonic(model, "the SCF Hessian")
     psi = torch.as_tensor(psi, device=basis.device, dtype=basis.dtype)
     occupation = torch.as_tensor(occupation, device=basis.device, dtype=basis.rdtype)
     if rho is None:

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.elements import ElementPsp
+from ..ops.terms import refuse_terms
 from .chi0 import apply_chi0, apply_chi0_generic, apply_dV, make_chi0_context
 from .hessian import apply_kernel, gmres
 
@@ -164,6 +165,16 @@ def response_matrix(basis, psi, w, rhs, dpsi, df=None):
     return M.cpu().numpy()
 
 
+def refuse_pairwise(model, what):
+    """The JAX package's DFPT dynamical matrices have no PairwisePotential
+    part: their clamped-ion Hessian is that of the forces' position energy,
+    to which the pairwise forces are added only as constants."""
+    refuse_terms(model, what, ["PairwisePotential"],
+                 "the JAX package's clamped-ion Hessian leaves the pairwise energy out "
+                 "(dftk_tpu/response/phonon_dfpt.py, dftk_tpu/response/phonon_q.py; "
+                 "the finite-difference phonons of postprocess/phonon.py include it)")
+
+
 def dynmat_dfpt_gamma(scfres, tol=1e-7, sternheimer_tol=1e-10, acoustic_sum_rule=True,
                       verbose=False):
     """Cartesian force-constant matrix [3 na, 3 na] (numpy) at q = 0 by DFPT.
@@ -177,6 +188,7 @@ def dynmat_dfpt_gamma(scfres, tol=1e-7, sternheimer_tol=1e-10, acoustic_sum_rule
     # a single-atom displacement does not have the crystal symmetry: the
     # response is evaluated on the full k-point set
     from ..postprocess.unfold import unfold_bz
+    refuse_pairwise(scfres.basis.model, "dynmat_dfpt_gamma")
     scfres = unfold_bz(scfres)
     basis = scfres.basis
     model = basis.model

@@ -38,7 +38,7 @@ from scipy.special import erfc
 
 from ..ops import hamiltonian as hamops
 from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
-from ..ops.terms import Hartree
+from ..ops.terms import Hartree, refuse_terms
 from .chi0 import apply_dV_q, make_chi0_context, sternheimer_solver
 from .phonon_dfpt import _atom_of_projector_column, _nonlocal_derivative, clamped_ion_hessian
 
@@ -396,10 +396,15 @@ def dynmat_dfpt_q(scfres, q, tol=1e-7, sternheimer_tol=1e-10, maxiter=40, verbos
     core density raise NotImplementedError, as in the reference."""
     from ..postprocess.unfold import unfold_bz
     from .hessian import gmres
-    from .phonon_dfpt import dynmat_dfpt_gamma
+    from .phonon_dfpt import dynmat_dfpt_gamma, refuse_pairwise
+    refuse_pairwise(scfres.basis.model, "dynmat_dfpt_q")
     if np.allclose(np.asarray(q, dtype=float), 0) and scfres.basis.model.temperature > 0:
         return dynmat_dfpt_gamma(scfres, tol=tol, sternheimer_tol=sternheimer_tol,
                                  acoustic_sum_rule=False, verbose=verbose).astype(complex)
+    refuse_terms(scfres.basis.model, "dynmat_dfpt_q", ["Magnetic", "LocalNonlinearity"],
+                 "the JAX package's H at k+q keeps the k-point's k+G in the magnetic "
+                 "apply (dftk_tpu/response/phonon_q.py::_perm_ham) and its kernel at q "
+                 "has no nonlinearity (::apply_kernel_q)")
     scfres = unfold_bz(scfres)
     basis = scfres.basis
     model = basis.model

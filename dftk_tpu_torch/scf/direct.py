@@ -10,9 +10,18 @@ The total energy is one differentiable function of the orbitals
 The gradient convention: torch's gradient of a real function of a complex
 tensor is dE/dRe + i dE/dIm, the steepest-ascent direction, which is the
 conjugate of what `jax.grad` returns; so the JAX package's `g.conj()`
-(`dftk_tpu/scf/direct.py:104`) has no counterpart here (ROADMAP Queue 3,
-"Complex gradients").  The anyonic term belongs to ROADMAP Queue 1 item
-11: a basis with it does not instantiate (`ops/terms.py`).
+(`dftk_tpu/scf/direct.py:104`) has no counterpart here (ROADMAP "Known
+differences: Complex gradients").
+
+Every term of the model enters the energy: the kinetic blow-ups through
+the explicit kinetic (which the TPA preconditioner reads too), Magnetic
+through `psi_energies`, LocalNonlinearity through `density_energies`, and
+the Anyonic term as `ops/anyonic.py::anyonic_energy` of the orbitals and
+their density, whose autograd gradient carries the reference's
+current-response operator (this solver is the anyons' one, as in the
+reference example examples/anyons.jl).  The JAX package's direct
+minimization adds no PairwisePotential energy
+(`dftk_tpu/scf/direct.py:45,176-178`), so a model with one raises here.
 """
 import math
 import time
@@ -21,9 +30,20 @@ from typing import Optional
 import torch
 
 from ..ops import hamiltonian as hamops
+from ..ops.anyonic import anyonic_energy
 from ..ops.density import compute_density, guess_density, make_symmetrizer
 from ..ops.eigen.lobpcg import lobpcg, ortho_qr
+from ..ops.terms import refuse_terms
 from .driver import SCFResult, random_orbitals
+
+
+def _anyonic_energy(basis, psi, occupation, rho):
+    """The Anyonic energy of psi at its density rho [nspin, grid]."""
+    hbar, beta, rho_ref, Aref = basis.terms.anyonic
+    t = lambda a: basis.tensor(a).to(rho.dtype)
+    return anyonic_energy(basis.data, psi, occupation, torch.sum(rho, dim=0), t(rho_ref),
+                          t(Aref), basis.terms.data.G_cart.to(rho.dtype), hbar, beta,
+                          basis.fft_size, basis.model.unit_cell_volume)
 
 
 def energy_from_orbitals(basis, psi, occupation, symmetrizer=None):
@@ -36,10 +56,11 @@ def energy_from_orbitals(basis, psi, occupation, symmetrizer=None):
     rho = compute_density(bd, psi, occupation, basis.fft_size, model.unit_cell_volume,
                           model.n_spin_components, symmetrizer=symmetrizer)
     energies = hamops.density_energies(terms, rho, model.unit_cell_volume)
-    # the kinetic and nonlocal energies need no potential
-    ham = hamops.Ham(mask=bd.mask, kin=td.kinetic_scale * bd.kin, V_zxy=None, P=td.P, D=td.D,
-                     pruned=basis.pruned)
+    # the kinetic, nonlocal and magnetic energies need no potential
+    ham = hamops.build_ham(bd, td, None, basis.pruned)
     energies.update(hamops.psi_energies(ham, psi, occupation, bd.kweights))
+    if terms.anyonic is not None:
+        energies["Anyonic"] = _anyonic_energy(basis, psi, occupation, rho)
     return sum(energies.values()) + terms.E_ewald + terms.E_psp_correction, rho
 
 
@@ -54,6 +75,9 @@ def direct_minimization(basis, tol=1e-8, maxiter=300, psi=None, n_bands: Optiona
     if model.temperature > 0:
         raise ValueError("direct_minimization supports insulators only (zero temperature), "
                          "like the reference")
+    refuse_terms(model, "direct_minimization", ["PairwisePotential"],
+                 "the JAX package's direct minimization adds no pairwise energy "
+                 "(dftk_tpu/scf/direct.py:45,176-178)")
     filled = model.filled_occupation
     n_occ = model.n_electrons // filled
     if n_bands is None:
@@ -70,7 +94,7 @@ def direct_minimization(basis, tol=1e-8, maxiter=300, psi=None, n_bands: Optiona
     psi = torch.as_tensor(psi, device=basis.device, dtype=basis.dtype)
     occ = torch.full((basis.n_kpoints, n_bands), float(filled), dtype=basis.rdtype,
                      device=basis.device)
-    kin = terms.data.kinetic_scale * bd.kin
+    kin = hamops.kinetic(bd, terms.data)
     # the symmetrized-density functional of self_consistent_field (the symmetrizer
     # is linear, so autograd through it is exact)
     symmetrizer = make_symmetrizer(basis)
@@ -142,6 +166,8 @@ def direct_minimization(basis, tol=1e-8, maxiter=300, psi=None, n_bands: Optiona
     w, Y = torch.linalg.eigh((hsub + hsub.conj().transpose(1, 2)) / 2)
     psi = torch.einsum("knm,kng->kmg", Y, psi)
     energies.update(hamops.psi_energies(ham, psi, occ, bd.kweights))
+    if terms.anyonic is not None:
+        energies["Anyonic"] = _anyonic_energy(basis, psi, occ, rho)
     energies_out = {k: float(v) for k, v in energies.items()}
     energies_out["Ewald"] = terms.E_ewald
     energies_out["PspCorrection"] = terms.E_psp_correction

@@ -44,6 +44,7 @@ from ..ops.eigen.lobpcg import lobpcg, ortho_qr
 from ..ops.exx_ace import apply_ace, build_ace
 from ..ops.hubbard import HubbardSetup
 from ..ops.occupation import compute_occupation, entropy_energy
+from ..ops.terms import refuse_anyonic
 from ..response.chi0 import Chi0Context
 from .anderson import AndersonAcceleration
 from .mixing import KerkerMixing, SimpleMixing
@@ -97,6 +98,16 @@ def aufbau_occupation(basis, n_bands):
     return occ
 
 
+def constant_energies(terms):
+    """The energies that do not depend on the state: Ewald, PspCorrection
+    and, where it is not zero, PairwisePotential (as the JAX package's
+    self_consistent_field reports them)."""
+    E = {"Ewald": terms.E_ewald, "PspCorrection": terms.E_psp_correction}
+    if terms.E_pairwise:
+        E["PairwisePotential"] = terms.E_pairwise
+    return E
+
+
 def default_mixing(model):
     return KerkerMixing() if model.temperature > 0 else SimpleMixing()
 
@@ -146,6 +157,7 @@ def self_consistent_field(
     t0 = time.time()
     model = basis.model
     terms = basis.terms
+    refuse_anyonic(model, "self_consistent_field")
     if mixing is None:
         mixing = default_mixing(model)
     needs_state = getattr(mixing, "needs_state", False)
@@ -235,7 +247,7 @@ def self_consistent_field(
     converged = False
     diagtol = diagtol_max
     n_matvec_total = 0
-    E_const = {"Ewald": terms.E_ewald, "PspCorrection": terms.E_psp_correction}
+    E_const = constant_energies(terms)
     tau = von_weizsaecker_tau(rho, td.G_cart) if needs_tau else None
     # exchange and Hubbard take the occupations of psi_in: the aufbau guess
     # at the first step

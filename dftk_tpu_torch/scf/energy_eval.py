@@ -6,7 +6,8 @@ state by re-evaluating its energy in f64 in a CPU subprocess; the port
 evaluates in the basis' dtype (complex128 by default) on the basis' own
 device, so the refine is one more f64 evaluation on the card.  The energy
 is variational in (psi, rho): the state's error enters it only at second
-order.
+order.  The JAX package's evaluation reports no PairwisePotential energy
+and drops the Anyonic term, so a model with either raises here.
 """
 import numpy as np
 import torch
@@ -14,6 +15,7 @@ import torch
 from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, make_symmetrizer
 from ..ops.occupation import entropy_energy
+from ..ops.terms import refuse_anyonic, refuse_terms
 
 
 def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
@@ -28,6 +30,10 @@ def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
     package)."""
     model = basis.model
     terms = basis.terms
+    refuse_anyonic(model, "evaluate_total_energy")
+    refuse_terms(model, "evaluate_total_energy", ["PairwisePotential"],
+                 "the JAX package's energy evaluation adds no pairwise energy "
+                 "(dftk_tpu/scf/energy_eval.py:61-62)")
     bd = basis.data
     volume = model.unit_cell_volume
     psi = torch.as_tensor(psi, device=basis.device).to(basis.dtype)

@@ -11,7 +11,8 @@ by preconditioned CG (`response/hessian.py::preconditioned_cg`, one host
 read of the residual norm a step).  Every apply of H
 and every dV psi goes through the kernels A -> B -> A on a CUDA tensor.
 Quadratic convergence near the minimum; a few steps of the LOBPCG SCF
-warm-start it.
+warm-start it.  The JAX package's Newton reports no PairwisePotential
+energy and drops the Anyonic term, so a model with either raises here.
 """
 import time
 
@@ -21,6 +22,7 @@ from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, make_symmetrizer
 from ..ops.eigen.lobpcg import ortho_qr
 from ..response.hessian import omega_plus_k_operators, preconditioned_cg
+from ..ops.terms import refuse_anyonic, refuse_terms
 from .driver import SCFResult, self_consistent_field
 
 
@@ -33,6 +35,10 @@ def newton(basis, tol=1e-10, maxiter=20, cg_tol_ratio=1e-3, cg_maxiter=100, psi=
     terms = basis.terms
     if model.temperature > 0:
         raise ValueError("newton supports insulators only (like the reference)")
+    refuse_anyonic(model, "newton")
+    refuse_terms(model, "newton", ["PairwisePotential"],
+                 "the JAX package's Newton adds no pairwise energy "
+                 "(dftk_tpu/scf/newton.py:79,165-166)")
     nspin = model.n_spin_components
     filled = model.filled_occupation
     n_occ = model.n_electrons // filled

@@ -7,7 +7,9 @@ energy is backtracked from the previous potential with the step length
 that minimises the quadratic model fitted to (E_prev, slope, E_trial),
 the slope along the step being dE/dalpha ~ dvol <dV_dir, rho_out - rho_in>
 (potential_mixing.jl:29-160).  Each step's LOBPCG applies H through the
-kernels; at T > 0 the energy carries the Entropy term.
+kernels; at T > 0 the energy carries the Entropy term.  The JAX package's
+loop reports no PairwisePotential energy and drops the Anyonic term, so a
+model with either raises here.
 """
 import math
 import time
@@ -19,6 +21,7 @@ from ..ops.density import compute_density, guess_density, make_symmetrizer
 from ..ops.eigen.lobpcg import lobpcg
 from ..ops.occupation import compute_occupation, entropy_energy
 from .anderson import AndersonAcceleration
+from ..ops.terms import refuse_anyonic, refuse_terms
 from .driver import SCFResult, random_orbitals
 
 
@@ -30,6 +33,10 @@ def scf_potential_mixing(basis, tol=1e-6, maxiter=100, damping=0.8, anderson_dep
     t0 = time.time()
     model = basis.model
     terms = basis.terms
+    refuse_anyonic(model, "scf_potential_mixing")
+    refuse_terms(model, "scf_potential_mixing", ["PairwisePotential"],
+                 "the JAX package's potential mixing adds no pairwise energy "
+                 "(dftk_tpu/scf/potential_mixing.py:94-95)")
     nspin = model.n_spin_components
     filled = model.filled_occupation
     if n_bands is None:

@@ -1,6 +1,7 @@
 """The JAX package's CPU float64 values that tests/data/torch_port_scf.json
-records for tests/test_torch_scf.py, tests/test_torch_split.py and
-tests/test_torch_forces.py.
+records for tests/test_torch_scf.py, tests/test_torch_split.py,
+tests/test_torch_forces.py, tests/test_torch_hamiltonian.py and
+tests/test_torch_kernels.py.
 
     DFTK_TPU_X64=1 JAX_PLATFORMS=cpu python tests/data/make_torch_port_scf.py ENTRY
 
@@ -291,6 +292,116 @@ def entry_forces():
                 stresses_split=S_split.tolist(), energy_at_lattice=E_lat,
                 symmetrized=dict(forces_cart=np.asarray(F_sym).tolist(),
                                  stresses=np.asarray(S_sym).tolist()))
+
+
+HAM_BANDS, HAM_SEED = 5, 31                  # tests/test_torch_hamiltonian.py
+ENERGY_BANDS, ENERGY_SEED = 4, 32
+
+
+def entry_hamiltonian():
+    """tests/test_torch_hamiltonian.py: on si2_kgrid_basis at the JAX guess
+    density (entry scf's rho0), the total potential V and its energies,
+    H psi for orthonormal_rows(mask, 5, 31), and the Kinetic and nonlocal
+    energies of orthonormal_rows(mask, 4, 32) with occupations 2."""
+    import jax.numpy as jnp
+    import dftk_tpu as dftk
+    from dftk_tpu.ops import hamiltonian as jax_ham
+    from dftk_tpu.ops.density import guess_density
+    jb = si2_kgrid_basis(dftk)
+    volume = jb.model.unit_cell_volume
+    V, E = jax_ham.total_potential(jb.terms, guess_density(jb), jnp.asarray(jb.G_cube_cart),
+                                   volume)
+    ham = jax_ham.build_ham(jb.data, jb.terms.data, V)
+    psi = jnp.asarray(orthonormal_rows(jb.mask_np, HAM_BANDS, HAM_SEED))
+    Hpsi = jax_ham.apply_H(ham, psi, jb.fft_size, volume)
+    psi4 = jnp.asarray(orthonormal_rows(jb.mask_np, ENERGY_BANDS, ENERGY_SEED))
+    occ = jnp.full((jb.n_kpoints, ENERGY_BANDS), 2.0)
+    Epsi = jax_ham.psi_energies(ham, jb.terms, psi4, occ, jb.data.kweights)
+    return dict(V=np.asarray(V).tolist(), energies={k: float(v) for k, v in E.items()},
+                Hpsi=_c(Hpsi), psi_energies={k: float(v) for k, v in Epsi.items()})
+
+
+LOCAL_NB = 3     # bands of tests/test_torch_kernels.py's local apply (on every k-point)
+PLANE_NB = 4     # bands of its plane and dot_z inputs
+
+
+def kernel_inputs(seed, nk, m, n):
+    """tests/test_torch_kernels.py's local-apply inputs: a compact cube xc
+    [nk, 3, m1, m2, m3] (complex128) and a potential V [nk, n3, n1, n2], one
+    per k-point, from numpy.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    shape = (nk, LOCAL_NB) + tuple(m)
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape),
+            rng.normal(size=(nk, n[2], n[0], n[1])))
+
+
+def plane_inputs(seed, m, n):
+    """A plane block t [4, n3, m1, m2] (complex64) and V [n3, n1, n2]
+    (float32) from numpy.random.default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    (m1, m2), n3 = m[:2], n[2]
+    t = (rng.normal(size=(PLANE_NB, n3, m1, m2))
+         + 1j * rng.normal(size=(PLANE_NB, n3, m1, m2))).astype(np.complex64)
+    return t, rng.normal(size=(n3, n[0], n[1])).astype(np.float32)
+
+
+def entry_kernels():
+    """tests/test_torch_kernels.py: on si2_kgrid_basis, the JAX package's
+    pruned factors (its realified block factors as complex [m, n] and
+    [n, m] per axis); fused_local_apply (f64, interpret mode) of
+    kernel_inputs(0); fused_filter_mid of plane_inputs(1) at 'highest' and
+    of plane_inputs(6) at 'default' and 'highest', and dot_z of a seeded
+    compact cube (default_rng(7), complex64) at 'default' and 'highest'
+    (f32, interpret mode)."""
+    import functools
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    import dftk_tpu as dftk
+    from dftk_tpu.kernels.fused_filter import FusedFilterFactors, dot_z, fused_filter_mid
+    from dftk_tpu.kernels.fused_local import fused_local_apply
+    from dftk_tpu.ops.engine_split import build_pruned_fft
+    jb = si2_kgrid_basis(dftk)
+    pf = build_pruned_fft(jb, dtype=jnp.float64)
+    fwd, bwd = [], []
+    for a in range(3):
+        blk_f, blk_b = np.asarray(pf.Fblk_f[a]), np.asarray(pf.Fblk_b[a])   # [[C, S], [-S, C]]
+        m, n = blk_f.shape[0] // 2, blk_f.shape[1] // 2
+        fwd.append(_c(blk_f[:m, :n] + 1j * blk_f[:m, n:]))
+        bwd.append(_c(blk_b[:n, :m] + 1j * blk_b[:n, m:]))
+    m_shape = tuple(np.asarray(pf.Fblk_f[a]).shape[0] // 2 for a in range(3))
+    n = jb.fft_size
+    xc, V_zxy = kernel_inputs(0, jb.n_kpoints, m_shape, n)
+    yr, yi = fused_local_apply(jnp.asarray(xc.real), jnp.asarray(xc.imag),
+                               jnp.asarray(np.transpose(V_zxy, (0, 1, 3, 2))), pf,
+                               interpret=True)
+    out = dict(m_shape=list(m_shape), fwd=fwd, bwd=bwd, local_apply=_c(np.asarray(yr)
+                                                                        + 1j * np.asarray(yi)))
+    pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+    pf32 = build_pruned_fft(jb, dtype=jnp.float32)
+
+    def plane(t, V, prec):
+        # fused_filter_mid's layout: [n3, 2 (re/im), m2, m1, nb]
+        t1 = np.stack([t.real, t.imag], axis=1).transpose(2, 1, 4, 3, 0)
+        r5 = np.asarray(fused_filter_mid(jnp.asarray(np.ascontiguousarray(t1)),
+                                         jnp.asarray(V), FusedFilterFactors(pf32, precision=prec)))
+        return _c((r5[:, 0] + 1j * r5[:, 1]).transpose(3, 0, 2, 1))     # [nb, n3, m1, m2]
+
+    out["local_plane"] = plane(*plane_inputs(1, m_shape, n), "highest")
+    t6, V6 = plane_inputs(6, m_shape, n)
+    out["local_plane_bf16"] = {p: plane(t6, V6, p) for p in ("default", "highest")}
+    m1, m2, m3 = m_shape
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(1, PLANE_NB, m1, m2, m3))
+         + 1j * rng.normal(size=(1, PLANE_NB, m1, m2, m3))).astype(np.complex64)
+    # dot_z's layout: [k, 2 m3 (z, re/im), m2, m1, nb]
+    X = np.stack([x.real, x.imag], axis=-1).transpose(0, 4, 5, 3, 2, 1)
+    X = jnp.asarray(np.ascontiguousarray(X).reshape(1, 2 * m3, m2, m1, PLANE_NB))
+    out["dot_z"] = {}
+    for prec in ("default", "highest"):
+        y = np.asarray(dot_z(FusedFilterFactors(pf32, precision=prec).f3f, X, prec))
+        y = y.reshape(1, n[2], 2, m2, m1, PLANE_NB)
+        out["dot_z"][prec] = _c((y[:, :, 0] + 1j * y[:, :, 1]).transpose(0, 4, 1, 3, 2))
+    return out
 
 
 if __name__ == "__main__":

@@ -1166,3 +1166,58 @@ def test_cuda_exchange_and_ace_match_cpu(case):
     for a, ref in zip(outs["cuda"], outs["cpu"]):
         assert bool(torch.isfinite(a).all())
         assert float((a - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nk, nb, m, n", [
+    (1, 9, (32, 32, 8), (64, 64, 1)),       # 2D Fock-Darwin / rotating GP: a plane, n3 = 1
+    (1, 12, (32, 32, 8), (60, 60, 1)),      # 2D anyons (Ecut 20, a = 14)
+    (1, 3, (32, 32, 8), (64, 64, 1)),       # ... a short LOBPCG block
+    (1, 4, (104, 8, 8), (216, 1, 1)),       # 1D GP (Ecut 500): a line, n2 = n3 = 1
+    (1, 12, (104, 8, 8), (216, 1, 1))])     # ... its LOBPCG block of 3 x 4
+def test_cuda_kernels_on_unit_axes(nk, nb, m, n):
+    """Kernels A and B and the A -> B -> A chain on the 2D cells' planes
+    (n3 = 1) and the 1D cell's line (n2 = n3 = 1), where the compact axes
+    padded to 8 are longer than their grid axes: complex128 at 1e-11 of
+    max|out|, bf16 by the margin rule, with the pruned factors of such an
+    axis (one live row of all ones, seven zero rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    rng = np.random.default_rng(45)
+
+    def factor(a, b, fwd):
+        F = np.zeros((a, b), dtype=complex) if b == 1 else None
+        if F is not None:
+            F[0, 0] = 1.0
+            return torch.as_tensor(F if fwd else F.T.copy(), device="cuda")
+        return _c128(rng, (a, b) if fwd else (b, a), (a if fwd else b) ** -0.5)
+
+    x = _c128(rng, (nk, nb) + m)
+    V = torch.as_tensor(rng.normal(size=(nk, n[2], n[0], n[1])), device="cuda")
+    fac = la.LocalFactors(fwd=tuple(factor(a, b, True) for a, b in zip(m, n)),
+                          bwd=tuple(factor(a, b, False) for a, b in zip(m, n)))
+    t = la.pruned_axis_dft_plain(x, fac.fwd[2], True).contiguous()
+    la.counts.reset()
+    assert _close_c128(la.pruned_axis_dft(x, fac.fwd[2], True),
+                       la.pruned_axis_dft_plain(x, fac.fwd[2], True))
+    assert _close_c128(la.pruned_axis_dft(t, fac.bwd[2], False),
+                       la.pruned_axis_dft_plain(t, fac.bwd[2], False))
+    assert _close_c128(la.local_plane(t, V, fac), la.local_plane_plain(t, V, fac))
+    assert _close_c128(la.local_apply(x, V, fac), la.local_apply_plain(x, V, fac))
+    c64 = lambda f: f.to(torch.complex64)
+    x64, t64, V32 = c64(x), c64(t), V.float()
+    fac64 = la.LocalFactors(fwd=tuple(map(c64, fac.fwd)), bwd=tuple(map(c64, fac.bwd)))
+    for kern, plain in (
+            (lambda p: la.pruned_axis_dft(x64, fac64.fwd[2], True, p),
+             lambda p: la.pruned_axis_dft_plain(x64, fac64.fwd[2], True, p)),
+            (lambda p: la.pruned_axis_dft(t64, fac64.bwd[2], False, p),
+             lambda p: la.pruned_axis_dft_plain(t64, fac64.bwd[2], False, p)),
+            (lambda p: la.local_plane(t64, V32, fac64, precision=p),
+             lambda p: la.local_plane_plain(t64, V32, fac64, p)),
+            (lambda p: la.local_apply(x64, V32, fac64, p),
+             lambda p: la.local_apply_plain(x64, V32, fac64, p))):
+        assert _margin(kern("default"), plain("default"), plain("highest"))
+    assert la.counts.launches["pruned_axis_dft"] == 4
+    assert la.counts.launches["local_plane"] == 2
+    assert la.counts.launches["pruned_axis_dft[bf16]"] == 4
+    assert la.counts.launches["local_plane[bf16]"] == 2

@@ -25,10 +25,7 @@ orbitals this file imports):
     (use_ace=False; its first eigensolve differs, as V_ACE equals Vx only
     on the span);
   * the split-engine adapters (`ops/exx_split.py`) against the complex
-    path: 1e-10;
-  * the item-11b terms (the JAX package's Magnetic, Anyonic,
-    PairwisePotential, LocalNonlinearity and External* terms) still raise
-    NotImplementedError naming item 11b.
+    path: 1e-10.
 """
 import importlib.util
 import json
@@ -235,22 +232,3 @@ def test_split_adapters(he_gamma, he_kgrid, what):
         out = exx_split.apply_ace_split(xi, _rows(psi))
         ref = _rows(apply_ace(build_ace(exx), psi))
     _close(out.numpy(), ref.numpy(), 1e-10)
-
-
-@pytest.mark.parametrize("term", ["Magnetic", "Anyonic", "PairwisePotential",
-                                  "LocalNonlinearity", "ExternalFromReal",
-                                  "ExternalFromFourier", "ExternalFromValues"])
-def test_item_11b_terms_raise(term):
-    import dftk_tpu as dftk
-    inst = {"Magnetic": lambda: dftk.Magnetic(Apot=lambda r: 0 * r),
-            "Anyonic": lambda: dftk.Anyonic(hbar=1.0, beta=0.5),
-            "PairwisePotential": lambda: dftk.PairwisePotential(V=lambda d2: d2, params={}),
-            "LocalNonlinearity": lambda: dftk.LocalNonlinearity(f=lambda rho: rho ** 2),
-            "ExternalFromReal": lambda: dftk.ExternalFromReal(lambda r: r[..., 0]),
-            "ExternalFromFourier": lambda: dftk.ExternalFromFourier(lambda G: G[..., 0]),
-            "ExternalFromValues": lambda: dftk.ExternalFromValues(np.zeros((9, 9, 9)))}[term]()
-    He = dt.ElementPsp.from_symbol("He", psp="lda/he-q2")
-    model = dt.Model(np.eye(3) * 5.0, [He], make.HE_POS, term_types=[dt.Kinetic(), inst],
-                     symmetries=False)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")

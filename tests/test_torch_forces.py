@@ -253,9 +253,10 @@ def _nlcc_derivatives_match_differences(tb, ts, derivative):
 @pytest.mark.parametrize("derivative", ["forces", "stresses"])
 @pytest.mark.parametrize("what", ["nlcc", "pairwise", "tau", "symmetry"])
 def test_unported_raise(state, what, derivative):
-    """Unported cases raise, naming their ROADMAP item (classical pairwise
-    terms, item 11).  The other cases check what was refused before and now
-    runs: "symmetry" (item 5a) holds the derivatives symmetrized over the
+    """What was refused before and now runs.  "pairwise" (item 11b): the
+    forces add the PairwisePotential's forces (injected here), and the
+    stresses raise NotImplementedError for a model with the term, as the
+    JAX package's leave it out (ROADMAP Queue 3).  "symmetry" (item 5a) holds the derivatives symmetrized over the
     four operations of the displaced Si2 (detected by the port) against the
     JAX package's on the same basis, within 1e-12; "nlcc" (item 8b) holds
     the NLCC derivatives of a Gaussian core density to central differences
@@ -270,7 +271,15 @@ def test_unported_raise(state, what, derivative):
         return
     elif what == "pairwise":
         basis.terms = copy.copy(tb.terms)
-        basis.terms.pairwise_forces = np.zeros((2, 3))
+        basis.terms.pairwise_forces = np.random.default_rng(5).normal(size=(2, 3))
+        if derivative == "forces":
+            diff = dt.compute_forces(res, basis) - dt.compute_forces(ts, tb)
+            assert _max_diff(diff, basis.terms.pairwise_forces) < 1e-15
+            return
+        from dftk_tpu_torch.ops.pairwise import lennard_jones
+        basis.model = copy.copy(tb.model)
+        basis.model.term_types = list(tb.model.term_types) + [
+            dt.PairwisePotential(V=lennard_jones, params={})]
     elif what == "tau":
         res.tau = res.rho
         assert _max_diff(fn(res, basis), fn(ts, tb)) == 0.0
@@ -288,5 +297,5 @@ def test_unported_raise(state, what, derivative):
         print(f"symmetrized {derivative} vs JAX: {_max_diff(out, want):.2e}")
         assert _max_diff(out, want) < BAR
         return
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="PairwisePotential.*energy_at_lattice"):
         fn(res, basis)

@@ -2,7 +2,12 @@
 
 The plain PyTorch versions in `dftk_tpu_torch/kernels/local_apply.py` are
 held against the JAX package's Pallas kernels, run on the CPU in interpret
-mode, on the same inputs made with numpy:
+mode on the same inputs made with numpy, whose outputs are recorded in
+tests/data/torch_port_scf.json (entry "kernels"; its `command` reruns
+tests/data/make_torch_port_scf.py, whose constructors and seeded inputs
+this file imports):
+  * the pruned factors against the JAX package's realified block factors,
+    1e-15;
   * local_apply_plain vs kernels/fused_local.py::fused_local_apply, f64,
     1e-12 (the bar of tests/test_engine_split.py::
     test_pallas_fused_local_matches_xla);
@@ -18,30 +23,23 @@ mode, on the same inputs made with numpy:
 The CUDA kernels themselves run only on a GPU: tests/test_torch_cuda.py
 holds them against the plain versions there.
 """
-import functools
+import importlib.util
+import json
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-import dftk_tpu as dftk
-from dftk_tpu.ops.engine_split import build_pruned_fft as jax_build_pruned_fft
-
 import dftk_tpu_torch as dt
 from dftk_tpu_torch.kernels import local_apply as la
 
-A_SI = 5.131570667152971
-SI_LATTICE = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
-
-
-def _si2(pkg, **kw):
-    Si = pkg.ElementPsp.from_symbol("Si", psp="lda/si-q4")
-    model = pkg.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
-                          functionals=["lda_x", "lda_c_vwn"], symmetries=False)
-    return pkg.PlaneWaveBasis(model, Ecut=7.0, kgrid=pkg.MonkhorstPack((2, 2, 2)),
-                              fft_size=(18, 18, 18), **kw)
+DATA = pathlib.Path(__file__).parent / "data"
+_spec = importlib.util.spec_from_file_location("make_scf", DATA / "make_torch_port_scf.py")
+make = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make)
+with open(DATA / "torch_port_scf.json") as _f:
+    REF = json.load(_f)["kernels"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,7 +49,7 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def bases():
-    return _si2(dftk), _si2(dt, device="cpu")
+    return make.si2_kgrid_basis(dt, device="cpu")
 
 
 def _random_inputs(rng, nk, nb, m, n):
@@ -61,73 +59,36 @@ def _random_inputs(rng, nk, nb, m, n):
 
 
 def test_pruned_factors_match_jax_block_factors(bases):
-    jb, tb = bases
-    pf = jax_build_pruned_fft(jb, dtype=jnp.float64)
+    tb = bases
     fac = tb.pruned.factors
+    assert list(tb.pruned.m_shape) == REF["m_shape"]
     for a in range(3):
-        m, n = fac.fwd[a].shape
-        blk_f = np.asarray(pf.Fblk_f[a])      # [[C, S], [-S, C]]
-        blk_b = np.asarray(pf.Fblk_b[a])
-        np.testing.assert_allclose(fac.fwd[a].numpy(),
-                                   blk_f[:m, :n] + 1j * blk_f[:m, n:], atol=1e-15)
-        np.testing.assert_allclose(fac.bwd[a].numpy(),
-                                   blk_b[:n, :m] + 1j * blk_b[:n, m:], atol=1e-15)
+        np.testing.assert_allclose(fac.fwd[a].numpy(), make.as_complex(REF["fwd"][a]),
+                                   atol=1e-15)
+        np.testing.assert_allclose(fac.bwd[a].numpy(), make.as_complex(REF["bwd"][a]),
+                                   atol=1e-15)
 
 
 def test_local_apply_plain_matches_fused_local_interpret(bases):
-    from dftk_tpu.kernels.fused_local import fused_local_apply
-    jb, tb = bases
-    pf = jax_build_pruned_fft(jb, dtype=jnp.float64)
-    m, n = tb.pruned.m_shape, tb.fft_size
-    xc, V_zxy = _random_inputs(np.random.default_rng(0), tb.n_kpoints, 3, m, n)
-    V_rev = np.transpose(V_zxy, (0, 1, 3, 2))          # [nk, n3, n2, n1]
-    yr, yi = fused_local_apply(jnp.asarray(xc.real), jnp.asarray(xc.imag),
-                               jnp.asarray(V_rev), pf, interpret=True)
-    ref = np.asarray(yr) + 1j * np.asarray(yi)
+    tb = bases
+    xc, V_zxy = make.kernel_inputs(0, tb.n_kpoints, tb.pruned.m_shape, tb.fft_size)
     out = la.local_apply_plain(torch.as_tensor(xc), torch.as_tensor(V_zxy),
                                tb.pruned.factors).numpy()
-    assert np.max(np.abs(out - ref)) < 1e-12
+    assert np.max(np.abs(out - make.as_complex(REF["local_apply"]))) < 1e-12
 
 
-def test_local_plane_plain_matches_fused_filter_mid_interpret(bases, monkeypatch):
-    from jax.experimental import pallas as pl
-    from dftk_tpu.kernels.fused_filter import FusedFilterFactors, fused_filter_mid
-    monkeypatch.setattr(pl, "pallas_call",
-                        functools.partial(pl.pallas_call, interpret=True))
-    jb, tb = bases
-    pf = jax_build_pruned_fft(jb, dtype=jnp.float32)
-    (m1, m2, _), (n1, n2, n3) = tb.pruned.m_shape, tb.fft_size
-    nb = 4
-    rng = np.random.default_rng(1)
-    t = (rng.normal(size=(nb, n3, m1, m2))
-         + 1j * rng.normal(size=(nb, n3, m1, m2))).astype(np.complex64)
-    V = rng.normal(size=(n3, n1, n2)).astype(np.float32)
-    # fused_filter_mid layout: [n3, 2 (re/im), m2, m1, nb]
-    t1 = np.stack([t.real, t.imag], axis=1).transpose(2, 1, 4, 3, 0)
-    ref5 = np.asarray(fused_filter_mid(jnp.asarray(np.ascontiguousarray(t1)),
-                                       jnp.asarray(V),
-                                       FusedFilterFactors(pf, precision="highest")))
-    ref = (ref5[:, 0] + 1j * ref5[:, 1]).transpose(3, 0, 2, 1)   # [nb, n3, m1, m2]
-
-    f64 = tb.pruned.factors
-    f32 = la.LocalFactors(fwd=tuple(f.to(torch.complex64) for f in f64.fwd),
-                          bwd=tuple(f.to(torch.complex64) for f in f64.bwd))
+def test_local_plane_plain_matches_fused_filter_mid_interpret(bases):
+    tb = bases
+    t, V = make.plane_inputs(1, tb.pruned.m_shape, tb.fft_size)
+    ref = make.as_complex(REF["local_plane"])
     out = la.local_plane_plain(torch.as_tensor(t)[None], torch.as_tensor(V)[None],
-                               f32)[0].numpy()
+                               _f32(tb.pruned.factors))[0].numpy()
     assert np.max(np.abs(out - ref)) < 1e-5 * np.max(np.abs(ref))
 
 
 def _f32(factors):
     return la.LocalFactors(fwd=tuple(f.to(torch.complex64) for f in factors.fwd),
                            bwd=tuple(f.to(torch.complex64) for f in factors.bwd))
-
-
-@pytest.fixture(scope="module")
-def interpret_pallas():
-    from jax.experimental import pallas as pl
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
-        yield
 
 
 def _bf16_bar(name, port, ref, ref_highest):
@@ -138,22 +99,10 @@ def _bf16_bar(name, port, ref, ref_highest):
     assert err * 10 <= rounding
 
 
-def test_bf16_local_plane_plain_matches_fused_filter_mid_default(bases, interpret_pallas):
-    from dftk_tpu.kernels.fused_filter import FusedFilterFactors, fused_filter_mid
-    jb, tb = bases
-    pf = jax_build_pruned_fft(jb, dtype=jnp.float32)
-    (m1, m2, _), (n1, n2, n3) = tb.pruned.m_shape, tb.fft_size
-    rng = np.random.default_rng(6)
-    t = (rng.normal(size=(4, n3, m1, m2))
-         + 1j * rng.normal(size=(4, n3, m1, m2))).astype(np.complex64)
-    V = rng.normal(size=(n3, n1, n2)).astype(np.float32)
-    t1 = jnp.asarray(np.ascontiguousarray(
-        np.stack([t.real, t.imag], axis=1).transpose(2, 1, 4, 3, 0)))
-    refs = {}
-    for prec in ("default", "highest"):
-        r5 = np.asarray(fused_filter_mid(t1, jnp.asarray(V),
-                                         FusedFilterFactors(pf, precision=prec)))
-        refs[prec] = (r5[:, 0] + 1j * r5[:, 1]).transpose(3, 0, 2, 1)
+def test_bf16_local_plane_plain_matches_fused_filter_mid_default(bases):
+    tb = bases
+    t, V = make.plane_inputs(6, tb.pruned.m_shape, tb.fft_size)
+    refs = {p: make.as_complex(r) for p, r in REF["local_plane_bf16"].items()}
     la.counts.reset()
     out = la.local_plane_plain(torch.as_tensor(t)[None], torch.as_tensor(V)[None],
                                _f32(tb.pruned.factors), precision="default")[0]
@@ -162,29 +111,19 @@ def test_bf16_local_plane_plain_matches_fused_filter_mid_default(bases, interpre
 
 
 def test_bf16_axis_dft_plain_matches_dot_z_default(bases):
-    from dftk_tpu.kernels.fused_filter import FusedFilterFactors, dot_z
-    jb, tb = bases
-    pf = jax_build_pruned_fft(jb, dtype=jnp.float32)
+    tb = bases
     m1, m2, m3 = tb.pruned.m_shape
-    n3 = tb.fft_size[2]
     rng = np.random.default_rng(7)
-    x = (rng.normal(size=(1, 4, m1, m2, m3))
-         + 1j * rng.normal(size=(1, 4, m1, m2, m3))).astype(np.complex64)
-    # dot_z layout: [k, 2 m3 (z, re/im), m2, m1, nb]
-    X = np.stack([x.real, x.imag], axis=-1).transpose(0, 4, 5, 3, 2, 1)
-    X = jnp.asarray(np.ascontiguousarray(X).reshape(1, 2 * m3, m2, m1, 4))
-    refs = {}
-    for prec in ("default", "highest"):
-        y = np.asarray(dot_z(FusedFilterFactors(pf, precision=prec).f3f, X, prec))
-        y = y.reshape(1, n3, 2, m2, m1, 4)
-        refs[prec] = (y[:, :, 0] + 1j * y[:, :, 1]).transpose(0, 4, 1, 3, 2)
+    shape = (1, make.PLANE_NB, m1, m2, m3)
+    x = (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(np.complex64)
+    refs = {p: make.as_complex(r) for p, r in REF["dot_z"].items()}
     out = la.pruned_axis_dft_plain(torch.as_tensor(x), _f32(tb.pruned.factors).fwd[2],
                                    True, precision="default")
     _bf16_bar("pruned_axis_dft", out.numpy(), refs["default"], refs["highest"])
 
 
 def test_bf16_mode_takes_complex64_only(bases):
-    _, tb = bases
+    tb = bases
     x = torch.zeros((1, 1) + tb.pruned.m_shape, dtype=torch.complex128)
     with pytest.raises(TypeError, match="complex64"):
         la.pruned_axis_dft(x, tb.pruned.factors.fwd[2], True, precision="default")
@@ -199,7 +138,7 @@ def test_bf16_mode_takes_complex64_only(bases):
 def test_wrappers_take_plain_path_on_cpu(bases):
     """On CPU tensors the wrappers run the plain versions and never build or
     launch a kernel (this machine needs no nvcc for that)."""
-    _, tb = bases
+    tb = bases
     m, n = tb.pruned.m_shape, tb.fft_size
     xc, V_zxy = _random_inputs(np.random.default_rng(2), 1, 2, m, n)
     xc, V_zxy = torch.as_tensor(xc), torch.as_tensor(V_zxy)
@@ -263,7 +202,7 @@ def test_chip_smoke_local_plane_library_matches_plain(bases):
     """chip_smoke.py times one torch.einsum as kernel B's library version:
     it must compute the plain version's function."""
     import chip_smoke
-    tb = bases[1]
+    tb = bases
     (m1, m2, _), (n1, n2, n3) = tb.pruned.m_shape, tb.fft_size
     rng = np.random.default_rng(2)
     shape = (tb.n_kpoints, 2, n3, m1, m2)

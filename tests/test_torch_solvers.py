@@ -15,8 +15,9 @@ tens of seconds) with the inputs of tests/data/make_torch_port_response.py:
     (energies within 1e-9 Ha of JAX's); scf_potential_mixing and the
     Chi0Mixing SCF from their own random starts (1e-8 Ha);
   * metals refused by both orbital solvers, TB09 by the orbital energy,
-    and a model with the JAX package's anyonic term (ROADMAP Queue 1 item
-    11) refused where its terms instantiate.
+    an anyonic model on a 3D lattice where its terms instantiate, and a 2D
+    anyonic model by Newton and potential mixing, which name
+    direct_minimization (the JAX package's leave the term out).
 """
 import importlib.util
 import json
@@ -26,11 +27,9 @@ import numpy as np
 import pytest
 import torch
 
-from dftk_tpu import Anyonic
-
 import dftk_tpu_torch as dt
 from dftk_tpu_torch.ops.density import make_symmetrizer
-from dftk_tpu_torch.ops.terms import Kinetic
+from dftk_tpu_torch.ops.terms import Anyonic, Kinetic
 from dftk_tpu_torch.response import chi0 as chi0_mod
 from dftk_tpu_torch.scf.direct import energy_from_orbitals
 from dftk_tpu_torch.scf.driver import random_orbitals
@@ -129,5 +128,12 @@ def test_solvers_refuse_what_they_lack():
         energy_from_orbitals(basis, psi, torch.full((1, 4), 2.0, dtype=torch.float64))
     anyonic = dt.Model(make.SI_LATTICE, [Si, Si], make.SI_POSITIONS,
                        term_types=[Kinetic(scaling_factor=2), Anyonic(hbar=1.0, beta=0.5)])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="2D lattice"):
         dt.PlaneWaveBasis(anyonic, Ecut=3.0, kgrid=(1, 1, 1), fft_size=(9, 9, 9), device="cpu")
+    anyonic = dt.Model(np.diag([14.0, 14.0, 0.0]), [], [], n_electrons=1,
+                       spin_polarization="spinless", symmetries=False,
+                       term_types=[Kinetic(scaling_factor=2), Anyonic(hbar=1.0, beta=0.5)])
+    basis = dt.PlaneWaveBasis(anyonic, Ecut=3.0, kgrid=(1, 1, 1), device="cpu")
+    for solver in (newton, scf_potential_mixing):
+        with pytest.raises(NotImplementedError, match="direct_minimization"):
+            solver(basis)
