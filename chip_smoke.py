@@ -310,12 +310,35 @@ Phases (any failure raises and exits non-zero):
      their bounds; every run with the kernels launched (bf16 too in the
      split run) and no plain call, its wall, iterations and peak device
      memory
+  r. what a user does after an SCF, in float64, against
+     tests/data/torch_port_post.json: r1 examples/band_structure_dos.py's
+     silicon (LDA, Ecut 12, kgrid 4^3, SCF to 1e-10 within 1e-7 Ha of
+     JAX), compute_bands(n_bands=8, kline_density=12) along the fcc path
+     (its largest residual under 1e-6, its Gamma within 1e-6 Ha of the
+     SCF's, its G, X and L within 1e-7 Ha of the JAX package's), the
+     valence DOS integrating to 8 within 0.1, the LDOS integrating over
+     the cell to the DOS within 1e-10 relative,
+     and the PDOS of the PBE UPF twin at Gamma's band edges (bottom s-like,
+     top p-like); r2 phase i's displaced Si54 refined from Ecut 10 to 15
+     (refine_scfres, refine_forces) against a full Ecut-15 SCF (the refined
+     energy's error under a third of the coarse energy's, the refined
+     forces' under the coarse forces'); r3 its relaxation by
+     optimize_geometry (tol_force 1e-3, 20 L-BFGS iterations): converged,
+     the energy fallen, atom 0 back at its site within 1e-3 modulo a common
+     translation; r4 phase c's split result and r1's SCF saved and loaded
+     (r1's restarted within 3 iterations, 1e-10 Ha of the saved energy),
+     the .vts of r1's density, the Wannier90 files of r1's silicon on the
+     full grid (4 functions; overlaps at most 1), and the calculator's
+     state reuse at Si2; kernels A and B against their plain versions at
+     r1's and r2's fine shapes before their runs; every run of r1-r4 with
+     the complex128 kernels launched and no plain call, its wall and peak
+     device memory; the sections on the port's timer
   5. print the kernels' JSON line (launches from phases c, e, f, g, h, j,
-     k, l, m, n, o, p and q, times from phases 3, a, e, f, g and h, bounds
-     from the shapes; the main path's kernels also with their device time
-     and their max_abs_err at each phase-j, phase-k, phase-l and
-     (complex128) phase-m, phase-n, phase-o, phase-p and phase-q run's
-     shapes), then the result line.
+     k, l, m, n, o, p, q and r, times from phases 3, a, e, f, g and h,
+     bounds from the shapes; the main path's kernels also with their device
+     time and their max_abs_err at each phase-j, phase-k, phase-l and
+     (complex128) phase-m, phase-n, phase-o, phase-p, phase-q and phase-r
+     run's shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -1593,16 +1616,12 @@ def derivatives_phase(dt, la, device, smi):
     from dftk_tpu_torch.ops.forces_split import compute_forces_split
     from dftk_tpu_torch.ops.stresses_split import compute_stresses_split
     from dftk_tpu_torch.scf.energy_eval import split_state_to_complex
-    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
     t_phase = time.time()
     with open(os.path.join(HERE, "tests", "data", "torch_port_si54_derivatives.json")) as f:
         ref = json.load(f)
     F_ref, S_ref = np.array(ref["forces_cart"]), np.array(ref["stresses_cart"])
-    m = build_bench_basis(3, 10.0, device).model
-    positions = [p.copy() for p in m.positions]
-    positions[0] = positions[0] + np.array(DISPLACEMENT)
-    model = dt.model_DFT(m.lattice, m.atoms, positions,
-                         functionals=["lda_x", "lda_c_vwn"], symmetries=False)
+    builder, positions, _ = displaced_si54()
+    model = builder(positions)
     basis = dt.PlaneWaveBasis(model, Ecut=10.0, kgrid=(1, 1, 1), device=device)
 
     def show(info):
@@ -3738,6 +3757,284 @@ def terms_phase(dt, la, device, smi):
     return run["launches"], run["errs"]
 
 
+# ---------------------------------------------------------------------------
+# r. postprocess, IO and utilities: the cells of
+#    tests/data/make_torch_port_post.py (loaded, with the port as their
+#    package), whose JAX values phase r1 reads
+# ---------------------------------------------------------------------------
+
+R_GAMMA_BAR = 1e-6            # r1: the path's Gamma against the SCF's Gamma (Ha)
+R_BANDS_RESIDUAL_BAR = 1e-6   # r1: compute_bands' largest residual of the gated bands
+R_JAX_BAR = 1e-7              # r1: the path's G, X, L against the JAX package's (Ha)
+R_ELECTRONS_BAR = 0.1         # r1: the valence DOS's integral against 8 (tests/test_bands_dos.py)
+R_LDOS_BAR = 1e-10            # r1: the LDOS's cell integral against the DOS (relative)
+R_RESTART_BAR = 1e-10         # r4: the restarted SCF against the saved energy (Ha)
+R_POSITION_BAR = 1e-3         # r3: the displaced atom back at its site (reduced)
+R3 = dict(tol_force=1e-3, maxiter=20, scf_tol=1e-8)
+
+
+def load_post_cells():
+    """tests/data/make_torch_port_post.py as a module: its constructors take
+    the package as an argument, and loading it imports nothing of JAX
+    (checked here)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_port_post", os.path.join(HERE, "tests", "data", "make_torch_port_post.py"))
+    make = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make)
+    check(not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dftk_tpu")],
+          "phase r: loading the cells imported no JAX")
+    return make
+
+
+def post_r1(dt, la, device, smi, run, ref, make):
+    """r1: examples/band_structure_dos.py's silicon: the SCF, the band
+    structure along the fcc path, the DOS and LDOS, and the PDOS of its PBE
+    UPF twin at Gamma's band edges.  Returns the SCF result."""
+    import torch
+    from dftk_tpu_torch.postprocess.dos import compute_pdos
+    from dftk_tpu_torch.utils.timer import timer
+    total = run["launches"]
+    want = ref["r1"]
+    basis = make.r1_basis(dt, device=device)
+    check(list(basis.fft_size) == want["fft_size"] and basis.n_kpoints == want["n_kpoints"],
+          "r1: the JAX package's basis")
+    hold_kernels_at(la, basis, "r1 silicon", make.R1["n_bands"], run["errs"], tag="r")
+    psi0 = torch.as_tensor(make.seeded_orbitals(basis.mask_np, make.R1["n_bands"] + 3, 14),
+                           device=device)
+    res = counted_run(la, smi, total, "r1 SCF", "r", lambda: dt.self_consistent_field(
+        basis, tol=make.R1["tol"], n_bands=make.R1["n_bands"], psi=psi0))
+    print(f"[r] r1 SCF: {res.n_iter} iterations, E = {res.total_energy:.12f}", flush=True)
+    check(res.converged, "r1 SCF converged")
+    held_against(smi, "r", "r1 SCF energy against JAX", res.total_energy, want["total_energy"],
+                 E_TOL)
+    t0 = dict(timer.totals)
+    bands = counted_run(la, smi, total, "r1 compute_bands", "r", lambda: dt.compute_bands(
+        res, n_bands=make.R1["n_bands"], kline_density=12))
+    dt_ = {k: timer.totals[k] - t0.get(k, 0.0) for k in ("compute_bands basis",
+                                                          "compute_bands lobpcg")}
+    ev, kp = bands["eigenvalues"], bands["kpath"]
+    print(f"[r] r1 compute_bands: {len(kp.kcoords)} k-points, basis build "
+          f"{dt_['compute_bands basis']:.2f} s, LOBPCG {dt_['compute_bands lobpcg']:.2f} s "
+          f"({bands['n_iter']} iterations, converged={bands['converged']}, largest residual "
+          f"{bands['residual']:.2e}; {smi})", flush=True)
+    # LOBPCG's stall rule (both packages: 6 steps without a 1% gain) may end
+    # a path point whose last gated band sits by a cluster above the block
+    # at ~5e-8 (the CPU's G-L point at 2/7: 4.6e-8); its eigenvalues are
+    # then exact far below the bars
+    check(bands["residual"] < R_BANDS_RESIDUAL_BAR, "r1 compute_bands' residuals")
+    first = {}
+    for i in sorted(kp.labels):
+        first.setdefault(kp.labels[i], i)
+    ik0 = int(np.argmin(np.linalg.norm(basis.kcoords, axis=1)))
+    check(np.linalg.norm(basis.kcoords[ik0]) == 0, "r1: the SCF's grid holds Gamma")
+    held_against(smi, "r", "r1 path Gamma against the SCF's Gamma", ev[first["G"]],
+                 res.eigenvalues[ik0, :make.R1["n_bands"]], R_GAMMA_BAR)
+    for name, k in make.R1_KPOINTS.items():
+        check(np.allclose(kp.kcoords[first[name]], k), f"r1: {name} on the path")
+        held_against(smi, "r", f"r1 path {name} against JAX", ev[first[name]],
+                     np.array(want["eigenvalues"][name]), R_JAX_BAR)
+
+    e = make.DOS_EPS
+    eps = np.linspace(e["lo"], res.epsF, e["n"])
+    dos = dt.compute_dos(eps, basis, res.eigenvalues, temperature=e["temperature"])
+    n_el = float(np.trapezoid(dos, eps))
+    print(f"[r] r1 valence DOS integral {n_el:.6f} (8 within {R_ELECTRONS_BAR})", flush=True)
+    check(abs(n_el - 8.0) < R_ELECTRONS_BAR, "r1: the valence DOS integrates to 8")
+    eps = res.epsF - np.array([0.05, 0.15, 0.3])
+    ldos = dt.compute_ldos(eps, basis, res.eigenvalues, res.psi)
+    dos = dt.compute_dos(eps, basis, res.eigenvalues)
+    rel = float(np.abs(ldos.sum(axis=(1, 2, 3)) * basis.dvol - dos).max() / np.abs(dos).max())
+    print(f"[r] r1 LDOS: {ldos.shape}, cell integral against the DOS {rel:.3e} relative",
+          flush=True)
+    check(np.isfinite(ldos).all() and rel < R_LDOS_BAR, "r1: the LDOS integrates to the DOS")
+
+    pbe = dt.PlaneWaveBasis(make.si2_model(dt, functionals="PBE", psp=make.SI_UPF),
+                            Ecut=make.R1["Ecut"], kgrid=make.R1["kgrid"], device=device)
+    r_pbe = counted_run(la, smi, total, "r1 PBE UPF SCF", "r", lambda: dt.self_consistent_field(
+        pbe, tol=1e-8, n_bands=make.R1["n_bands"]))
+    ik0 = int(np.argmin(np.linalg.norm(pbe.kcoords, axis=1)))
+    eps = np.array([r_pbe.eigenvalues[ik0, 0], r_pbe.eigenvalues[ik0, 3]])
+    pdos = compute_pdos(eps, pbe, r_pbe.eigenvalues, r_pbe.psi)
+    s = [sum(pdos[k][i] for k in pdos if "_l0_" in k) for i in (0, 1)]
+    p = [sum(pdos[k][i] for k in pdos if "_l1_" in k) for i in (0, 1)]
+    print(f"[r] r1 PDOS at Gamma's band bottom and top: s {s}, p {p}", flush=True)
+    check(r_pbe.converged and len(pdos) == 4 and s[0] > p[0] and p[1] > s[1],
+          "r1: the band bottom s-like, the top p-like")
+    return res
+
+
+def displaced_si54():
+    """Phase i's Si54 (`tools/run_si_big.py::bench_model`) with atom 0 moved
+    by DISPLACEMENT: (builder(positions) -> Model, the displaced positions,
+    the ideal ones)."""
+    from dftk_tpu_torch.tools.run_si_big import bench_model
+    ideal = bench_model(3).positions
+    positions = [p.copy() for p in ideal]
+    positions[0] = positions[0] + np.array(DISPLACEMENT)
+    return (lambda pos: bench_model(3, pos)), positions, ideal
+
+
+def post_r2(dt, la, device, smi, run):
+    """r2: the two-grid refinement of the displaced Si54 (Ecut 10 -> 15)
+    against a full Ecut-15 SCF (tests/test_refine_chefsi.py's claims)."""
+    from dftk_tpu_torch.response import chi0 as chi0_mod
+    total = run["launches"]
+    builder, positions, _ = displaced_si54()
+    model = builder(positions)
+    coarse = dt.PlaneWaveBasis(model, Ecut=10.0, kgrid=(1, 1, 1), device=device)
+    res_c = counted_run(la, smi, total, "r2 SCF at Ecut 10", "r", lambda: dt.self_consistent_field(
+        coarse, tol=1e-10))
+    check(res_c.converged, "r2 coarse SCF converged")
+    ref_, fr = counted_run(la, smi, total, "r2 refine_scfres and refine_forces", "r", lambda: (
+        lambda r: (r, dt.refine_forces(r)))(dt.refine_scfres(res_c, Ecut_fine=15.0)))
+    print(f"[r] r2 refinement to {ref_.basis}: Omega + K CG steps "
+          f"{chi0_mod.counts.steps['omega_plus_k']}", flush=True)
+    fine = dt.PlaneWaveBasis(model, Ecut=15.0, kgrid=(1, 1, 1), device=device)
+    check(fine.fft_size == ref_.basis.fft_size, "r2: the refinement's fine grid")
+    hold_kernels_at(la, fine, "r2 Si54 Ecut 15", model.default_n_bands(), run["errs"], tag="r")
+    res_f = counted_run(la, smi, total, "r2 SCF at Ecut 15", "r", lambda: dt.self_consistent_field(
+        fine, tol=1e-10))
+    check(res_f.converged, "r2 fine SCF converged")
+    F_f = dt.compute_forces(res_f).cpu().numpy()
+    F_c = dt.compute_forces(res_c).cpu().numpy()
+    err_E = abs(res_c.total_energy - res_f.total_energy)
+    err_E_ref = abs(ref_.total_energy - res_f.total_energy)
+    err_F = float(np.abs(F_c - F_f).max())
+    err_F_ref = float(np.abs(fr["F_refined"] - F_f).max())
+    print(f"[r] r2 energy error: coarse {err_E:.3e}, refined {err_E_ref:.3e} Ha; forces "
+          f"error: coarse {err_F:.3e}, transferred {float(np.abs(fr['F'] - F_f).max()):.3e}, "
+          f"refined {err_F_ref:.3e} Ha/bohr ({smi})", flush=True)
+    check(err_E_ref < err_E / 3, "r2: the refined energy's error under a third of the coarse's")
+    check(err_F_ref < err_F, "r2: the refined forces' error under the coarse forces'")
+
+
+def post_r3(dt, la, device, smi, run):
+    """r3: the displaced Si54 relaxed by optimize_geometry."""
+    total = run["launches"]
+    builder, positions, ideal = displaced_si54()
+    t0 = time.time()
+    out = counted_run(la, smi, total, "r3 optimize_geometry", "r", lambda: dt.optimize_geometry(
+        builder, positions, Ecut=10.0, kgrid=(1, 1, 1), tol_force=R3["tol_force"],
+        maxiter=R3["maxiter"], scf_kwargs=dict(tol=R3["scf_tol"]), device=device))
+    wall = time.time() - t0
+    traj = out["trajectory"]
+    d = np.array(out["positions"]) - np.array(ideal)
+    d -= np.round(d)
+    off = d[0] - d[1:].mean(axis=0)
+    print(f"[r] r3: {out['n_scf']} SCFs in {wall:.2f} s ({wall / out['n_scf']:.2f} s each), "
+          f"E {traj[0][0]:.10f} -> {out['energy']:.10f}, max|F| {traj[0][1]:.3e} -> "
+          f"{np.abs(out['forces']).max():.3e}, atom 0 off its site by {np.abs(off).max():.2e} "
+          f"(start {np.abs(np.array(DISPLACEMENT)).max():.0e}; {smi})", flush=True)
+    check(out["converged"], "r3 relaxation converged")
+    check(out["energy"] < traj[0][0], "r3: the energy fell")
+    check(np.abs(off).max() < R_POSITION_BAR, "r3: atom 0 back at its site")
+
+
+def post_r4(dt, la, device, smi, run, res1, si54, make):
+    """r4: checkpoints (phase c's Si54 split result and r1's SCF) saved and
+    loaded, r1's SCF restarted from its file; the .vts of r1's density, the
+    Wannier90 files of r1's silicon on the full grid; the calculator's
+    state reuse at Si2."""
+    import torch
+    from dftk_tpu_torch.external import wannier
+    from dftk_tpu_torch.external.calculator import DFTCalculator
+    total = run["launches"]
+    out_dir = os.path.join(HERE, "build", "chip_smoke_r4")
+    os.makedirs(out_dir, exist_ok=True)
+    basis_c, res_c = si54
+    fn = os.path.join(out_dir, "si54_split.npz")
+    dt.save_scfres(fn, res_c)
+    loaded = dt.load_scfres(fn, device=device)
+    check(loaded["basis"].fft_size == basis_c.fft_size
+          and loaded["psi"].shape == tuple(res_c["U"].shape)
+          and loaded["energies"] == res_c["energies"], "r4: the split result loads back")
+    fn = os.path.join(out_dir, "si2_r1.npz")
+    dt.save_scfres(fn, res1)
+    loaded = dt.load_scfres(fn, device=device)
+    b = loaded["basis"]
+    check(b.fft_size == res1.basis.fft_size and len(b.symmetries) == len(res1.basis.symmetries),
+          "r4: r1's basis rebuilt")
+    res = counted_run(
+        la, smi, total, "r4 restart from r1's file", "r", lambda: dt.self_consistent_field(
+            b, tol=make.R1["tol"], n_bands=make.R1["n_bands"],
+            rho=torch.as_tensor(loaded["rho"], device=device),
+            psi=torch.as_tensor(loaded["psi"], device=device)))
+    dE = res.total_energy - loaded["energies"]["total"]
+    print(f"[r] r4 restart: {res.n_iter} iterations, E diff {dE:.3e} Ha", flush=True)
+    check(res.converged and res.n_iter <= 3 and abs(dE) < R_RESTART_BAR,
+          "r4: the restart converges within 3 iterations at the saved energy")
+    fn = os.path.join(out_dir, "si2_r1.vts")
+    dt.save_scfres(fn, res1)
+    with open(fn) as f:
+        head = f.read(400)
+    check("StructuredGrid" in head and os.path.getsize(fn) > 0, "r4: the .vts written")
+    full = dt.unfold_bz(res1)
+    files = wannier.write_wannier90_files(os.path.join(out_dir, "si"), full, n_wann=4, bands=4)
+    lines = open(files["mmn"]).read().splitlines()
+    nb, nk, nnb = map(int, lines[1].split())
+    vals = np.array([[float(x) for x in ln.split()] for ln in lines[2:] if len(ln.split()) == 2])
+    mag = np.hypot(vals[:, 0], vals[:, 1])
+    print(f"[r] r4 Wannier90: {nk} k-points, {nnb} neighbours, {len(vals)} overlaps, "
+          f"max |M| {mag.max():.6f}", flush=True)
+    check((nb, nk) == (4, full.basis.n_kpoints) and nnb >= 6 and np.isfinite(mag).all()
+          and mag.max() <= 1 + 1e-6, "r4: the Wannier90 overlaps")
+
+    def cbuilder(lattice, positions):
+        return make.si2_model(dt, positions=positions)
+
+    calc = DFTCalculator(cbuilder, Ecut=5.0, kgrid=(1, 1, 1), device=device,
+                         scf_kwargs=dict(tol=1e-7, maxiter=40))
+    E1 = calc.potential_energy(make.SI_LATTICE, make.SI_POSITIONS)
+    F1 = calc.forces(make.SI_LATTICE, make.SI_POSITIONS)
+    calls1 = calc.n_scf_calls
+    E2 = calc.potential_energy(make.SI_LATTICE, [make.SI_POSITIONS[0] + 0.01,
+                                                 make.SI_POSITIONS[1]])
+    print(f"[r] r4 calculator: E1 {E1:.10f}, E2 {E2:.10f}, SCF calls {calls1} then "
+          f"{calc.n_scf_calls}", flush=True)
+    check(calls1 == 1 and calc.n_scf_calls == 2 and E2 > E1 and F1.shape == (2, 3),
+          "r4: the calculator reuses its state")
+
+
+def post_phase(dt, la, device, smi, si54):
+    """Phase r: what a user does after an SCF, on the card: r1 the band
+    structure, DOS, LDOS and PDOS of silicon; r2 the two-grid refinement
+    of the displaced Si54 with its refined forces; r3 its relaxation; r4
+    checkpoints, the .vts and Wannier90 exports and the calculator.  Kernels
+    A and B are held against their plain versions at r1's and r2's fine
+    shapes.  si54: phase c's (basis, split result).  The sections are timed
+    on the port's timer (CUDA events).  Returns the kernel launches of
+    r1-r3 and each kernel's max_abs_err at each run's shapes."""
+    from dftk_tpu_torch.utils.timer import timer
+    with open(os.path.join(HERE, "tests", "data", "torch_port_post.json")) as f:
+        ref = json.load(f)
+    make = load_post_cells()
+    run = dict(launches={}, errs={})
+    timer.reset()
+    t0 = time.time()
+    out = {}
+    for name, fn in (("r1", lambda: out.setdefault("res1", post_r1(dt, la, device, smi, run,
+                                                                     ref, make))),
+                     ("r2", lambda: post_r2(dt, la, device, smi, run)),
+                     ("r3", lambda: post_r3(dt, la, device, smi, run))):
+        t1 = time.time()
+        with timer.section(f"phase {name}"):
+            fn()
+        print(f"[r] {name}: {time.time() - t1:.1f} s ({smi})", flush=True)
+    launches = dict(run["launches"])
+    check(launches.get("pruned_axis_dft", 0) > 0 and launches.get("local_plane", 0) > 0,
+          "phase r1-r3: kernels A and B complex128 launched")
+    t1 = time.time()
+    with timer.section("phase r4"):
+        post_r4(dt, la, device, smi, run, out["res1"], si54, make)
+    print(f"[r] r4: {time.time() - t1:.1f} s ({smi})", flush=True)
+    print(f"[r] phase r: {time.time() - t0:.1f} s; launches r1-r3 {launches} ({smi})",
+          flush=True)
+    for line in timer.report().splitlines():
+        print(f"[r] {line}", flush=True)
+    return launches, run["errs"]
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -3871,7 +4168,6 @@ def main():
     q_launches, q_errs = q_phonon_phase(dt, la, device, smi, si54)
     for name, count in q_launches.items():
         launches[name] += count
-    del si54
     torch.cuda.empty_cache()
 
     # ---- p. exact exchange and DFT+U ------------------------------------------------
@@ -3884,6 +4180,13 @@ def main():
     terms_launches, terms_errs = terms_phase(dt, la, device, smi)
     for name, count in terms_launches.items():
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # ---- r. postprocess, IO and utilities ---------------------------------------------
+    post_launches, post_errs = post_phase(dt, la, device, smi, si54)
+    for name, count in post_launches.items():
+        launches[name] += count
+    del si54
 
     # ---- 5. results ---------------------------------------------------------
     x_shape, t_shape = (1, N_BANDS_KERNEL) + m, (1, N_BANDS_KERNEL, n[2], m[0], m[1])
@@ -3913,7 +4216,9 @@ def main():
                             **({"max_abs_err_phase_p": exx_errs[name]}
                                if name in exx_errs else {}),
                             **({"max_abs_err_phase_q": terms_errs[name]}
-                               if name in terms_errs else {})))
+                               if name in terms_errs else {}),
+                            **({"max_abs_err_phase_r": post_errs[name]}
+                               if name in post_errs else {})))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

@@ -53,7 +53,20 @@ route `postprocess.phonon.compute_force_constants` with `dynmat_q`,
 split SCF's response entry points (`response.chi0_split`,
 `response.phonon_split`) are adapters over the complex path.  A meta-GGA's H
 adds the DivAgrad term through the same kernels, and its split SCF filters
-with the sphere apply.  See ROADMAP.md for what is still to port.
+with the sphere apply.
+
+After an SCF: band structures along `irrfbz_path` (`compute_bands`), the
+total, local and projected densities of states (`compute_dos`,
+`compute_ldos`, `postprocess.dos.compute_pdos`), the two-grid refinement
+with its refined forces (`refine_scfres`, `refine_forces`,
+`refine_forces_cart`), relaxations (`optimize_geometry`, and
+`external.calculator.DFTCalculator`), checkpoints in the JAX package's
+file format (`save_scfres`, `load_scfres`, `todict`, `save_vts`), the
+Wannier90 files (`external.wannier`), structure readers
+(`external.structure`), `transfer_blochwave`/`transfer_density`,
+`standardize_atoms`, `postprocess.plotting` (with matplotlib) and the
+`timer` (CUDA events on a card).  See ROADMAP.md for what is still to
+port.
 """
 import torch
 
@@ -64,10 +77,11 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .basis import PlaneWaveBasis  # noqa: E402
-from .bzmesh import ExplicitKpoints, MonkhorstPack  # noqa: E402
+from .bzmesh import ExplicitKpoints, MonkhorstPack, kgrid_from_maximal_spacing  # noqa: E402
 from .models import smearing as Smearing  # noqa: E402
 from .models.elements import (ElementCohenBergstresser, ElementCoulomb,  # noqa: E402
-                              ElementGaussian, ElementPsp)
+                              ElementGaussian, ElementPsp, atomic_symbol)
+from .models.psp_hgh import PspHgh, list_psp, load_psp, load_psp_hgh, parse_hgh  # noqa: E402
 from .models.psp_lincomb import PspLinComb, virtual_crystal_approximation  # noqa: E402
 from .models.psp_upf import PspUpf, load_psp_upf, parse_upf  # noqa: E402
 from .models.model import Model  # noqa: E402
@@ -83,9 +97,15 @@ from .ops.terms import (Anyonic, AtomicLocal, AtomicNonlocal, BlowupAbinit,  # n
                         ExternalFromFourier, ExternalFromReal, ExternalFromValues,
                         Hartree, Hubbard, Kinetic, LocalNonlinearity, Magnetic,
                         PairwisePotential, PspCorrection, Xc)
-from .ops.density import guess_density, spin_density, total_density  # noqa: E402
+from .ops.density import (compute_density, guess_density, random_density,  # noqa: E402
+                          spin_density, total_density)
 from .ops.engine_split import self_consistent_field_split  # noqa: E402
+from .io.scfres import load_scfres, save_scfres, todict  # noqa: E402
+from .io.vtk import save_vts  # noqa: E402
 from .postprocess.bands import compute_bands, irrfbz_path  # noqa: E402
+from .postprocess.dos import compute_dos, compute_ldos  # noqa: E402
+from .postprocess.geometry import optimize_geometry  # noqa: E402
+from .postprocess.refine import refine_forces, refine_forces_cart, refine_scfres  # noqa: E402
 from .postprocess.current import compute_current  # noqa: E402
 from .postprocess.elastic_response import elastic_tensor_response  # noqa: E402
 from .postprocess.forces import compute_forces, compute_forces_cart  # noqa: E402
@@ -97,11 +117,18 @@ from .postprocess.stresses import compute_stresses_cart  # noqa: E402
 from .postprocess.unfold import unfold_bz  # noqa: E402
 from .scf.direct import direct_minimization  # noqa: E402
 from .scf.driver import SCFResult, self_consistent_field  # noqa: E402
-from .scf.energy_eval import evaluate_total_energy, refine_split_energy  # noqa: E402
+from .scf.energy_eval import (evaluate_total_energy, refine_split_energy,  # noqa: E402
+                              refine_split_state)
 from .scf.mixing import (Chi0Mixing, DielectricMixing, HybridMixing,  # noqa: E402
                          KerkerDosMixing, KerkerMixing, LdosMixing, SimpleMixing)
 from .scf.nbands import AdaptiveBands, FixedBands  # noqa: E402
-from .supercell import create_supercell  # noqa: E402
+from .standardize import find_primitive, minkowski_reduce, standardize_atoms  # noqa: E402
+from .supercell import cell_to_supercell, create_supercell  # noqa: E402
+from .symmetry import SymOp  # noqa: E402
+from .transfer import transfer_blochwave, transfer_density  # noqa: E402
+from .utils.timer import memory_usage, timer, versioninfo  # noqa: E402
+
+__version__ = "0.1.0"
 
 __all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "ElementCoulomb",
            "ElementGaussian", "ElementCohenBergstresser", "PspUpf", "load_psp_upf",
@@ -124,4 +151,11 @@ __all__ = ["model_DFT", "LDA", "PBE", "PBEsol", "ElementPsp", "ElementCoulomb",
            "AtomicNonlocal", "Ewald", "PspCorrection", "Hartree", "Xc", "Entropy",
            "BlowupIdentity", "BlowupCHV", "BlowupAbinit", "ExternalFromReal",
            "ExternalFromFourier", "ExternalFromValues", "LocalNonlinearity", "Magnetic",
-           "Anyonic", "PairwisePotential", "compute_current"]
+           "Anyonic", "PairwisePotential", "compute_current", "kgrid_from_maximal_spacing",
+           "atomic_symbol", "PspHgh", "list_psp", "load_psp", "load_psp_hgh", "parse_hgh",
+           "compute_density", "random_density", "load_scfres", "save_scfres", "todict",
+           "save_vts", "compute_dos", "compute_ldos", "optimize_geometry", "refine_forces",
+           "refine_forces_cart", "refine_scfres", "refine_split_state", "find_primitive",
+           "minkowski_reduce", "standardize_atoms", "cell_to_supercell", "SymOp",
+           "transfer_blochwave", "transfer_density", "memory_usage", "timer", "versioninfo",
+           "__version__"]

@@ -7,6 +7,7 @@ reversal in the reduction, matching the reference's spglib call with
 is_time_reversal=false).
 """
 import dataclasses
+import math
 
 import numpy as np
 
@@ -76,3 +77,12 @@ def as_kgrid(kgrid):
     if isinstance(kgrid, (tuple, list, np.ndarray)):
         return MonkhorstPack(tuple(int(x) for x in kgrid))
     raise TypeError(f"Cannot interpret kgrid: {kgrid!r}")
+
+
+def kgrid_from_maximal_spacing(lattice, spacing):
+    """MP grid with k-spacing at most `spacing` (bohr^-1), DFTK KgridSpacing."""
+    from .utils.lattice import compute_recip_lattice
+    B = compute_recip_lattice(np.asarray(lattice, dtype=float))
+    sizes = [max(1, int(math.ceil(np.linalg.norm(B[:, i]) / spacing)))
+             for i in range(3)]
+    return MonkhorstPack(tuple(sizes))

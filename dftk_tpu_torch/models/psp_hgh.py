@@ -181,3 +181,36 @@ def load_psp_hgh(key: str):
         k = f"lda/{sym.lower()}-q{DEFAULT_Q_SEMICORE[sym]}"
         return parse_hgh(HGH_PSP_TABLE[k], identifier=f"hgh/{k}")
     raise KeyError(f"Unknown built-in HGH pseudopotential: {key}")
+
+
+def load_psp(identifier: str):
+    """Generic loader (the reference's load_psp, src/pseudo/load_psp.jl).
+
+    Accepts "hgh/lda/si-q4" / "lda/si-q4" / bare "Si" for built-in GTH/HGH
+    tables, or a path to a .upf/.UPF file.
+    """
+    s = str(identifier)
+    if s.endswith(".upf") or s.endswith(".UPF"):
+        from .psp_upf import load_psp_upf
+        return load_psp_upf(s)
+    if s.startswith("hgh/"):
+        s = s[4:]
+    return load_psp_hgh(s)
+
+
+def list_psp(element=None, family=None):
+    """Identifiers of all built-in pseudopotentials, optionally filtered.
+
+    family: "lda" or "pbe" (the two built-in GTH tables).
+    element: symbol, e.g. "Si".
+    """
+    out = []
+    for key in sorted(HGH_PSP_TABLE):
+        fam, name = key.split("/", 1)
+        sym = name.split("-")[0]
+        if family is not None and fam != family.lower():
+            continue
+        if element is not None and sym != element.lower():
+            continue
+        out.append(f"hgh/{key}")
+    return out

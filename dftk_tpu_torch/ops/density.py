@@ -5,7 +5,7 @@ Port of `compute_density` (with its derivative along the orbitals,
 `compute_density_derivative`), `compute_kinetic_energy_density`,
 `von_weizsaecker_tau`, `guess_density` (with magnetic moments),
 `total_density`, `spin_density`, `build_symmetrization_maps` and
-`make_symmetrizer` of `dftk_tpu/ops/density.py` (reference
+`make_symmetrizer` and `random_density` of `dftk_tpu/ops/density.py` (reference
 `src/densities.jl:13-57,110-125`, `src/density_methods.jl`,
 `src/symmetry.jl:282-360`):
 
@@ -254,6 +254,21 @@ def _gaussian_superposition(basis, coefficients):
     N = np.prod(basis.fft_size)
     return np.fft.ifftn(rho_G.reshape(basis.fft_size)).real \
         * (N / math.sqrt(model.unit_cell_volume))
+
+
+def random_density(basis, seed=0, n_electrons=None):
+    """Random positive density normalised to n_electrons, on the basis'
+    device: the reference's RandomDensity guess (density_methods.jl), for
+    testing an SCF's robustness against a bad start.  numpy's
+    default_rng(seed) draws it, as in the JAX package, so both packages
+    give the same density."""
+    model = basis.model
+    if n_electrons is None:
+        n_electrons = model.n_electrons
+    rng = np.random.default_rng(seed)
+    rho = rng.random((model.n_spin_components,) + tuple(basis.fft_size))
+    rho *= n_electrons / (rho.sum() * basis.dvol)
+    return basis.tensor(rho)
 
 
 def total_density(rho):

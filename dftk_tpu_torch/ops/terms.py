@@ -429,25 +429,29 @@ def refuse_anyonic(model, what):
 
 
 def _atomic_local_potential(basis):
-    """Form factors x structure factors, iFFT'd on the host
-    (reference terms/local.jl:108-140)."""
+    """Form factors x structure factors, iFFT'd (reference
+    terms/local.jl:108-140); numpy, computed on the basis' device (the
+    structure factors of a large cell are most of a basis' setup on the
+    host)."""
     model = basis.model
+    dev = basis.device
     Gnorm = basis.G_cube_cart_norm.reshape(-1)
-    Gred = basis.G_cube.reshape(-1, 3).astype(float)
-    pot = np.zeros(Gnorm.shape, dtype=np.complex128)
+    Gred = torch.as_tensor(basis.G_cube.reshape(-1, 3), dtype=torch.float64, device=dev)
+    pot = torch.zeros(Gnorm.shape, dtype=torch.complex128, device=dev)
     for group in model.atom_groups:
         el = model.atoms[group[0]]
         if not hasattr(el, "local_potential_fourier"):
             continue
-        ff = np.asarray(el.local_potential_fourier(Gnorm))
-        sf = np.zeros(Gnorm.shape, dtype=np.complex128)
+        ff = torch.as_tensor(np.asarray(el.local_potential_fourier(Gnorm)), device=dev)
+        sf = torch.zeros_like(pot)
         for idx in group:
-            sf += np.exp(1j * (-2 * math.pi * (Gred @ np.asarray(model.positions[idx]))))
+            pos = torch.as_tensor(model.positions[idx], device=dev)
+            sf += torch.exp(-2j * math.pi * (Gred @ pos))
         pot += ff * sf
     pot /= math.sqrt(model.unit_cell_volume)
     N = np.prod(basis.fft_size)
-    return np.fft.ifftn(pot.reshape(basis.fft_size)).real \
-        * (N / math.sqrt(model.unit_cell_volume))
+    return (torch.fft.ifftn(pot.reshape(basis.fft_size)).real
+            * (N / math.sqrt(model.unit_cell_volume))).cpu().numpy()
 
 
 def projector_form_factors(psp, Gpk_cart, mask):
@@ -476,7 +480,7 @@ def projector_form_factors(psp, Gpk_cart, mask):
 
 def _build_nonlocal_projectors(basis):
     """P[nk, nG, nproj] with P[:, :, a] = ff * sf / sqrt(Omega) for each atom
-    of each psp, D block diagonal."""
+    of each psp, D block diagonal; numpy, computed on the basis' device."""
     model = basis.model
     psp_groups = [g for g in model.atom_groups
                   if isinstance(model.atoms[g[0]], ElementPsp)
@@ -484,18 +488,19 @@ def _build_nonlocal_projectors(basis):
     if not psp_groups:
         return None
     sqrt_vol = math.sqrt(model.unit_cell_volume)
-    Gpk = torch.as_tensor(basis.Gpk_cart_np)
-    mask = torch.as_tensor(basis.mask_np)
-    Gred_pk = torch.as_tensor(basis.Gred_np + basis.kcoords_spin[:, None, :])
+    dev = basis.device
+    Gpk = torch.as_tensor(basis.Gpk_cart_np, device=dev)
+    mask = torch.as_tensor(basis.mask_np, device=dev)
+    Gred_pk = torch.as_tensor(basis.Gred_np + basis.kcoords_spin[:, None, :], device=dev)
     Ps, Ds = [], []
     for group in psp_groups:
         ff, D = projector_form_factors(model.atoms[group[0]].psp, Gpk, mask)
         for atom_idx in group:
-            pos = torch.as_tensor(model.positions[atom_idx])
+            pos = torch.as_tensor(model.positions[atom_idx], device=dev)
             sf = torch.exp(-2j * math.pi * (Gred_pk @ pos))
             Ps.append(ff * sf[..., None] / sqrt_vol)
             Ds.append(D)
-    return torch.cat(Ps, -1).numpy(), scipy.linalg.block_diag(*Ds)
+    return torch.cat(Ps, -1).cpu().numpy(), scipy.linalg.block_diag(*Ds)
 
 
 def _atomic_superposition(basis, has_attr, fourier_attr):

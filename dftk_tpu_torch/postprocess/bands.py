@@ -1,13 +1,13 @@
-"""High-symmetry q- and k-paths.
+"""High-symmetry q- and k-paths, and band structures.
 
-Port of the host part of `dftk_tpu/postprocess/bands.py` (reference
+Port of `dftk_tpu/postprocess/bands.py` (reference
 `src/postprocess/band_structure.jl`, whose paths come from Brillouin.jl):
 the Setyawan-Curtarolo high-symmetry points and default paths of the
 common Bravais lattices (`detect_bravais`, `irrfbz_path`, `KPath`), host
 numpy, as `postprocess/phonon.py::phonon_band_structure` lays out its
-q-path.  The band structure itself (`compute_bands`: a basis on the path's
-k-points at the SCF density, diagonalised) is not ported yet (ROADMAP
-Queue 1, item 12) and raises NotImplementedError.
+q-path; and `compute_bands`: a basis on the path's k-points at the SCF's
+FFT size, H at the SCF density, diagonalised by LOBPCG on the basis'
+device (every apply of H through the local-apply kernels on a card).
 """
 import dataclasses
 from typing import Dict, List
@@ -219,5 +219,55 @@ def irrfbz_path(lattice, kline_density=20, paths=None):
 
 def compute_bands(scfres, kcoords=None, n_bands=None, kline_density=20, tol=1e-8, maxiter=200,
                   paths=None):
-    """Not ported yet (ROADMAP Queue 1, item 12): raises NotImplementedError."""
-    raise NotImplementedError("compute_bands is not ported yet (ROADMAP Queue 1, item 12)")
+    """Eigenvalues along a k-path at the fixed SCF density.
+
+    `paths` selects a custom named path (forwarded to irrfbz_path), e.g.
+    ["G", "M", "K", "G"] for the in-plane path of a 2D material (the
+    reference's custom-kpath flow, examples/graphene.jl).  LOBPCG runs on
+    n_bands + 3 bands from `scf/driver.py::random_orbitals` and gates on
+    the lowest n_bands.  Returns a dict with eigenvalues [nk_path, n_bands]
+    (numpy), the basis, kcoords, kpath, epsF, psi (a tensor), converged,
+    and LOBPCG's iterations and largest residual norm of the gated bands
+    (n_iter, residual); the basis build and the LOBPCG are timed on the port's
+    timer (`utils/timer.py`) as "compute_bands basis" and
+    "compute_bands lobpcg".
+    """
+    import torch
+    from ..basis import PlaneWaveBasis
+    from ..bzmesh import ExplicitKpoints
+    from ..ops import hamiltonian as hamops
+    from ..ops.eigen.lobpcg import lobpcg
+    from ..scf.driver import random_orbitals
+    from ..utils.timer import timer
+
+    basis = scfres.basis
+    model = basis.model
+    kpath = None
+    if kcoords is None:
+        kpath = irrfbz_path(model.lattice, kline_density, paths=paths)
+        kcoords = kpath.kcoords
+    if n_bands is None:
+        n_bands = scfres.eigenvalues.shape[1]
+
+    with timer.section("compute_bands basis"):
+        bs_basis = PlaneWaveBasis(model, Ecut=basis.Ecut,
+                                  kgrid=ExplicitKpoints(list(kcoords)),
+                                  fft_size=basis.fft_size, device=basis.device,
+                                  dtype=basis.dtype,
+                                  use_symmetries_for_kpoint_reduction=False)
+    with timer.section("compute_bands lobpcg"), torch.no_grad():
+        bd = bs_basis.data
+        rho = torch.as_tensor(scfres.rho, device=bs_basis.device)
+        tau = getattr(scfres, "tau", None) if bs_basis.terms.needs_tau else None
+        V, Vtau, _ = hamops.total_potential(bs_basis.terms, rho, model.unit_cell_volume,
+                                            tau=tau)
+        ham = hamops.build_ham(bd, bs_basis.terms.data, V, bs_basis.pruned, Vtau=Vtau)
+        X0 = random_orbitals(bs_basis, n_bands + 3)
+        res = lobpcg(lambda p: hamops.apply_H(ham, p), X0, ham.kin, bd.mask, tol=tol,
+                     maxiter=maxiter, n_conv=n_bands)
+        eigenvalues = res.eigenvalues[:, :n_bands].cpu().numpy()
+    return dict(basis=bs_basis, eigenvalues=eigenvalues,
+                kcoords=np.asarray(kcoords), kpath=kpath,
+                epsF=getattr(scfres, "epsF", None), psi=res.X,
+                converged=bool(res.converged), n_iter=res.n_iter,
+                residual=float(res.residual_norms[:, :n_bands].max()))

@@ -28,6 +28,10 @@ occupations at the first step, and zeros for bands AdaptiveBands adds).
 With `use_ace` (default) the Fock operator of those orbitals is compressed
 once per step (`ops/exx_ace.py`) and LOBPCG applies two GEMMs for it; the
 exchange energy is evaluated with the bare operator of the new orbitals.
+
+A run that ends unconverged, or with a non-finite energy, dumps its final
+density, eigenvalues and occupations where DFTK_TPU_DEBUG_DUMP names a
+directory (`utils/debugdump.py`), as the JAX package's does.
 """
 import dataclasses
 import math
@@ -46,6 +50,7 @@ from ..ops.hubbard import HubbardSetup
 from ..ops.occupation import compute_occupation, entropy_energy
 from ..ops.terms import refuse_anyonic
 from ..response.chi0 import Chi0Context
+from ..utils.debugdump import debug_dump
 from .anderson import AndersonAcceleration
 from .mixing import KerkerMixing, SimpleMixing
 
@@ -310,6 +315,14 @@ def self_consistent_field(
     energies_out = dict(energies_h)
     energies_out.update(E_const)
     energies_out["total"] = float(sum(energies_out.values()))
+    if not converged or not math.isfinite(energies_out["total"]):
+        path = debug_dump(
+            "scf-not-converged",
+            meta=dict(energies=energies_out, n_iter=it + 1, epsF=float(epsF),
+                      history_E=history_E, history_drho=history_drho),
+            rho=rho_out, eigenvalues=res.eigenvalues, occupation=occ)
+        if path:
+            print(f"SCF debug state dumped to {path}")
     return SCFResult(
         basis=basis, energies=energies_out,
         eigenvalues=res.eigenvalues.cpu().numpy(),

@@ -40,19 +40,26 @@ def build_basis(cells=(2, 2, 2), Ecut=10.0, device="cuda"):
     return dt.PlaneWaveBasis(model, Ecut=Ecut, kgrid=(1, 1, 1), device=device)
 
 
-def build_bench_basis(n_rep=3, Ecut=10.0, device="cuda"):
+def bench_model(n_rep=3, positions=None):
     """The Si supercell of bench.py::build_problem: n_rep^3 fcc primitive
-    cells (Si54 at n_rep 3), Gamma point, LDA, HGH lda/si-q4, no symmetry."""
+    cells (Si54 at n_rep 3), LDA, HGH lda/si-q4, no symmetry; `positions`
+    replaces the ideal ones."""
     import dftk_tpu_torch as dt
     lattice = np.array([[0.0, A_PRIM, A_PRIM], [A_PRIM, 0.0, A_PRIM],
                         [A_PRIM, A_PRIM, 0.0]]) * n_rep
     Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
     base = [np.ones(3) / 8, -np.ones(3) / 8]
-    positions = [(b + np.array([i, j, k])) / n_rep for i in range(n_rep)
-                 for j in range(n_rep) for k in range(n_rep) for b in base]
-    model = dt.model_DFT(lattice, [Si] * len(positions), positions,
-                         functionals=["lda_x", "lda_c_vwn"], symmetries=False)
-    return dt.PlaneWaveBasis(model, Ecut=Ecut, kgrid=(1, 1, 1), device=device)
+    if positions is None:
+        positions = [(b + np.array([i, j, k])) / n_rep for i in range(n_rep)
+                     for j in range(n_rep) for k in range(n_rep) for b in base]
+    return dt.model_DFT(lattice, [Si] * len(positions), positions,
+                        functionals=["lda_x", "lda_c_vwn"], symmetries=False)
+
+
+def build_bench_basis(n_rep=3, Ecut=10.0, device="cuda"):
+    """bench_model's basis at Gamma."""
+    import dftk_tpu_torch as dt
+    return dt.PlaneWaveBasis(bench_model(n_rep), Ecut=Ecut, kgrid=(1, 1, 1), device=device)
 
 
 def scf_options(environ):

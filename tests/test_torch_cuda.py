@@ -50,7 +50,9 @@ inputs of ones; the R-step kernels (`kernels/op_speed.py`) at R = 1, 2, 3
 subnormals kept), the repeated dots by the margin rule both ways (a
 'highest' one against the plain 'default' as a 'default' one against the
 plain 'highest': 1e-5 of max|out| cannot tell them apart, the product
-being ~1e-4 of acc).
+being ~1e-4 of acc).  Kernels A and B (complex128 and complex64) at the
+postprocess paths' shapes: the Si54 fine basis of the two-grid refinement
+(Ecut 15, grid 80^3) and band-path k-points off Gamma (silicon at Ecut 12).
 """
 import types
 
@@ -1221,3 +1223,54 @@ def test_cuda_kernels_on_unit_axes(nk, nb, m, n):
     assert la.counts.launches["local_plane"] == 2
     assert la.counts.launches["pruned_axis_dft[bf16]"] == 4
     assert la.counts.launches["local_plane[bf16]"] == 2
+
+
+def _post_bases():
+    """name -> (basis on the card, band block) of the postprocess paths'
+    new shapes: the Si54 fine basis of the two-grid refinement (Ecut 15,
+    grid 80^3, compact cube 40^3; its SCF's block of 118 bands) and
+    examples/band_structure_dos.py's silicon (Ecut 12, grid 30^3) at two
+    band-path k-points off Gamma (X, and 2/7 of the way from Gamma to L)
+    with compute_bands' block of 8 + 3 bands."""
+    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
+    Si = dt.ElementPsp.from_symbol("Si", psp="lda/si-q4")
+    model = dt.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
+                         functionals=["lda_x", "lda_c_vwn"])
+    path = dt.PlaneWaveBasis(model, Ecut=12.0, fft_size=(30, 30, 30), device="cuda",
+                             kgrid=dt.ExplicitKpoints([[0.5, 0.0, 0.5], [2 / 7, 2 / 7, 2 / 7]]),
+                             use_symmetries_for_kpoint_reduction=False)
+    return {"si54_ecut15": (build_bench_basis(3, 15.0, "cuda"), 118), "band_path": (path, 11)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["si54_ecut15", "band_path"])
+@pytest.mark.parametrize("dtype, bar", [(torch.complex128, 1e-11), (torch.complex64, 1e-5)])
+def test_cuda_kernels_at_post_shapes(case, dtype, bar):
+    """Kernels A (forward and back), B and the A -> B -> A chain against
+    their plain versions with the basis' own pruned factors at the
+    postprocess paths' shapes (phase 3's bars: complex128 1e-11 and
+    complex64 1e-5 of max|out|), on seeded orbitals and potentials."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    b, nb = _post_bases()[case]
+    m, n = b.pruned.m_shape, b.fft_size
+    fac = la.LocalFactors(fwd=tuple(f.to(dtype) for f in b.pruned.factors.fwd),
+                          bwd=tuple(f.to(dtype) for f in b.pruned.factors.bwd))
+    rdt = torch.float64 if dtype == torch.complex128 else torch.float32
+    rng = np.random.default_rng(20)
+    xc = _c128(rng, (b.n_kpoints, nb) + m).to(dtype)
+    V = torch.as_tensor(rng.normal(size=(b.n_kpoints, n[2], n[0], n[1])), device="cuda").to(rdt)
+
+    def close(out, ref):
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+        return float((out - ref).abs().max()) <= bar * float(ref.abs().max())
+
+    la.counts.reset()
+    t = la.pruned_axis_dft(xc, fac.fwd[2], forward=True)
+    assert close(t, la.pruned_axis_dft_plain(xc, fac.fwd[2], True))
+    assert close(la.pruned_axis_dft(t, fac.bwd[2], forward=False),
+                 la.pruned_axis_dft_plain(t, fac.bwd[2], False))
+    assert close(la.local_plane(t, V, fac), la.local_plane_plain(t, V, fac))
+    assert close(la.local_apply(xc, V, fac), la.local_apply_plain(xc, V, fac))
+    assert sum(la.counts.launches.values()) >= 6

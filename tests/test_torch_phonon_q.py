@@ -20,8 +20,8 @@ response at q takes minutes on the CPU, so its values are recorded):
     its supercell fold at X within 1e-10;
   * dynmat_q, phonon_modes_q and phonon_band_structure on the JAX package's
     force constants of tests/test_phonon_q.py's si_fc fixture within 1e-12,
-    irrfbz_path of seven Bravais classes exactly, compute_bands raising
-    NotImplementedError naming item 12, and the NLCC refusal of
+    irrfbz_path of seven Bravais classes exactly, compute_bands no longer
+    the stub that raised naming item 12, and the NLCC refusal of
     dynmat_dfpt_q.
 `compute_force_constants` runs 12 SCFs of the 4-atom supercell (over 5 s
 on one CPU thread): `chip_smoke.py` phase o3 holds it against the JAX
@@ -228,7 +228,12 @@ def test_irrfbz_path_matches_jax(reference, name):
 
 
 def test_compute_bands_raises_naming_item_12():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """compute_bands, a stub that raised NotImplementedError naming item 12
+    until its port, is the port's own now (tests/test_torch_post_bands.py
+    holds it against the JAX package): its docstring names no item, and a
+    call without an SCF result fails on the missing result, not in a stub."""
+    assert "item 12" not in (bands.compute_bands.__doc__ or "")
+    with pytest.raises(AttributeError, match="basis"):
         bands.compute_bands(None)
 
 

@@ -2,13 +2,15 @@
 
 `tools/probe_kernel_planar.py` (k_planar, k_planar_bf) and
 `tools/bench_fused_micro.py` (kernel_full, kernel_swaponly) keep their
-Pallas bodies unedited; they are captured as in test_torch_probes.py: each
-tool is loaded from its file with small shape globals, `pl.pallas_call` is
-replaced by an interpret-mode recorder and `main()` runs under
-`jax.disable_jit()`.  The recorder raises once it has recorded a call, and
-each tool's own harness (`run`, `timeit`) catches that as a failed timing
-and goes on to its next body, so every body runs once, not LOOP or 4 x 10
-times.  The recorded inputs go into the port's plain versions
+Pallas bodies unedited; they are captured in the test by
+`tests/data/make_torch_port_setup.py::capture` (which records
+test_torch_probes.py's JAX side): each tool is loaded from its file with
+small shape globals, `pl.pallas_call` is replaced by an interpret-mode
+recorder and `main()` runs under `jax.disable_jit()`. The recorder raises
+once it has recorded a call, and each tool's own harness (`run`, `timeit`)
+catches that as a failed timing and goes on to its next body, so every body
+runs once, not LOOP or 4 x 10 times. The recorded inputs go into the port's
+plain versions
 (`kernels/filter_stages.py::probe_planar_plain`,
 `kernels/fused_micro.py::micro_{full,swaponly}_plain`):
   * f32 (k_planar, kernel_full on one application) within 1e-5 of max|out|;
@@ -29,9 +31,16 @@ from dftk_tpu_torch.kernels import filter_stages as fs
 from dftk_tpu_torch.kernels import fused_micro as fm
 from dftk_tpu_torch.kernels import local_apply as la
 from dftk_tpu_torch.tools import probe_harness
-from test_torch_probes import BAR, SMALL, _capture, _first
+from test_torch_probes import BAR, SMALL, make
+
+_capture, _first = make.capture, make.first_record
 
 MICRO_SMALL = dict(NB=2, M=4, N=8)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    torch.set_num_threads(1)   # tier-1 runs 6 xdist workers on 8 cores
 
 
 @pytest.fixture(scope="module")

@@ -3,9 +3,10 @@
 `tools/probe_mosaic_ops.py` (eight bodies of `try_kernel`, on inputs of
 ones) and `tools/probe_mosaic_speed.py` (eleven bodies of `run`, each one
 op repeated R times on VMEM-resident data) keep their Pallas bodies
-unedited; they are captured as in test_torch_probes.py: each tool is
-loaded from its file, `pl.pallas_call` is replaced by an interpret-mode
-recorder and `main()` runs under `jax.disable_jit()`; the recorder stops
+unedited; they are captured in the test by
+`tests/data/make_torch_port_setup.py::capture`: each tool is loaded from
+its file, `pl.pallas_call` is replaced by an interpret-mode recorder and
+`main()` runs under `jax.disable_jit()`; the recorder stops
 each call once recorded, and each tool's harness catches that and goes on
 to its next body, so every body runs once.  probe_mosaic_ops runs at its
 own full shapes (locals of `main()`), probe_mosaic_speed at R = 1 and
@@ -33,16 +34,20 @@ probe_mosaic_{ops,speed}.py`), whose plain versions live in
 The CUDA kernels run only on a GPU: tests/test_torch_cuda.py holds them
 against these plain versions there.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from dftk_tpu_torch.kernels import local_apply as la
 from dftk_tpu_torch.kernels import op_probes as op
 from dftk_tpu_torch.kernels import op_speed as osp
 from dftk_tpu_torch.tools import probe_mosaic_ops as pmo
 from dftk_tpu_torch.tools import probe_mosaic_speed as pms
-from test_torch_probes import BAR, _capture, jnp, pl
+from test_torch_probes import BAR, make
+
+_capture = make.capture
 
 OPS_OUT = [(64, 4096), (32, 2, 64, 128), (128, 4096), (128, 32, 128), (80, 32, 64),
            (64, 128, 64), (128, 32, 128), (128, 4096)]

@@ -2,7 +2,8 @@
 
 `tools/probe_pallas_fused.py` (t_kernel, s_kernel, g_kernel, f_kernel) and
 `tools/probe_pallas_fused2.py` (k_a, k_b, k_c) keep their Pallas bodies
-unedited; they are captured as in test_torch_probes.py, at the tools' own
+unedited; they are captured in the test by
+`tests/data/make_torch_port_setup.py::capture`, at the tools' own
 full shapes (they are locals of `main()`): each tool is loaded from its
 file, `pl.pallas_call` is replaced by an interpret-mode recorder and
 `main()` runs under `jax.disable_jit()`.  The recorder raises once it has
@@ -22,10 +23,17 @@ import torch
 
 from dftk_tpu_torch.kernels import local_apply as la
 from dftk_tpu_torch.kernels import op_probes as op
-from test_torch_probes import BAR, _capture, _first
+from test_torch_probes import BAR, make
+
+_capture, _first = make.capture, make.first_record
 
 BODIES = {"probe_pallas_fused": ["t_kernel", "s_kernel", "g_kernel", "f_kernel"],
           "probe_pallas_fused2": ["k_a", "k_b", "k_c"]}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    torch.set_num_threads(1)   # tier-1 runs 6 xdist workers on 8 cores
 
 
 @pytest.fixture(scope="module")

@@ -1,33 +1,48 @@
 """dftk_tpu_torch's basis and terms setup against the JAX package.
 
 Si2 at Ecut 7, fft_size (18,18,18), MonkhorstPack((2,2,2)), no symmetry.
-The index arrays are equal; the terms data agree to 1e-12.
+The index arrays are equal; the terms data agree to 1e-12.  The JAX
+package's side is recorded in tests/data/torch_port_setup.json (entry
+`setup`; its `command` reruns tests/data/make_torch_port_setup.py):
+the index and mask arrays and the pruned maps whole, the larger float
+tables as fingerprints (first value, sum, a seeded weighted sum and
+seeded samples), so that this file runs no JAX code.
 """
+import importlib.util
+import json
 import pathlib
 
 import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-
-import dftk_tpu as dftk
-from dftk_tpu.ops.density import guess_density as jax_guess_density
-from dftk_tpu.ops.engine_split import build_pruned_fft as jax_build_pruned_fft
-
 import dftk_tpu_torch as dt
 from dftk_tpu_torch.interop import basis_arrays_from_numpy
 
-A_SI = 5.131570667152971
-SI_LATTICE = np.array([[0.0, A_SI, A_SI], [A_SI, 0.0, A_SI], [A_SI, A_SI, 0.0]])
+DATA = pathlib.Path(__file__).parent / "data"
+_spec = importlib.util.spec_from_file_location("make_setup", DATA / "make_torch_port_setup.py")
+make = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make)
+with open(DATA / "torch_port_setup.json") as _f:
+    REF = json.load(_f)["setup"]
+SI_LATTICE = make.SI_LATTICE
+
+
+def summary_close(got, want, bar):
+    """got (an array) against a recorded table_summary: each value within
+    bar of the table's largest recorded magnitude, so the sums within
+    that times the table's size (bar 0: exactly)."""
+    g = make.table_summary(got)
+    tol = bar * max(max(abs(v) for v in want["sample"]), abs(want["first"]))
+    assert g["size"] == want["size"]
+    assert abs(g["first"] - want["first"]) <= tol
+    assert abs(g["sum"] - want["sum"]) <= tol * g["size"]
+    assert abs(g["wsum"] - want["wsum"]) <= tol * g["size"]
+    assert np.abs(np.array(g["sample"]) - want["sample"]).max() <= tol
 
 
 def _si2(pkg, **kw):
-    Si = pkg.ElementPsp.from_symbol("Si", psp="lda/si-q4")
-    model = pkg.model_DFT(SI_LATTICE, [Si, Si], [np.ones(3) / 8, -np.ones(3) / 8],
-                          functionals=["lda_x", "lda_c_vwn"], symmetries=False)
-    return pkg.PlaneWaveBasis(model, Ecut=7.0, kgrid=pkg.MonkhorstPack((2, 2, 2)),
-                              fft_size=(18, 18, 18), **kw)
+    return make.si2_basis(pkg, **kw)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -37,51 +52,51 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def bases():
-    return _si2(dftk), _si2(dt, device="cpu")
+    return None, _si2(dt, device="cpu")
 
 
 def test_basis_arrays_equal(bases):
-    jb, tb = bases
-    assert tb.fft_size == jb.fft_size and tb.nG_max == jb.nG_max
-    np.testing.assert_array_equal(tb.kcoords, jb.kcoords)
-    np.testing.assert_array_equal(tb.kweights, jb.kweights)
-    np.testing.assert_array_equal(tb.G_cube_cart, jb.G_cube_cart)
+    _, tb = bases
+    f = make.from_b64
+    assert list(tb.fft_size) == REF["fft_size"] and tb.nG_max == REF["nG_max"]
+    np.testing.assert_array_equal(tb.kcoords, f(REF["kcoords"]))
+    np.testing.assert_array_equal(tb.kweights, f(REF["kweights"]))
+    summary_close(tb.G_cube_cart, REF["G_cube_cart"], 0.0)
     # the JAX arrays carried over by interop equal the port's own tensors
-    jd, jt = jb.data, jb.terms.data
+    jd, tt = {k: f(v) for k, v in REF["data"].items()}, tb.terms.data
     bd, td = basis_arrays_from_numpy(
-        Gidx=jd.Gidx, mask=jd.mask, kin=jd.kin, Gpk_cart=jd.Gpk_cart,
-        kweights=jd.kweights, kspin=jd.kspin, vloc_static=jt.vloc_static,
-        hartree_coeffs=jt.hartree_coeffs, P=jt.P, D=jt.D, Gsq_cart=jt.Gsq_cart,
-        device="cpu")
+        **jd, vloc_static=tt.vloc_static.numpy(), hartree_coeffs=tt.hartree_coeffs.numpy(),
+        P=tt.P.numpy(), D=tt.D.numpy(), Gsq_cart=tt.Gsq_cart.numpy(), device="cpu")
     for name in ("Gidx", "mask", "kin", "Gpk_cart", "kweights", "kspin"):
         torch.testing.assert_close(getattr(tb.data, name), getattr(bd, name),
                                    rtol=0, atol=0, msg=name)
 
 
 def test_pruned_maps_equal(bases):
-    jb, tb = bases
-    pf = jax_build_pruned_fft(jb, dtype=jnp.float64)
-    assert tb.pruned.m_shape == tuple(F.shape[0] for F in pf.Ff)
-    np.testing.assert_array_equal(tb.pruned.Gidx_c.numpy(), np.asarray(pf.Gidx_c))
-    np.testing.assert_array_equal(tb.pruned.inv_idx.numpy(), np.asarray(pf.inv_idx))
+    _, tb = bases
+    assert list(tb.pruned.m_shape) == REF["m_shape"]
+    np.testing.assert_array_equal(tb.pruned.Gidx_c.numpy(), make.from_b64(REF["Gidx_c"]))
+    np.testing.assert_array_equal(tb.pruned.inv_idx.numpy(), make.from_b64(REF["inv_idx"]))
 
 
 def test_terms_agree(bases):
-    jb, tb = bases
-    jt, tt = jb.terms, tb.terms
-    for name, a, b in (("vloc", tt.data.vloc_static, jt.data.vloc_static),
-                       ("hartree", tt.data.hartree_coeffs, jt.data.hartree_coeffs),
-                       ("P", tt.data.P, jt.data.P), ("D", tt.data.D, jt.data.D)):
-        assert np.max(np.abs(a.numpy() - np.asarray(b))) < 1e-12, name
-    assert abs(tt.E_ewald - jt.E_ewald) < 1e-12
-    assert abs(tt.E_psp_correction - jt.E_psp_correction) < 1e-12
+    _, tb = bases
+    tt, want = tb.terms, REF["terms"]
+    P = tt.data.P.numpy()
+    for name, a, ref in (("vloc", tt.data.vloc_static.numpy(), want["vloc"]),
+                         ("hartree", tt.data.hartree_coeffs.numpy(), want["hartree"]),
+                         ("P.re", P.real, want["P"]["re"]), ("P.im", P.imag, want["P"]["im"])):
+        summary_close(a, ref, 1e-12)
+    assert np.max(np.abs(tt.data.D.numpy() - make.from_b64(want["D"]))) < 1e-12
+    assert abs(tt.E_ewald - want["E_ewald"]) < 1e-12
+    assert abs(tt.E_psp_correction - want["E_psp_correction"]) < 1e-12
 
 
 def test_guess_density_agrees(bases):
-    jb, tb = bases
+    _, tb = bases
     rho = dt.guess_density(tb)
     assert rho.shape == (1, 18, 18, 18) and rho.dtype == torch.float64
-    assert np.max(np.abs(rho.numpy() - np.asarray(jax_guess_density(jb)))) < 1e-12
+    summary_close(rho.numpy(), REF["guess_density"], 1e-12)
 
 
 def test_basis_dtype_and_device(bases):
@@ -122,23 +137,23 @@ def test_unported_features_raise(what):
     if what == "symmetries":
         model = dt.model_DFT(*args, functionals=["lda_x"], symmetries=True,
                              magnetic_moments=[1.0, -1.0])
-        ref = dftk.model_DFT(*args, functionals=["lda_x"], symmetries=True,
-                             magnetic_moments=[1.0, -1.0])
         assert model.spin_polarization == "collinear"
-        assert len(model.symmetries) == len(ref.symmetries) == 24
+        assert len(model.symmetries) == REF["magnetic_symmetries"] == 24
         return
     if what == "upf":
-        path = str(pathlib.Path(__file__).parent / "data" / "pseudos" / "gth" / "Si.pbe-hgh.upf")
-        psp = dt.ElementPsp.from_symbol("Si", psp=path).psp
-        ref = dftk.ElementPsp.from_symbol("Si", psp=path).psp
-        assert isinstance(psp, dt.PspUpf) and psp.Zion == ref.Zion == 4
-        assert psp.lmax == ref.lmax and psp.h == ref.h and psp.rgrid == ref.rgrid
+        psp = dt.ElementPsp.from_symbol("Si", psp=make.SI_UPF).psp
+        ref = REF["upf"]
+        assert isinstance(psp, dt.PspUpf) and psp.Zion == ref["Zion"] == 4
+        assert psp.lmax == ref["lmax"] and [np.asarray(h).tolist() for h in psp.h] == ref["h"]
+        assert len(psp.rgrid) == ref["n_rgrid"]
+        summary_close(np.asarray(psp.rgrid), ref["rgrid"], 0.0)
         return
     if what == "functional":
         model = dt.model_DFT(*args, functionals=["mgga_x_scan"], symmetries=False)
         basis = dt.PlaneWaveBasis(model, Ecut=3.0, fft_size=(9, 9, 9), device="cpu")
         assert basis.terms.needs_tau and basis.terms.tau_core_np is None
         return
+    import dftk_tpu as dftk      # the JAX package's term, constructed only
     with pytest.raises(NotImplementedError):
         model = dt.model_DFT(*args, functionals=["lda_x"], symmetries=False,
                              extra_terms=[dftk.ExactExchange()])
@@ -148,30 +163,24 @@ def test_unported_features_raise(what):
 @pytest.mark.parametrize("name", ["NoSmearing", "FermiDirac", "Gaussian",
                                   "MarzariVanderbilt", "MethfesselPaxton"])
 def test_smearing_matches(name):
-    from dftk_tpu.models import smearing as jax_smearing
     from dftk_tpu_torch.models import smearing
-    x = np.linspace(-6.0, 6.0, 49)
-    ref, port = getattr(jax_smearing, name)(), getattr(smearing, name)()
-    xt = torch.as_tensor(x)
+    port = getattr(smearing, name)()
+    xt = torch.as_tensor(make.SMEARING_X)
     for f in ("occupation", "entropy"):
         out = getattr(port, f)(xt).numpy()
-        assert np.max(np.abs(out - np.asarray(getattr(ref, f)(jnp.asarray(x))))) < 1e-12, f
+        assert np.max(np.abs(out - np.array(REF["smearing"][name][f]))) < 1e-12, f
 
 
 def test_grid_maps_match(bases):
-    from dftk_tpu.ops import fft as jax_fft
     from dftk_tpu_torch.ops import fft
-    jb, tb = bases
-    G = np.random.default_rng(4).integers(-12, 13, size=(200, 3))
+    _, tb = bases
+    G, c = make.grid_inputs(tb)
     np.testing.assert_array_equal(fft.index_G_vectors(tb.fft_size, G),
-                                  jax_fft.index_G_vectors(jb.fft_size, G))
-    rng = np.random.default_rng(5)
-    c = rng.normal(size=(tb.n_kpoints, 2, tb.nG_max)) \
-        + 1j * rng.normal(size=(tb.n_kpoints, 2, tb.nG_max))
+                                  make.from_b64(REF["index_G"]))
     cube = fft.scatter_to_cube(torch.as_tensor(c), tb.data.Gidx, tb.data.mask, tb.fft_size)
     for k in range(tb.n_kpoints):
-        ref = jax_fft.scatter_to_cube(jnp.asarray(c[k]), jb.data.Gidx[k],
-                                      jb.data.mask[k], jb.fft_size)
-        np.testing.assert_array_equal(cube[k].numpy(), np.asarray(ref))
+        ref = REF["cubes"][k]
+        summary_close(cube[k].real.numpy(), ref["re"], 0.0)
+        summary_close(cube[k].imag.numpy(), ref["im"], 0.0)
     back = fft.gather_from_cube(cube, tb.data.Gidx, tb.data.mask).numpy()
     np.testing.assert_array_equal(back, c * tb.mask_np[:, None, :])
