@@ -333,12 +333,29 @@ Phases (any failure raises and exits non-zero):
      r1's and r2's fine shapes before their runs; every run of r1-r4 with
      the complex128 kernels launched and no plain call, its wall and peak
      device memory; the sections on the port's timer
+  s. the k-point x band parallel path (dftk_tpu_torch/parallel) with NCCL
+     at world size 1 (the card is one GPU; two NCCL ranks on one device are
+     not a supported layout, and the multi-rank path is held on the CPU by
+     gloo in tests/test_torch_parallel.py): multihost.initialize on
+     localhost at a free port, the NCCL version printed; s1 phase c's Si54
+     split SCF through mesh= on global_kpoint_mesh() equal to phase c's
+     energy within 1e-10 Ha and within 1e-7 Ha of E_ref, A and B launched in
+     complex128 and bf16 and no plain version called; s2 phase j2's
+     symmetric Si8 on MonkhorstPack((4, 4, 4)) through distribute(basis,
+     kpoint_mesh()) and self_consistent_field equal to its run without the
+     mesh within 1e-10 Ha; s3 the forces of s1's state equal to those of
+     phase c's within 1e-10 Ha/bohr; s4 apply_local_sandwich at the Si54
+     shapes (compact 32^3, grid 64^3, 128 bands, complex128) against
+     kernels A -> B -> A on the same V within 1e-11 of max|out|, both timed
+     with CUDA events; kernels A and B against their plain versions at s1's
+     and s2's shapes before their runs; then destroy_process_group().  No
+     fallback: if NCCL does not start, the phase fails
   5. print the kernels' JSON line (launches from phases c, e, f, g, h, j,
-     k, l, m, n, o, p, q and r, times from phases 3, a, e, f, g and h,
+     k, l, m, n, o, p, q, r and s, times from phases 3, a, e, f, g and h,
      bounds from the shapes; the main path's kernels also with their device
      time and their max_abs_err at each phase-j, phase-k, phase-l and
-     (complex128) phase-m, phase-n, phase-o, phase-p, phase-q and phase-r
-     run's shapes), then the result line.
+     (complex128) phase-m, phase-n, phase-o, phase-p, phase-q, phase-r and
+     phase-s run's shapes), then the result line.
 This script imports neither jax nor the JAX package.
 """
 import json
@@ -4035,6 +4052,135 @@ def post_phase(dt, la, device, smi, si54):
     return launches, run["errs"]
 
 
+def free_port():
+    """A free TCP port on localhost, for the process group's rendezvous."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_phase(dt, la, device, smi, si54, E_c):
+    """Phase s: the k-point x band parallel path (dftk_tpu_torch/parallel) on
+    the card, NCCL at world size 1 (one card: two NCCL ranks on one device
+    are not a supported layout; the multi-rank path is held on the CPU by
+    gloo, tests/test_torch_parallel.py).  s1 phase c's Si54 split SCF
+    through mesh= on the global k-point mesh; s2 phase j2's symmetric Si8
+    on MonkhorstPack((4, 4, 4)) through distribute(basis, kpoint_mesh())
+    and self_consistent_field, against its run without the mesh; s3 the
+    forces of s1's state against those of phase c's; s4 apply_local_sandwich
+    at the Si54 shapes against kernels A -> B -> A on the same V.  si54:
+    phase c's (basis, split result), E_c its energy.  Returns the kernel
+    launches of s1 and s2 and each kernel's max_abs_err at their shapes."""
+    import torch
+    import torch.distributed as dist
+    from dftk_tpu_torch.ops.engine_split import (apply_local_sandwich, build_sandwich,
+                                                 prepare_split_data,
+                                                 self_consistent_field_split)
+    from dftk_tpu_torch.ops.forces_split import compute_forces_split
+    from dftk_tpu_torch.ops.hamiltonian import to_zxy
+    from dftk_tpu_torch.parallel import multihost
+    from dftk_tpu_torch.parallel.mesh import distribute, kpoint_mesh
+    from dftk_tpu_torch.tools.run_si_big import build_bench_basis
+    t_phase = time.time()
+    total, errs = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    os.environ["MASTER_ADDR"] = "localhost"
+    os.environ["MASTER_PORT"] = str(free_port())
+    multihost.initialize(num_processes=1, process_id=0)
+    check(dist.get_backend() == "nccl", "s: the process group runs on NCCL")
+    nccl = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+    print(f"[s] NCCL {nccl}, backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()} ({smi})", flush=True)
+    mesh = multihost.global_kpoint_mesh()
+
+    # s1: phase c's Si54 split SCF through mesh=
+    basis = build_bench_basis(3, 10.0, device)
+    hold_kernels_at(la, basis, "s1", basis.model.default_n_bands(), errs, bf16=True, tag="s")
+    res, launches = run_on_card(la, "s1 Si54 split CheFSI SCF, mesh=", smi,
+                                lambda: self_consistent_field_split(
+        basis, tol=1e-8, maxiter=60, eigensolver="chefsi", chebyshev_degree=10,
+        chefsi_cycles=2, is_converged="density", filter_precision="mixed", mesh=mesh),
+        tag="s")
+    add(launches)
+    E = res["energies"]["total"]
+    with open(os.path.join(HERE, "tests", "data", "torch_port_si54.json")) as f:
+        E_ref = json.load(f)["total_energy"]
+    print(f"[s1] converged={res['converged']} n_iter={res['n_iter']} E={E:.12f} "
+          f"E - E_c={E - E_c:.3e} E - E_ref={E - E_ref:.3e}; rows {basis.comm.lo}:"
+          f"{basis.comm.hi} of {basis.n_kpoints}", flush=True)
+    check(res["converged"] and abs(E - E_c) < 1e-10, "s1: the mesh run equals phase c's to 1e-10 Ha")
+    check(abs(E - E_ref) < E_TOL, f"s1: |E - E_ref| < {E_TOL}")
+    check(all(v > 0 for v in launches.values()), "s1: A and B launched in complex128 and bf16")
+
+    # s3: the forces of s1's state against those of phase c's
+    basis_c, res_c = si54
+    F_c = compute_forces_split(basis_c, prepare_split_data(basis_c), res_c["U"],
+                               res_c["occupation"], res_c["rho"])
+    F, F_ms, F_mib = timed_on_card(lambda: compute_forces_split(
+        basis, prepare_split_data(basis), res["U"], res["occupation"], res["rho"]))
+    dF = float((F - F_c).abs().max())
+    print(f"[s3] forces on the mesh {F_ms[0]:.1f} ms (again {F_ms[1]:.1f}), peak {F_mib:.1f} "
+          f"MiB; max|F - F_c|={dF:.3e}, max|F|={float(F.abs().max()):.3e} ({smi})", flush=True)
+    check(dF < 1e-10, "s3: forces on the mesh equal phase c's to 1e-10 Ha/bohr")
+    del res, F, F_c
+
+    # s4: the sandwich against kernels A -> B -> A at the Si54 shapes
+    pf, n = basis.pruned, basis.fft_size
+    rng = np.random.default_rng(20261019)
+    shape = (1, N_BANDS_KERNEL) + pf.m_shape
+    x = torch.as_tensor(rng.normal(size=shape) + 1j * rng.normal(size=shape), device=device)
+    V = torch.as_tensor(rng.normal(size=(1,) + n), device=device)
+    kspin = basis.data.kspin
+    M = build_sandwich(pf, V)
+    xr = torch.view_as_real(x)
+    out = torch.view_as_complex(apply_local_sandwich(xr, pf, M, kspin))
+    V_zxy = to_zxy(V, kspin)
+    chain = la.local_apply(x, V_zxy, pf.factors)
+    torch.cuda.synchronize()
+    err = float((out - chain).abs().max())
+    scale = float(chain.abs().max())
+    ms_build = cuda_ms(lambda: build_sandwich(pf, V), reps=5, warmup=1)
+    ms_sandwich = cuda_ms(lambda: apply_local_sandwich(xr, pf, M, kspin), reps=10, warmup=2)
+    ms_chain = cuda_ms(lambda: la.local_apply(x, V_zxy, pf.factors), reps=10, warmup=2)
+    print(f"[s4] apply_local_sandwich at x {tuple(x.shape)}, grid {n}, complex128: "
+          f"max_abs_err={err:.3e} rel={err / scale:.3e} bar={BARS['complex128']:.0e}; "
+          f"sandwich {ms_sandwich:.3f} ms (M built in {ms_build:.3f} ms, "
+          f"{M.numel() * 8 / 2 ** 20:.1f} MiB), kernels A -> B -> A {ms_chain:.3f} ms ({smi})",
+          flush=True)
+    check(err <= BARS["complex128"] * scale, "s4: the sandwich equals A -> B -> A within 1e-11")
+    del x, V, M, xr, out, chain, basis
+    torch.cuda.empty_cache()
+
+    # s2: phase j2's symmetric Si8 on the k-point mesh
+    model = si8_model(dt, 0.0)
+    plain_basis = dt.PlaneWaveBasis(model, Ecut=20.0, kgrid=dt.MonkhorstPack((4, 4, 4)),
+                                    device=device)
+    hold_kernels_at(la, plain_basis, "s2", model.default_n_bands(), errs, tag="s")
+    ref, launches = run_on_card(la, "s2 Si8 LOBPCG SCF without the mesh", smi,
+                                lambda: dt.self_consistent_field(plain_basis, tol=1e-10), tag="s")
+    add(launches)
+    basis = dt.PlaneWaveBasis(model, Ecut=20.0, kgrid=dt.MonkhorstPack((4, 4, 4)), device=device)
+    distribute(basis, kpoint_mesh())
+    res, launches = run_on_card(la, "s2 Si8 LOBPCG SCF on the k-point mesh", smi,
+                                lambda: dt.self_consistent_field(basis, tol=1e-10), tag="s")
+    add(launches)
+    dE = res.total_energy - ref.total_energy
+    print(f"[s2] {basis.n_kpoints} k-points, rows {basis.comm.lo}:{basis.comm.hi}; "
+          f"converged={res.converged} n_iter={res.n_iter} (without the mesh {ref.n_iter}) "
+          f"E={res.total_energy:.12f} E - E_no_mesh={dE:.3e}", flush=True)
+    check(res.converged and abs(dE) < 1e-10, "s2: the mesh run equals the run without it")
+    del res, ref, basis, plain_basis
+    dist.destroy_process_group()
+    print(f"[s] phase s took {time.time() - t_phase:.1f} s; launches {total}", flush=True)
+    return total, errs
+
+
 def main():
     import torch
     # ---- 1. the card ------------------------------------------------------
@@ -4186,6 +4332,12 @@ def main():
     post_launches, post_errs = post_phase(dt, la, device, smi, si54)
     for name, count in post_launches.items():
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # ---- s. k-point x band parallelism (NCCL at world size 1) -------------------------
+    par_launches, par_errs = parallel_phase(dt, la, device, smi, si54, E_c)
+    for name, count in par_launches.items():
+        launches[name] += count
     del si54
 
     # ---- 5. results ---------------------------------------------------------
@@ -4218,7 +4370,9 @@ def main():
                             **({"max_abs_err_phase_q": terms_errs[name]}
                                if name in terms_errs else {}),
                             **({"max_abs_err_phase_r": post_errs[name]}
-                               if name in post_errs else {})))
+                               if name in post_errs else {}),
+                            **({"max_abs_err_phase_s": par_errs[name]}
+                               if name in par_errs else {})))
     for name, rep in PROBE_REPLACES.items():
         r = probe_timings[name]
         kernels.append(dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=rep,

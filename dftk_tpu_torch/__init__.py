@@ -65,8 +65,10 @@ file format (`save_scfres`, `load_scfres`, `todict`, `save_vts`), the
 Wannier90 files (`external.wannier`), structure readers
 (`external.structure`), `transfer_blochwave`/`transfer_density`,
 `standardize_atoms`, `postprocess.plotting` (with matplotlib) and the
-`timer` (CUDA events on a card).  See ROADMAP.md for what is still to
-port.
+`timer` (CUDA events on a card).  Both SCF loops, the forces and the
+k-grid exchange also run distributed over k-points (and spin) x bands on
+`torch.distributed` (`parallel/mesh.py`, `parallel/multihost.py`: NCCL on
+cards, gloo on the CPU).  See ROADMAP.md for what is still to port.
 """
 import torch
 

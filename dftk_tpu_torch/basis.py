@@ -21,6 +21,11 @@ the k-points onto themselves.
 
 The device defaults to the CUDA card; without one, building a basis raises
 unless the caller asks for the CPU (`device="cpu"`).
+
+`parallel/mesh.py::distribute` lays the k-points over the ranks of a
+torch.distributed mesh: `basis.data` then holds this rank's k rows and
+`basis.comm` the collectives (`parallel/mesh.py::KComm`; None on one
+process).
 """
 import dataclasses
 from typing import Any, NamedTuple, Optional
@@ -135,8 +140,14 @@ class PlaneWaveBasis:
 
         from .ops.pruned import build_pruned_fft
         from .ops.terms import instantiate_terms
+        from .parallel.mesh import maybe_auto_distribute
         self.pruned = build_pruned_fft(self)
         self.terms = instantiate_terms(self)
+        # a k-point mesh (parallel/mesh.py) sets both; DFTK_TPU_MESH under
+        # torch.distributed distributes every new basis
+        self.mesh = None
+        self.comm = None
+        maybe_auto_distribute(self)
 
     def tensor(self, arr, dtype=None):
         """numpy -> contiguous tensor on this basis' device (real dtype by

@@ -79,6 +79,17 @@ def as_kgrid(kgrid):
     raise TypeError(f"Cannot interpret kgrid: {kgrid!r}")
 
 
+def kgrid_from_total_number(lattice, n_kpoints):
+    """MP grid with ~n_kpoints in all, each size proportional to |b_i|
+    (DFTK KgridTotalNumber)."""
+    from .utils.lattice import compute_recip_lattice
+    B = compute_recip_lattice(np.asarray(lattice, dtype=float))
+    lens = np.linalg.norm(B, axis=0)
+    scale = (n_kpoints / np.prod(lens)) ** (1 / 3)
+    sizes = np.maximum(1, np.round(scale * lens).astype(int))
+    return MonkhorstPack(tuple(int(s) for s in sizes))
+
+
 def kgrid_from_maximal_spacing(lattice, spacing):
     """MP grid with k-spacing at most `spacing` (bohr^-1), DFTK KgridSpacing."""
     from .utils.lattice import compute_recip_lattice

@@ -19,6 +19,7 @@ import json
 import numpy as np
 
 from ..utils import to_numpy
+from ..parallel.mesh import refuse_distributed
 
 
 def _getter(obj):
@@ -79,6 +80,7 @@ def save_scfres(filename, scfres):
     """Save an SCFResult (or the dict the split SCF returns)."""
     get = _getter(scfres)
     basis = get("basis")
+    refuse_distributed(basis, "save_scfres")
     meta = _meta(basis, get)
 
     if str(filename).endswith(".json"):

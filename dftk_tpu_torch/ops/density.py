@@ -25,15 +25,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import ksum
 from . import fft as fftops
 
 
 def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin,
-                    band_chunk=None, symmetrizer=None):
+                    band_chunk=None, symmetrizer=None, comm=None):
     """rho [nspin, n1, n2, n3] from psi [nk, nb, nG], occupation [nk, nb];
     band_chunk bounds the bands transformed at once (the full-grid cubes of
     a chunk are the largest temporaries); symmetrizer (`make_symmetrizer`)
-    is applied to the result when given."""
+    is applied to the result when given.  comm: a distributed basis'
+    `KComm` (`parallel/mesh.py`): the rows are this rank's and the sum over
+    k all-reduces over "kpts"."""
     N = int(np.prod(fft_size))
     w = basis_data.kweights[:, None] * occupation          # [nk, nb]
     nb = psi.shape[1]
@@ -50,6 +53,7 @@ def compute_density(basis_data, psi, occupation, fft_size, volume, n_spin,
     else:
         sel = torch.nn.functional.one_hot(basis_data.kspin, n_spin).to(dens_k.dtype)
         rho = torch.einsum("ks,kxyz->sxyz", sel, dens_k)
+    rho = ksum(rho, comm)
     return rho if symmetrizer is None else symmetrizer(rho)
 
 
@@ -78,14 +82,14 @@ def compute_density_derivative(basis_data, psi, dpsi, occupation, fft_size, volu
 
 
 def compute_kinetic_energy_density(basis_data, psi, occupation, fft_size, volume,
-                                   n_spin, band_chunk=None, symmetrizer=None):
+                                   n_spin, band_chunk=None, symmetrizer=None, comm=None):
     """tau [nspin, n1, n2, n3] = 1/2 sum_kn w_k f_kn |grad psi_kn|^2, the
     gradient i (k+G) psi through one inverse FFT per Cartesian axis
     (reference densities.jl:110-125); arguments as `compute_density`'s, the
     Cartesian k+G from basis_data.Gpk_cart."""
     p = basis_data.Gpk_cart
     tau = sum(compute_density(basis_data, p[:, None, :, a].to(psi.real.dtype) * psi, occupation,
-                              fft_size, volume, n_spin, band_chunk)
+                              fft_size, volume, n_spin, band_chunk, comm=comm)
               for a in range(3))
     tau = 0.5 * tau
     return tau if symmetrizer is None else symmetrizer(tau)

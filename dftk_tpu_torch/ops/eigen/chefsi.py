@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ...parallel.mesh import band_apply, kmax
 from .lobpcg import _inner, _rotate, ortho_qr
 
 
@@ -33,20 +34,23 @@ def _rayleigh(X, AX):
     return num / torch.clamp(torch.sum(X.real ** 2 + X.imag ** 2, -1), min=1e-30)
 
 
-def estimate_upper_bound(apply_A, shape_like, mask, n_iter=12, generator=None):
+def estimate_upper_bound(apply_A, shape_like, mask, n_iter=12, generator=None, comm=None):
     """Spectral upper bound by power iteration on one random band, drawn from
     `generator` (a torch.Generator on shape_like's device; a new one seeded
-    with 17 by default)."""
+    with 17 by default).  comm: a distributed basis' KComm; the band is
+    drawn at every k-point and sliced to this rank's rows, and the bound is
+    the maximum over "kpts"."""
     if generator is None:
         generator = torch.Generator(device=shape_like.device).manual_seed(17)
     nk, _, nG = shape_like.shape
-    v = torch.randn((nk, 1, nG), dtype=shape_like.dtype, device=shape_like.device,
-                    generator=generator) * mask[:, None, :]
+    v = torch.randn((nk if comm is None else comm.n_kpoints, 1, nG), dtype=shape_like.dtype,
+                    device=shape_like.device, generator=generator)
+    v = (v if comm is None else comm.rows(v)) * mask[:, None, :]
     v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     for _ in range(n_iter):
         w = apply_A(v)
         v = w / torch.clamp(torch.linalg.vector_norm(w, dim=-1, keepdim=True), min=1e-30)
-    return 1.1 * float(_rayleigh(v, apply_A(v)).max())      # safety margin
+    return 1.1 * kmax(comm, _rayleigh(v, apply_A(v)).max())      # safety margin
 
 
 def chebyshev_filter(apply_A, X, degree, lb, ub, band_chunk=None,
@@ -89,7 +93,7 @@ def chebyshev_filter(apply_A, X, degree, lb, ub, band_chunk=None,
 def chefsi_step(apply_A, X, mask, degree=8, lb=None, ub=None, n_conv=None,
                 lb_margin=0.05, cycles=1, apply_filter=None, band_chunk=None,
                 csplit=False, filter_wrap=None, apply_filter_last=None,
-                n_exact_last=1):
+                n_exact_last=1, comm=None):
     """Filter + orthonormalise + Rayleigh-Ritz cycles.
 
     The damping window is [lb, ub]: everything above the wanted spectrum.
@@ -102,6 +106,11 @@ def chefsi_step(apply_A, X, mask, degree=8, lb=None, ub=None, n_conv=None,
     the `cycles` cycles (the "mixed" schedule of the split SCF: bf16 filter
     cycles, then exact ones).
     filter_wrap: (enter, leave) around each filter (see chebyshev_filter).
+    comm: a distributed basis' KComm (`parallel/mesh.py`): the rows are this
+    rank's k rows, the damping window's bounds take the maximum over
+    "kpts", and on a "bands" axis each rank filters and applies apply_A to
+    its band slice, the block gathered for the orthonormalisation and
+    Rayleigh-Ritz.
     """
     if csplit:
         raise NotImplementedError(
@@ -111,12 +120,13 @@ def chefsi_step(apply_A, X, mask, degree=8, lb=None, ub=None, n_conv=None,
         raise ValueError("chefsi_step needs cycles >= 1")
     if apply_filter is None:
         apply_filter = apply_A
+    apply_A = band_apply(apply_A, comm)
     if apply_filter_last is None:
         apply_filter_last = apply_filter
     if ub is None:
         # with filter_wrap, apply_filter acts in the wrapped representation
         ub = estimate_upper_bound(
-            apply_A if filter_wrap is not None else apply_filter, X, mask)
+            apply_A if filter_wrap is not None else apply_filter, X, mask, comm=comm)
     ub = float(ub)
     nb = X.shape[1]
     if n_conv is None:
@@ -129,11 +139,12 @@ def chefsi_step(apply_A, X, mask, degree=8, lb=None, ub=None, n_conv=None,
         # sorted Ritz estimates for the first damping window
         theta = torch.sort(_rayleigh(X, apply_A(X)), dim=1).values
     for i in range(cycles):
-        lb_cur = float(theta[:, idx].max()) + lb_margin if lb is None else float(lb)
+        lb_cur = kmax(comm, theta[:, idx].max()) + lb_margin if lb is None else float(lb)
         lb_cur = min(lb_cur, ub - 0.2 * abs(ub))
         af = apply_filter_last if i >= cycles - n_exact_last else apply_filter
-        Y = chebyshev_filter(af, X, degree, lb_cur, ub, band_chunk=band_chunk,
-                             enter=enter, leave=leave) * mask[:, None, :]
+        Y = band_apply(lambda Xs: chebyshev_filter(af, Xs, degree, lb_cur, ub,
+                                                   band_chunk=band_chunk, enter=enter,
+                                                   leave=leave), comm)(X) * mask[:, None, :]
         Y = ortho_qr(Y)
         AY = apply_A(Y)
         Hred = _inner(Y, AY)

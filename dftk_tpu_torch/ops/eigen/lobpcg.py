@@ -18,6 +18,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ...parallel.mesh import band_apply, kmax
+
 
 class LobpcgResult(NamedTuple):
     X: torch.Tensor              # [nk, nb, nG] eigenvectors
@@ -64,7 +66,7 @@ def _ortho_canonical_rows(X):
 
 
 def lobpcg(apply_A: Callable, X0, kin, mask, tol=1e-6, maxiter=100,
-           n_conv: Optional[int] = None):
+           n_conv: Optional[int] = None, comm=None):
     """Lowest-nb eigenpairs of the Hermitian operator apply_A.
 
     apply_A: [nk, nb, nG] -> [nk, nb, nG]
@@ -72,7 +74,11 @@ def lobpcg(apply_A: Callable, X0, kin, mask, tol=1e-6, maxiter=100,
     kin:     [nk, nG] kinetic energies (TPA preconditioner diagonal)
     mask:    [nk, nG] 1/0 validity
     n_conv:  number of lowest bands whose residuals gate convergence
+    comm:    `parallel/mesh.py::KComm` of a distributed basis: the rows are
+             this rank's k rows, the stopping rules take the maximum over
+             "kpts", and apply_A runs on this rank's band slice
     """
+    apply_A = band_apply(apply_A, comm)
     nk, nb, nG = X0.shape
     if n_conv is None:
         n_conv = nb
@@ -121,7 +127,7 @@ def lobpcg(apply_A: Callable, X0, kin, mask, tol=1e-6, maxiter=100,
     best, no_improve = float("inf"), 0
     Xb, resb = X, res
 
-    while (it < maxiter and (it < 1 or float(res[:, :n_conv].max()) >= tol)
+    while (it < maxiter and (it < 1 or kmax(comm, res[:, :n_conv].max()) >= tol)
            and not stalled):
         if refresh_products:
             X = ortho_qr(X)
@@ -153,13 +159,14 @@ def lobpcg(apply_A: Callable, X0, kin, mask, tol=1e-6, maxiter=100,
         coeff_p[:, :nb, :] = 0          # new search directions: W/P part only
 
         # no-progress detection on the max residual of the gated bands
-        cur = float(res[:, :n_conv].max())
+        cur, any_active, not_ok = kmax(comm, res[:, :n_conv].max(), active.any(),
+                                       ~torch.isfinite(lam_new).all())
         if cur < best:
             Xb, resb = X, res
         no_improve = 0 if cur < 0.99 * best else no_improve + 1
         best = min(best, cur)
-        ok = bool(torch.isfinite(lam_new).all())
-        stalled = (not bool(active.any())) or (not ok) or no_improve >= 6
+        ok = not not_ok
+        stalled = (not any_active) or (not ok) or no_improve >= 6
         if ok:      # keep the previous iterate if the update went non-finite
             X, AX = _rotate(coeff, S), _rotate(coeff, AS)
             P, AP = _rotate(coeff_p, S), _rotate(coeff_p, AS)
@@ -168,11 +175,12 @@ def lobpcg(apply_A: Callable, X0, kin, mask, tol=1e-6, maxiter=100,
         nmv += nk * nb * (2 if refresh_products else 1)
 
     # return the best iterate seen, with exactly recomputed residuals
-    use_last = float(res[:, :n_conv].max()) <= float(resb[:, :n_conv].max())
+    res_last, res_best = kmax(comm, res[:, :n_conv].max(), resb[:, :n_conv].max())
+    use_last = res_last <= res_best
     Xf = ortho_qr(X if use_last else Xb)
     AXf = apply_A(Xf)
     lamf = rayleigh(Xf, AXf)
     resf = torch.linalg.vector_norm(AXf - lamf[:, :, None] * Xf, dim=-1)
     return LobpcgResult(X=Xf, eigenvalues=lamf, residual_norms=resf,
                         n_iter=it, n_matvec=nmv + nk * nb,
-                        converged=float(resf[:, :n_conv].max()) < tol)
+                        converged=kmax(comm, resf[:, :n_conv].max()) < tol)

@@ -58,24 +58,40 @@ Anyonic term: `prepare_split_data` raises for a Magnetic,
 LocalNonlinearity or Anyonic model and names `self_consistent_field` (or
 `direct_minimization`).
 
-Not ported here (each raises NotImplementedError naming its ROADMAP item):
-`build_sandwich`/`apply_local_sandwich` (XLA's form of the same local
-chain), the k-point mesh (item 13), and the realified band representations
-("paired", csplit), which are TPU workarounds (ROADMAP, "Not to port").
+The reference's split-engine transforms are here too, on complex tensors
+behind the realified `[..., 2]` layout they take and return:
+`scatter_cube_split`/`gather_cube_split`, the pruned sphere <-> real-space
+transforms `sphere_to_real_pruned`/`real_to_sphere_pruned` (the reversed
+(z, y, x) spatial layout), and the sandwich form of the local apply,
+`build_sandwich`/`apply_local_sandwich`, which folds G3, V and B1 into one
+[2 m1, 2 m1] matrix per (z, y) column (library code: torch.einsum and
+matmul, as the JAX package's XLA einsums; the SCF's local apply stays on
+kernels A -> B -> A).  `build_pruned_fft` is `ops/pruned.py`'s.
+
+Under a k-point (x band) mesh (`mesh=`, or a basis distributed by
+`parallel/mesh.py`) each rank iterates its own k rows; the band axis
+splits every H apply and Chebyshev filter over its ranks and gathers the
+block for the Gram, Rayleigh-Ritz and orthogonalisation steps
+(`parallel/mesh.py::KComm`).  The realified band representations
+("paired", csplit) are TPU workarounds (ROADMAP, "Not to port") and raise
+NotImplementedError.
 """
 import dataclasses
 import math
 import time
-from typing import NamedTuple
+import types
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from ..basis import BasisData, real_dtype
 from ..kernels.local_apply import LocalFactors, local_apply, round_bf16
+from ..parallel.mesh import kgather, kmax, shard_basis
 from ..scf.anderson import AndersonAcceleration
 from ..scf.driver import aufbau_occupation, constant_energies
 from ..scf.mixing import DielectricMixing, KerkerMixing
+from . import fft as fftops
 from . import hamiltonian as hamops
 from .density import (compute_density, compute_kinetic_energy_density, guess_density,
                       make_symmetrizer, von_weizsaecker_tau)
@@ -84,8 +100,9 @@ from .eigen.lobpcg import lobpcg, ortho_qr
 from .exx_ace import apply_ace, build_ace
 from .hubbard import HubbardSetup
 from .occupation import compute_occupation, entropy_energy
-from .pruned import PrunedFFT, compact_to_sphere, sphere_to_compact
+from .pruned import PrunedFFT, build_pruned_fft, compact_to_sphere, sphere_to_compact  # noqa: F401
 from .terms import refuse_anyonic, refuse_terms
+from .xc.tb09 import tb09_potential
 
 KTF = 0.8            # Thomas-Fermi screening wavevector of Kerker/dielectric
 
@@ -108,11 +125,108 @@ def _complex(U):
     return torch.complex(U[..., :nG], U[..., nG:])
 
 
+def _from_pairs(xy):
+    """Realified [..., 2] -> complex [...] (a view where xy is contiguous)."""
+    return torch.view_as_complex(xy.contiguous())
+
+
+def _exact(precision, what):
+    if precision not in (None, "highest"):
+        raise NotImplementedError(
+            f"{what}: precision {precision!r}; the port computes these transforms exactly "
+            f"(the bf16 mode is the kernels' own, kernels/local_apply.py)")
+
+
+def scatter_cube_split(xy, Gidx, mask, fft_size):
+    """Split coefficients [nk, nb, nG, 2] -> cube [nk, nb, n1, n2, n3, 2]."""
+    return torch.view_as_real(fftops.scatter_to_cube(_from_pairs(xy), Gidx, mask, fft_size))
+
+
+def gather_cube_split(cube, Gidx, mask):
+    """Split cube [nk, nb, n1, n2, n3, 2] -> coefficients [nk, nb, nG, 2]."""
+    return torch.view_as_real(fftops.gather_from_cube(_from_pairs(cube), Gidx, mask))
+
+
+def sphere_to_real_pruned(xy, pf: PrunedFFT, mask, precision=None):
+    """coeffs [nk, nb, nG, 2] -> the unnormalised backward transform on the
+    real-space grid in the reversed spatial layout [nk, nb, n3, n2, n1, 2]
+    (the transpose of the reference's dft3(scatter_cube_split(...), +1))."""
+    _exact(precision, "sphere_to_real_pruned")
+    F1, F2, F3 = pf.factors.fwd
+    x = sphere_to_compact(_from_pairs(xy) * mask[:, None, :], pf)      # [k, b, m1, m2, m3]
+    x = torch.einsum("kbxyz,zc->kbcxy", x, F3)
+    x = torch.einsum("kbcxy,yd->kbcdx", x, F2)
+    return torch.view_as_real(torch.einsum("kbcdx,xa->kbcda", x, F1).contiguous())
+
+
+def real_to_sphere_pruned(cube_rev, pf: PrunedFFT, mask, fft_size, precision=None):
+    """Reversed-layout grid values [nk, nb, n3, n2, n1, 2] -> sphere coeffs
+    [nk, nb, nG, 2] (the reference's gather(dft3(cube, -1)) / N; the 1/n_a
+    ride in the backward factors)."""
+    _exact(precision, "real_to_sphere_pruned")
+    B1, B2, B3 = pf.factors.bwd
+    x = torch.einsum("kbcda,ax->kbcdx", _from_pairs(cube_rev), B1)
+    x = torch.einsum("kbcdx,dy->kbcxy", x, B2)
+    x = torch.einsum("kbcxy,cz->kbxyz", x, B3)
+    return torch.view_as_real(compact_to_sphere(x, pf, mask))
+
+
+def _realify_matrix(C):
+    """Complex C [..., m, n] -> the real [..., 2m, 2n] with x @ R the
+    realified x @ C for rows x = (re, im) interleaved per entry (the
+    reference's realified factor layout, kernels/dft_matmul.py:87-102)."""
+    re, im = C.real, C.imag
+    R = torch.stack([torch.stack([re, im], -1), torch.stack([-im, re], -1)], -3)
+    return R.reshape(C.shape[:-2] + (2 * C.shape[-2], 2 * C.shape[-1]))
+
+
+def build_sandwich(pf: PrunedFFT, V, precision=None):
+    """Per-column sandwich matrices M(z, y) = F1 diag(V(., y, z)) B1 of the
+    local apply: its middle (G3 m1 -> n1, the pointwise V, B1 n1 -> m1) as
+    one [2 m1, 2 m1] real matrix per (z, y) column, so that
+
+        out[.., z, y, :] = in[.., z, y, :] @ M[z, y]
+
+    for the realified compact rows.  V [nspin, n1, n2, n3] real; returns M
+    [nspin, n3, n2, 2 m1, 2 m1] (the reference's layout), built from the
+    complex product in V's precision."""
+    _exact(precision, "build_sandwich")
+    F1, B1 = pf.factors.fwd[0], pf.factors.bwd[0]               # [m1, n1], [n1, m1]
+    cdt = torch.complex128 if V.dtype == torch.float64 else torch.complex64
+    S = torch.einsum("mx,sxyz,xp->szymp", F1.to(cdt), V.to(cdt), B1.to(cdt))
+    return _realify_matrix(S)
+
+
+def _sandwich_complex(M):
+    """The complex [.., m1, m1] of a realified sandwich [.., 2 m1, 2 m1]."""
+    m1 = M.shape[-1] // 2
+    R = M.reshape(M.shape[:-2] + (m1, 2, m1, 2))
+    return torch.complex(R[..., :, 0, :, 0], R[..., :, 0, :, 1])
+
+
+def apply_local_sandwich(x, pf: PrunedFFT, M, kspin, precision=None):
+    """The local-potential apply on compact cubes through the sandwich: x
+    [nk, nb, m1, m2, m3, 2] -> the same shape, M from `build_sandwich`;
+    kspin [nk] picks each k row's spin channel.  The chain is F3, F2, the
+    sandwich per (z, y) column, then B2, B3: the n1-resolved cube never
+    exists, and its largest intermediate is [nk, nb, n3, n2, m1]."""
+    _exact(precision, "apply_local_sandwich")
+    F2, F3 = pf.factors.fwd[1:]
+    B2, B3 = pf.factors.bwd[1:]
+    S = _sandwich_complex(M)[kspin]                           # [k, n3, n2, m1, m1]
+    t = torch.einsum("kbxyz,zc->kbcxy", _from_pairs(x), F3)
+    t = torch.einsum("kbcxy,yd->kbcdx", t, F2)                  # [k, b, n3, n2, m1]
+    mid = torch.einsum("kbcdx,kcdxp->kbcdp", t, S)
+    y = torch.einsum("kbcdp,dy->kbcpy", mid, B2)
+    return torch.view_as_real(torch.einsum("kbcpy,cz->kbpyz", y, B3).contiguous())
+
+
 class SplitTermsData(NamedTuple):
     """The basis' and terms' tensors in the SCF's dtype."""
     basis_data: BasisData
     terms: object             # ops.terms.Terms with its data in the SCF dtype
     pruned: PrunedFFT
+    comm: Any = None          # parallel/mesh.py::KComm of a distributed basis
 
 
 def prepare_split_data(basis, dtype=None):
@@ -128,7 +242,7 @@ def prepare_split_data(basis, dtype=None):
                  "881-932); use self_consistent_field")
     dtype = basis.dtype if dtype is None else dtype
     if dtype == basis.dtype:
-        return SplitTermsData(basis.data, basis.terms, basis.pruned)
+        return SplitTermsData(basis.data, basis.terms, basis.pruned, basis.comm)
     rdt = real_dtype(dtype)
 
     def cast(t):
@@ -145,7 +259,7 @@ def prepare_split_data(basis, dtype=None):
     pf = basis.pruned._replace(factors=LocalFactors(
         fwd=tuple(f.to(dtype) for f in basis.pruned.factors.fwd),
         bwd=tuple(f.to(dtype) for f in basis.pruned.factors.bwd)))
-    return SplitTermsData(bd, dataclasses.replace(basis.terms, data=td), pf)
+    return SplitTermsData(bd, dataclasses.replace(basis.terms, data=td), pf, basis.comm)
 
 
 def make_split_ham(sd: SplitTermsData, V, Vtau=None):
@@ -223,7 +337,7 @@ def compute_density_split(sd: SplitTermsData, U, occupation, fft_size, volume,
     occupations per band [nk, nb]."""
     X = _complex(U).to(sd.terms.data.P.dtype)
     return compute_density(sd.basis_data, X, occupation, fft_size, volume,
-                           n_spin, band_chunk)
+                           n_spin, band_chunk, comm=sd.comm)
 
 
 def compute_tau_split(sd: SplitTermsData, U, occupation, fft_size, volume, n_spin,
@@ -233,7 +347,7 @@ def compute_tau_split(sd: SplitTermsData, U, occupation, fft_size, volume, n_spi
     occupations per band [nk, nb]."""
     X = _complex(U).to(sd.terms.data.P.dtype)
     return compute_kinetic_energy_density(sd.basis_data, X, occupation, fft_size, volume,
-                                          n_spin, band_chunk)
+                                          n_spin, band_chunk, comm=sd.comm)
 
 
 def total_potential_split(terms, sd: SplitTermsData, rho, volume, tau=None):
@@ -246,7 +360,24 @@ def total_potential_split(terms, sd: SplitTermsData, rho, volume, tau=None):
 
 def _psi_energies(sd: SplitTermsData, X, occupation):
     ham = hamops.build_ham(sd.basis_data, sd.terms.data, None, sd.pruned)
-    return hamops.psi_energies(ham, X, occupation, sd.basis_data.kweights)
+    return hamops.psi_energies(ham, X, occupation, sd.basis_data.kweights, sd.comm)
+
+
+def von_weizsaecker_tau_split(rho, G_cart):
+    """tau_W = |grad rho|^2 / (8 rho), the meta-GGA SCF's first tau
+    (`ops/density.py::von_weizsaecker_tau`)."""
+    return von_weizsaecker_tau(rho, G_cart)
+
+
+def tb09_potential_split(rho, G_cart, tau):
+    """The mBJ potential [nspin, n1, n2, n3] with the cell-averaged
+    parameter (`ops/xc/tb09.py::tb09_potential`)."""
+    return tb09_potential(rho, G_cart.to(rho.dtype), tau)
+
+
+def xc_energy_split(functionals, rho, G_cart, volume, scaling=1.0, tau=None):
+    """XC energy with spectral gradients (`ops/hamiltonian.py::xc_energy`)."""
+    return hamops.xc_energy(functionals, rho, volume, scaling, G_cart=G_cart, tau=tau)
 
 
 def psi_energies_split(sd: SplitTermsData, U, occupation):
@@ -472,23 +603,44 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     improved for this many iterations, unless the residual fell over the
     last three.
 
-    Returns a dict: energies, eigenvalues (numpy, sorted), U (realified),
-    rho, tau (None but for meta-GGA), epsF, converged, stalled, occupation, n_iter,
-    history [(E, drho)], basis, runtime_s.
+    is_converged: "density", "energy", or a callable of the iteration's
+    info dict (E, drho, n_iter, and the iterate as partial_scfres: basis,
+    complex psi, occupation, rho, tau), such as `scf/driver.py`'s
+    ScfConvergence* criteria.
+
+    mesh: a ("kpts"[, "bands"]) DeviceMesh (`parallel/mesh.py`); None takes
+    the basis' own (`distribute`).  A basis not yet distributed is sharded
+    over the mesh here, in place (its k-point count a multiple of the
+    "kpts" axis: `pad_basis_kpoints` first).  Each rank iterates its own k
+    rows; a "bands" axis splits every H apply and Chebyshev filter, and the
+    band block is rounded up to a multiple of it.  The random start (and
+    every band growth) is drawn at every k-point and sliced, so a mesh run
+    equals the single-process run at the same seed.
+
+    Returns a dict: energies, eigenvalues (numpy, sorted; every k-point),
+    U (realified), rho, tau (None but for meta-GGA), epsF, converged,
+    stalled, occupation, n_iter, history [(E, drho)], basis, runtime_s; U
+    and occupation are this rank's k rows on a mesh.
     """
     t0 = time.time()
     model = basis.model
-    if mesh is not None:
-        raise NotImplementedError("the k-point device mesh is not ported yet "
-                                  "(ROADMAP Queue 1, item 13)")
+    if mesh is None:
+        mesh = basis.mesh
+    elif basis.mesh is None:
+        shard_basis(basis, mesh)
+    elif basis.mesh is not mesh:
+        raise ValueError("self_consistent_field_split: the basis is distributed over "
+                         "another mesh")
+    comm = basis.comm
     if band_repr != "complex":
         raise NotImplementedError(
             f"band_repr={band_repr!r}: the realified band representations are "
             f"TPU workarounds the port does not carry (ROADMAP, 'Not to port')")
     if eigensolver not in ("lobpcg", "chefsi"):
         raise ValueError(f"eigensolver must be 'lobpcg' or 'chefsi', got {eigensolver!r}")
-    if is_converged not in ("density", "energy"):
-        raise ValueError(f"is_converged must be 'density' or 'energy', got {is_converged!r}")
+    if not callable(is_converged) and is_converged not in ("density", "energy"):
+        raise ValueError(f"is_converged must be 'density', 'energy' or a callable, "
+                         f"got {is_converged!r}")
     if filter_precision is None:
         filter_precision = "highest"
     if filter_precision not in ("mixed", "highest", "default"):
@@ -516,20 +668,27 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         # the occupations; insulators keep a fixed window
         adaptive_bands = model.temperature > 0
     nbr = n_bands + n_extra_bands
+    if comm is not None:       # an even split of the block over "bands"
+        nbr = comm.round_bands(nbr)
     mask = bd.mask
 
     generator = torch.Generator(device=device).manual_seed(seed)
-    shape = (basis.n_kpoints, nbr, basis.nG_max)
+
+    def draw(n):
+        """n random bands at every k-point, this rank's rows."""
+        X = torch.randn((basis.n_kpoints, n, basis.nG_max), dtype=cdt, device=device,
+                        generator=generator)
+        return X if comm is None else comm.rows(X)
+
     if U0 is not None:
         X = _complex(torch.as_tensor(U0, device=device)).to(cdt)
+        if comm is not None and X.shape[0] != mask.shape[0]:
+            X = comm.rows(X)                  # every k-point given: this rank's rows
         if X.shape[1] < nbr:           # grow with random extra bands
-            extra = torch.randn((shape[0], nbr - X.shape[1], shape[2]), dtype=cdt,
-                                device=device, generator=generator)
-            X = torch.cat([X, extra], dim=1)
+            X = torch.cat([X, draw(nbr - X.shape[1])], dim=1)
         X = ortho_qr(X[:, :nbr] * mask[:, None, :])
     else:
-        X = ortho_qr(torch.randn(shape, dtype=cdt, device=device, generator=generator)
-                     * mask[:, None, :])
+        X = ortho_qr(draw(nbr) * mask[:, None, :])
     rho = (torch.as_tensor(rho0, device=device) if rho0 is not None
            else guess_density(basis)).to(bd.kin.dtype)
 
@@ -562,7 +721,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         ham = make_split_ham(sd, V, Vtau)
         extra = []
         if has_exx:
-            exx = hamops.make_exchange(bd, td, X_in, occ_in, filled, volume)
+            exx = hamops.make_exchange(bd, td, X_in, occ_in, filled, volume, comm)
             if use_ace:
                 xi = build_ace(exx, ace_jitter)
                 extra.append(lambda x: apply_ace(xi, x))
@@ -590,14 +749,14 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
                 return out
 
             res = lobpcg(A_d, X_in, ham.kin, mask, tol=max(diagtol, 1e-3),
-                         maxiter=eigensolver_maxiter, n_conv=n_bands)
+                         maxiter=eigensolver_maxiter, n_conv=n_bands, comm=comm)
         elif eigensolver == "lobpcg" or blown:
             res = lobpcg(A, X_in, ham.kin, mask, tol=diagtol,
-                         maxiter=eigensolver_maxiter, n_conv=n_bands)
+                         maxiter=eigensolver_maxiter, n_conv=n_bands, comm=comm)
         elif eigensolver == "chefsi" and extra:
             # every filter step on the exact sphere apply plus the extra terms
             res = chefsi_step(A, X_in, mask, degree=chebyshev_degree, n_conv=n_bands,
-                              cycles=n_cycles, band_chunk=band_chunk)
+                              cycles=n_cycles, band_chunk=band_chunk, comm=comm)
         elif eigensolver == "chefsi" and sphere_filter:
             if placement is None and "default" in filter_precs:
                 placement = default_ham(ham)
@@ -607,7 +766,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
             res = chefsi_step(A, X_in, mask, degree=chebyshev_degree, n_conv=n_bands,
                               cycles=n_cycles, apply_filter=applies[0],
                               apply_filter_last=applies[-1], n_exact_last=n_exact,
-                              band_chunk=band_chunk)
+                              band_chunk=band_chunk, comm=comm)
         elif eigensolver == "chefsi":
             # compact-cube-resident filter: the sphere <-> cube placement
             # once per filter, not once per apply
@@ -618,27 +777,28 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
             res = chefsi_step(A, X_in, mask, degree=chebyshev_degree, n_conv=n_bands,
                               cycles=n_cycles, apply_filter=applies[0],
                               apply_filter_last=applies[-1], n_exact_last=n_exact,
-                              band_chunk=band_chunk, filter_wrap=(enter, leave))
+                              band_chunk=band_chunk, filter_wrap=(enter, leave), comm=comm)
         occ, epsF = compute_occupation(res.eigenvalues, bd.kweights, model.n_electrons,
-                                       filled, model.temperature, model.smearing)
+                                       filled, model.temperature, model.smearing, comm)
         rho_out = compute_density(bd, res.X, occ, fft_size, volume, nspin, band_chunk,
-                                  symmetrizer=symmetrizer)
+                                  symmetrizer=symmetrizer, comm=comm)
         tau_out = None
         if needs_tau:
             tau_out = compute_kinetic_energy_density(bd, res.X, occ, fft_size, volume, nspin,
-                                                     band_chunk, symmetrizer=symmetrizer)
+                                                     band_chunk, symmetrizer=symmetrizer,
+                                                     comm=comm)
         _, _, energies = hamops.total_potential(sd.terms, rho_out, volume, tau=tau_out)
-        energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
+        energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights, comm))
         if has_exx:
             energies["ExactExchange"] = hamops.exchange_energy(
-                hamops.make_exchange(bd, td, res.X, occ, filled, volume), res.X, occ,
-                bd.kweights)
+                hamops.make_exchange(bd, td, res.X, occ, filled, volume, comm), res.X, occ,
+                bd.kweights, comm)
         if hub is not None:
             energies["Hubbard"] = hub.energy(res.X, occ)
         if sd.terms.has_entropy:
             energies["Entropy"] = entropy_energy(res.eigenvalues, bd.kweights, epsF,
                                                  model.temperature, model.smearing,
-                                                 filled)
+                                                 filled, comm)
         return rho_out, res.X, res.eigenvalues, occ, epsF, energies, tau_out
 
     if use_kerker is None:
@@ -695,7 +855,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
             rho, X, diagtol, cycles_cur, n_exact_cur, tau, occ_x)
         occ_x = occ
         if auto_eps and it == 0:
-            eps_r_cur = _penn_eps_r(eigvals, model.n_electrons, filled, volume)
+            eps_r_cur = _penn_eps_r(kgather(eigvals, comm), model.n_electrons, filled, volume)
         rho_mixed, drho_dev = mix_step(rho, rho_out, damping_cur, eps_r_cur)
         E_total = float(sum(float(v) for v in energies.values()) + sum(E_const.values()))
         drho = float(drho_dev) * math.sqrt(dvol)
@@ -703,7 +863,13 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         if callback:
             callback(dict(n_iter=it + 1, E=E_total, drho=drho, damping=damping_cur,
                           eps_r=eps_r_cur))
-        if is_converged == "density":
+        if callable(is_converged):
+            # the iterate for criteria that evaluate it (ScfConvergenceForce)
+            partial = types.SimpleNamespace(basis=basis, psi=X, occupation=occ, rho=rho_out,
+                                            tau=tau_out)
+            converged = bool(is_converged(dict(E=E_total, drho=drho, n_iter=it + 1,
+                                               partial_scfres=partial)))
+        elif is_converged == "density":
             converged = drho < tol
         else:
             converged = E_prev is not None and abs(E_total - E_prev) < tol
@@ -722,7 +888,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         # small can reach a self-consistent but wrong state, so the growth
         # gates convergence too
         grew_bands = (adaptive_bands
-                      and float(occ[:, -1].max()) >= occupation_threshold)
+                      and kmax(comm, occ[:, -1].max()) >= occupation_threshold)
         if grew_bands:
             converged = False
         # near the noise floor drho oscillates: keep the lowest-residual state
@@ -745,9 +911,9 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
         diagtol = min(diagtol, max(0.2 * drho, diagtol_min))
         if grew_bands:
             add = max(3, nbr // 8)
-            extra = torch.randn((basis.n_kpoints, add, basis.nG_max), dtype=cdt,
-                                device=device, generator=generator)
-            X = ortho_qr(torch.cat([X, extra * mask[:, None, :]], dim=1))
+            if comm is not None:
+                add = comm.round_bands(nbr + add) - nbr
+            X = ortho_qr(torch.cat([X, draw(add) * mask[:, None, :]], dim=1))
             occ_x = torch.nn.functional.pad(occ_x, (0, add))   # grown bands start empty
             nbr, n_bands = nbr + add, n_bands + add
             stall_best, stall_it = np.inf, it
@@ -761,7 +927,7 @@ def self_consistent_field_split(basis, tol=2e-5, maxiter=60, n_bands=None,
     energies_out.update(E_const)
     energies_out["total"] = float(sum(energies_out.values()))
     return dict(energies=energies_out,
-                eigenvalues=np.sort(eigvals.cpu().numpy(), axis=1),
+                eigenvalues=np.sort(kgather(eigvals, comm).cpu().numpy(), axis=1),
                 U=_realified(X), rho=rho_out, tau=tau_out, epsF=float(epsF),
                 converged=converged, stalled=stalled, occupation=occ,
                 n_iter=it + 1, history=history, basis=basis,

@@ -85,3 +85,54 @@ def gather_from_cube(cube, Gidx, mask):
     flat = cube.reshape(nk, nb, -1)
     out = torch.gather(flat, 2, Gidx[:, None, :].expand(nk, nb, Gidx.shape[-1]))
     return out * mask[:, None, :]
+
+
+# ---------------------------------------------------------------------------
+# Cube and sphere transforms with the reference's normalisation (torch.fft)
+# ---------------------------------------------------------------------------
+
+def ifft_cube(f_fourier, unit_cell_volume):
+    """Fourier cube [..., n1, n2, n3] -> real-space grid values (complex)."""
+    N = f_fourier.shape[-1] * f_fourier.shape[-2] * f_fourier.shape[-3]
+    return torch.fft.ifftn(f_fourier, dim=(-3, -2, -1)) * (N / math.sqrt(unit_cell_volume))
+
+
+def irfft_cube(f_fourier, unit_cell_volume):
+    return ifft_cube(f_fourier, unit_cell_volume).real
+
+
+def fft_cube(f_real, unit_cell_volume):
+    """Real-space grid values [..., n1, n2, n3] -> Fourier cube."""
+    N = f_real.shape[-1] * f_real.shape[-2] * f_real.shape[-3]
+    return torch.fft.fftn(f_real, dim=(-3, -2, -1)) * (math.sqrt(unit_cell_volume) / N)
+
+
+def _scatter_one_k(coeffs, Gidx, mask, fft_size):
+    """Sphere coefficients [..., nG] of one k-point (Gidx, mask [nG]) ->
+    cube [..., n1, n2, n3]."""
+    lead = coeffs.shape[:-1]
+    flat = torch.zeros(lead + (int(np.prod(fft_size)),), dtype=coeffs.dtype,
+                       device=coeffs.device)
+    flat.index_add_(-1, Gidx, coeffs * mask)
+    return flat.reshape(lead + tuple(fft_size))
+
+
+def ifft_sphere(coeffs, Gidx, mask, fft_size, unit_cell_volume):
+    """Orbital coefficients on the G-sphere -> real-space values: one
+    k-point's coeffs [..., nG] with Gidx, mask [nG], or [nk, nb, nG] with
+    Gidx, mask [nk, nG]."""
+    if Gidx.dim() == 1:
+        cube = _scatter_one_k(coeffs, Gidx, mask, fft_size)
+    else:
+        cube = scatter_to_cube(coeffs, Gidx, mask, fft_size)
+    return ifft_cube(cube, unit_cell_volume)
+
+
+def fft_sphere(f_real, Gidx, mask, unit_cell_volume):
+    """Real-space orbital values -> coefficients on the G-sphere (the
+    layouts of `ifft_sphere`)."""
+    cube = fft_cube(f_real, unit_cell_volume)
+    if Gidx.dim() == 1:
+        flat = cube.reshape(cube.shape[:-3] + (-1,))
+        return torch.index_select(flat, -1, Gidx) * mask
+    return gather_from_cube(cube, Gidx, mask)

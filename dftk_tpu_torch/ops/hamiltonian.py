@@ -52,6 +52,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels.local_apply import local_apply, round_bf16
+from ..parallel.mesh import ksum
 from .density import density_gradients
 from .fft import gather_from_cube, scatter_to_cube
 from .pruned import PrunedFFT, compact_to_sphere, sphere_to_compact
@@ -65,22 +66,32 @@ class Exchange(NamedTuple):
     Gidx: torch.Tensor       # [nk, nG] flat full-cube indices of the spheres
     mask: torch.Tensor       # [nk, nG]
     volume: float
-    iq: Optional[torch.Tensor] = None     # [nk, nk] q index of k - k' (k-grids)
+    iq: Optional[torch.Tensor] = None     # [nk, nk'] q index of k - k' (k-grids)
     kspin: Optional[torch.Tensor] = None  # [nk] spin of each k row (k-grids)
+    gen: Optional[tuple] = None           # (psi, occ, Gidx, mask, kspin) of the
+    #                                       generators at every k' where they are not
+    #                                       the rows above (a distributed k-grid)
 
 
-def make_exchange(basis_data, terms_data, psi, occupation, filled, volume):
+def make_exchange(basis_data, terms_data, psi, occupation, filled, volume, comm=None):
     """The Exchange of generators psi [nk, nx, nG] at occupations [nk, nx]
     (weights w_k f / filled): the one kernel of a basis with one spatial
     k-point (exchange is then k-diagonal), else the kernels at G + q with
-    their index map."""
+    their index map.  On a distributed k-grid (comm, `parallel/mesh.py::
+    KComm`) each k row needs the generators at every k': they are
+    all-gathered over "kpts" (with their spheres), and the q map's rows
+    are this rank's."""
     kern = terms_data.exx_kernel
     gamma = kern.shape[0] == 1
-    return Exchange(kernel=kern[0] if gamma else kern, psi=psi,
-                    occ=basis_data.kweights[:, None] * occupation / filled,
+    occ = basis_data.kweights[:, None] * occupation / filled
+    gen = None
+    if not gamma and comm is not None and comm.ksize > 1:
+        gen = tuple(comm.kgather(t) for t in (psi, occ, basis_data.Gidx, basis_data.mask,
+                                              basis_data.kspin))
+    return Exchange(kernel=kern[0] if gamma else kern, psi=psi, occ=occ,
                     Gidx=basis_data.Gidx, mask=basis_data.mask, volume=volume,
                     iq=None if gamma else terms_data.exx_iq,
-                    kspin=None if gamma else basis_data.kspin)
+                    kspin=None if gamma else basis_data.kspin, gen=gen)
 
 
 class Ham(NamedTuple):
@@ -207,9 +218,11 @@ def apply_exchange(exx: Exchange, phi):
     scale = N / math.sqrt(exx.volume)
     dims = (-3, -2, -1)
     phir = torch.fft.ifftn(scatter_to_cube(phi, exx.Gidx, exx.mask, fft_size), dim=dims) * scale
-    psir = phir if phi is exx.psi else torch.fft.ifftn(
-        scatter_to_cube(exx.psi.to(phi.dtype), exx.Gidx, exx.mask, fft_size), dim=dims) * scale
-    occ = exx.occ.to(phi.real.dtype)
+    gpsi, gocc, gGidx, gmask, gkspin = exx.gen or (exx.psi, exx.occ, exx.Gidx, exx.mask,
+                                                   exx.kspin)
+    psir = phir if phi is gpsi else torch.fft.ifftn(
+        scatter_to_cube(gpsi.to(phi.dtype), gGidx, gmask, fft_size), dim=dims) * scale
+    occ = gocc.to(phi.real.dtype)
     kern = exx.kernel.to(phi.real.dtype)
     acc = torch.zeros_like(phir)
     if exx.iq is None:
@@ -223,7 +236,7 @@ def apply_exchange(exx: Exchange, phi):
         iq, kspin = exx.iq, exx.kspin
         for kp, m in torch.nonzero(occ.ne(0)).tolist():
             psin = psir[kp, m]                                   # [grid]
-            w = occ[kp, m] * (kspin == kspin[kp]).to(occ.dtype)  # [nk]
+            w = occ[kp, m] * (kspin == gkspin[kp]).to(occ.dtype)  # [nk]
             V = torch.fft.fftn(psin.conj() * phir, dim=dims)
             V = torch.fft.ifftn(V.mul_(kern[iq[:, kp]][:, None]), dim=dims)
             acc.sub_(V.mul_(w[:, None, None, None, None] * psin))
@@ -231,10 +244,11 @@ def apply_exchange(exx: Exchange, phi):
     return gather_from_cube(back, exx.Gidx, exx.mask)
 
 
-def exchange_energy(exx: Exchange, psi, occupation, kweights):
-    """E_x = 1/2 sum_kn w_k f_kn <psi_kn | Vx psi_kn> (operator-consistent)."""
+def exchange_energy(exx: Exchange, psi, occupation, kweights, comm=None):
+    """E_x = 1/2 sum_kn w_k f_kn <psi_kn | Vx psi_kn> (operator-consistent;
+    summed over the "kpts" axis of comm)."""
     band_e = torch.sum(psi.conj() * apply_exchange(exx, psi), -1).real
-    return 0.5 * torch.sum(kweights[:, None] * occupation * band_e)
+    return ksum(0.5 * torch.sum(kweights[:, None] * occupation * band_e), comm)
 
 
 # ---------------------------------------------------------------------------
@@ -411,8 +425,9 @@ def nonlinearity_potential_derivative(terms, rho, drho, volume):
     return (torch.zeros_like(rho) if dv is None else dv) / dvol
 
 
-def psi_energies(ham: Ham, psi, occupation, kweights):
-    """Kinetic, nonlocal and Magnetic energies from the orbitals."""
+def psi_energies(ham: Ham, psi, occupation, kweights, comm=None):
+    """Kinetic, nonlocal and Magnetic energies from the orbitals (summed
+    over the "kpts" axis of comm)."""
     energies = {}
     wocc = kweights[:, None] * occupation
     abs2 = psi.real ** 2 + psi.imag ** 2
@@ -424,4 +439,6 @@ def psi_energies(ham: Ham, psi, occupation, kweights):
     if ham.Apot is not None:
         band_m = torch.sum(psi.conj() * apply_magnetic(ham, psi), -1).real
         energies["Magnetic"] = torch.sum(wocc * band_m)
+    if comm is not None:
+        energies = {k: comm.ksum(v) for k, v in energies.items()}
     return energies

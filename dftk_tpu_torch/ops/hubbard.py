@@ -27,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import ksum, local_rows
 from ..utils.special import LM_INDEX, solid_harmonics_real
 
 
@@ -71,13 +72,14 @@ def _proj(Phi, psi):
     return psi @ Phi.conj()
 
 
-def occupation_matrix(Phi, psi, occupation, kweights, kspin, n_spin):
-    """n^sigma_mm' [nspin, n_orb, n_orb] (Hermitian)."""
+def occupation_matrix(Phi, psi, occupation, kweights, kspin, n_spin, comm=None):
+    """n^sigma_mm' [nspin, n_orb, n_orb] (Hermitian; summed over the "kpts"
+    axis of comm)."""
     proj = _proj(Phi, psi.to(Phi.dtype))
     w = (kweights[:, None] * occupation).to(proj.dtype)
     nk_mat = torch.einsum("kn,knm,knp->kmp", w, proj, proj.conj())
     sel = torch.nn.functional.one_hot(kspin, n_spin).to(nk_mat.dtype)
-    n = torch.einsum("ks,kmp->smp", sel, nk_mat)
+    n = ksum(torch.einsum("ks,kmp->smp", sel, nk_mat), comm)
     return (n + n.conj().transpose(1, 2)) / 2
 
 
@@ -186,7 +188,8 @@ class HubbardSetup:
         self.bd = basis.data if basis_data is None else basis_data
         self.manifolds = basis.terms.hubbard_manifolds
         self.Phi, self.slices = build_hubbard_projectors(basis, self.manifolds)
-        self.Phi = self.Phi.to(self.bd.Gpk_cart.dtype.to_complex())
+        self.Phi = local_rows(basis, self.Phi).to(self.bd.Gpk_cart.dtype.to_complex())
+        self.comm = basis.comm
         self.plan = build_occupation_symmetrization(basis, self.manifolds, self.slices)
         self.nspin = model.n_spin_components
         self.filled = model.filled_occupation
@@ -194,7 +197,7 @@ class HubbardSetup:
     def occupation(self, psi, occupation):
         """The symmetrized occupation matrix of psi at `occupation`."""
         n = occupation_matrix(self.Phi, psi, occupation, self.bd.kweights, self.bd.kspin,
-                              self.nspin)
+                              self.nspin, self.comm)
         return symmetrize_occupation_matrix(n, self.slices, self.plan)
 
     def potential_apply(self, psi, occupation):

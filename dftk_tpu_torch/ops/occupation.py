@@ -15,16 +15,24 @@ it (the eigenvalues are [nk, nb], a few hundred entries).
 import torch
 
 from ..models.smearing import Gaussian, NoSmearing
+from ..parallel.mesh import kgather, ksum
 
 BISECTION_STEPS = 80
 NEWTON_STEPS = 12
 
 
 def compute_occupation(eigenvalues, kweights, n_electrons, filled_occupation,
-                       temperature, smearing):
+                       temperature, smearing, comm=None):
     """occupation [nk, nb] and epsF (0-d tensor) from eigenvalues [nk, nb].
 
-    Collinear spin comes as doubled k-point rows with filled_occupation 1."""
+    Collinear spin comes as doubled k-point rows with filled_occupation 1.
+    comm (`parallel/mesh.py::KComm`): the rows are this rank's k rows; the
+    eigenvalues and weights of all ranks are gathered, every rank finds
+    the same Fermi level, and the occupations of its own rows return."""
+    if comm is not None and comm.ksize > 1:
+        occ, epsF = compute_occupation(kgather(eigenvalues, comm), kgather(kweights, comm),
+                                       n_electrons, filled_occupation, temperature, smearing)
+        return comm.rows(occ), epsF
     if temperature == 0 or isinstance(smearing, NoSmearing):
         return _occupation_zero_temperature(eigenvalues, n_electrons, filled_occupation)
     w = kweights.to(eigenvalues.dtype)[:, None]
@@ -78,12 +86,13 @@ def _occupation_zero_temperature(eigenvalues, n_electrons, filled_occupation):
 
 
 def entropy_energy(eigenvalues, kweights, epsF, temperature, smearing,
-                   filled_occupation):
+                   filled_occupation, comm=None):
     """The -T S term (reference terms/entropy.jl) that makes F = E - T S
-    variational; a 0-d tensor on the eigenvalues' device."""
+    variational; a 0-d tensor on the eigenvalues' device (summed over the
+    "kpts" axis of comm)."""
     eigenvalues = torch.as_tensor(eigenvalues)
     if temperature == 0 or isinstance(smearing, NoSmearing):
         return torch.zeros((), dtype=eigenvalues.dtype, device=eigenvalues.device)
     w = torch.as_tensor(kweights, device=eigenvalues.device).to(eigenvalues.dtype)
     s = smearing.entropy((eigenvalues - epsF) / temperature)
-    return -temperature * filled_occupation * torch.sum(w[:, None] * s)
+    return ksum(-temperature * filled_occupation * torch.sum(w[:, None] * s), comm)

@@ -28,6 +28,9 @@ import torch
 from ..kernels.local_apply import LocalFactors
 
 
+_COMPLEX = {torch.float64: torch.complex128, torch.float32: torch.complex64}
+
+
 class PrunedFFT(NamedTuple):
     Gidx_c: torch.Tensor     # [nk, nG] int64 flat index into the compact cube
     inv_idx: torch.Tensor    # [nk, m1*m2*m3] int64 sphere slot per compact
@@ -36,7 +39,11 @@ class PrunedFFT(NamedTuple):
     factors: LocalFactors    # complex axis factors, see module docstring
 
 
-def build_pruned_fft(basis, pad=8):
+def build_pruned_fft(basis, dtype=None, pad=8):
+    """The basis' pruned transforms, factors in the complex `dtype` (default
+    the basis' own; a real dtype, the reference's spelling, takes its
+    complex counterpart)."""
+    dtype = basis.dtype if dtype is None else _COMPLEX.get(dtype, dtype)
     fft_size = basis.fft_size
     idx = basis.Gidx_np                            # [nk, nG] flat full-cube
     iaxes = np.unravel_index(idx, fft_size)        # 3 x [nk, nG]
@@ -56,8 +63,8 @@ def build_pruned_fft(basis, pad=8):
         n = fft_size[a]
         F = np.zeros((m[a], n), dtype=np.complex128)
         F[:len(sels[a])] = np.exp(2j * np.pi * np.outer(sels[a], np.arange(n)) / n)
-        fwd.append(basis.tensor(F, basis.dtype))
-        bwd.append(basis.tensor(F.T.conj() / n, basis.dtype))
+        fwd.append(basis.tensor(F, dtype))
+        bwd.append(basis.tensor(F.T.conj() / n, dtype))
 
     # inverse placement map: compact cell -> sphere slot (nG = zero pad);
     # only real (mask > 0) sphere slots participate

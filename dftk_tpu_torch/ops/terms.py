@@ -454,6 +454,11 @@ def _atomic_local_potential(basis):
             * (N / math.sqrt(model.unit_cell_volume))).cpu().numpy()
 
 
+def count_n_proj(psp):
+    """The number of projectors of one psp, every (l, m, i)."""
+    return psp.n_proj()
+
+
 def projector_form_factors(psp, Gpk_cart, mask):
     """Projector form factors of one psp (no structure factor) at the
     Cartesian k+G tensor [nk, nG, 3]: complex [nk, nG, npp], zero on the
@@ -464,7 +469,7 @@ def projector_form_factors(psp, Gpk_cart, mask):
     (reference terms/nonlocal.jl:166-244)."""
     Gpk_sq = torch.sum(Gpk_cart * Gpk_cart, -1)
     Y = solid_harmonics_real(Gpk_cart, psp.lmax)
-    D = np.zeros((psp.n_proj(), psp.n_proj()))
+    D = np.zeros((count_n_proj(psp), count_n_proj(psp)))
     cols = []
     for l in range(psp.lmax + 1):
         nproj_l = psp.n_proj_radial(l)
@@ -484,7 +489,7 @@ def _build_nonlocal_projectors(basis):
     model = basis.model
     psp_groups = [g for g in model.atom_groups
                   if isinstance(model.atoms[g[0]], ElementPsp)
-                  and model.atoms[g[0]].psp.n_proj() > 0]
+                  and count_n_proj(model.atoms[g[0]].psp) > 0]
     if not psp_groups:
         return None
     sqrt_vol = math.sqrt(model.unit_cell_volume)

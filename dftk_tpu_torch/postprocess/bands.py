@@ -15,6 +15,7 @@ from typing import Dict, List
 import numpy as np
 
 from ..utils.lattice import compute_recip_lattice
+from ..parallel.mesh import refuse_distributed
 
 # high-symmetry points in reduced coordinates (Setyawan-Curtarolo,
 # Comp. Mater. Sci. 49, 299 (2010); parameter-dependent classes are
@@ -232,6 +233,7 @@ def compute_bands(scfres, kcoords=None, n_bands=None, kline_density=20, tol=1e-8
     timer (`utils/timer.py`) as "compute_bands basis" and
     "compute_bands lobpcg".
     """
+    refuse_distributed(scfres.basis, "compute_bands")
     import torch
     from ..basis import PlaneWaveBasis
     from ..bzmesh import ExplicitKpoints

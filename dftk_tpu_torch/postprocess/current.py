@@ -10,11 +10,13 @@ torch.fft over the whole cube, on the basis' device.
 import torch
 
 from ..ops.anyonic import current_density
+from ..parallel.mesh import refuse_distributed
 
 
 def compute_current(scfres, basis=None):
     """The current density [3, n1, n2, n3], a real tensor on the basis'
     device.  scfres: an SCFResult, or anything with psi and occupation."""
+    refuse_distributed(basis or scfres.basis, "compute_current")
     basis = basis or scfres.basis
     psi = torch.as_tensor(scfres.psi, device=basis.device).to(basis.dtype)
     occ = torch.as_tensor(scfres.occupation, device=basis.device, dtype=basis.rdtype)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..models.smearing import Gaussian
+from ..parallel.mesh import refuse_distributed
 
 
 def _smearing(model, smearing, temperature):
@@ -37,6 +38,7 @@ def _docc(smearing, eigenvalues, eps, temperature):
 def compute_dos(eps, basis, eigenvalues, smearing=None, temperature=None):
     """Total DOS at energies eps (scalar or array) per unit cell, numpy
     [n_eps]."""
+    refuse_distributed(basis, "compute_dos")
     model = basis.model
     smearing, temperature = _smearing(model, smearing, temperature)
     docc = _docc(smearing, eigenvalues, eps, temperature)
@@ -48,6 +50,7 @@ def compute_dos(eps, basis, eigenvalues, smearing=None, temperature=None):
 def compute_ldos(eps, basis, eigenvalues, psi, smearing=None, temperature=None):
     """Local DOS on the real-space grid, numpy [n_eps, n1, n2, n3]
     (spin-summed)."""
+    refuse_distributed(basis, "compute_ldos")
     from ..ops import fft as fftops
     model = basis.model
     smearing, temperature = _smearing(model, smearing, temperature)
@@ -70,6 +73,7 @@ def compute_pdos(eps, basis, eigenvalues, psi, manifolds=None, smearing=None,
     every pswfc of every atom.  Returns dict label -> numpy [n_eps]
     (reference dos.jl:88-203).
     """
+    refuse_distributed(basis, "compute_pdos")
     from ..ops.hubbard import HubbardManifold, build_hubbard_projectors
     model = basis.model
     smearing, temperature = _smearing(model, smearing, temperature)

@@ -39,6 +39,7 @@ from ..response.hessian import solve_omega_plus_k
 from ..response.phonon_dfpt import _nonlocal_derivative, response_matrix, screened_response
 from .forces import f64, psp_groups, structure_factor
 from .stresses import _traced_core, energy_at_lattice
+from ..parallel.mesh import refuse_distributed
 
 _VOIGT = [(0, 0), (1, 1), (2, 2), (1, 2), (0, 2), (0, 1)]
 
@@ -122,6 +123,7 @@ def strain_derivatives(basis, psi, occupation):
     """The bare strain derivatives r_a = d_a(H psi) [nk, nb, nG], a = 0..5
     (Voigt), at fixed psi [nk, nb, nG] and occupations [nk, nb]: a list of
     six tensors on the basis' device, zero on the padding."""
+    refuse_distributed(basis, "strain_derivatives")
     model = basis.model
     bd = basis.data
     rho_sym = compute_density(bd, psi, occupation, basis.fft_size, model.unit_cell_volume,
@@ -154,6 +156,7 @@ def clamped_orbital_tensor(basis, psi, occupation):
     """The clamped-orbital part of C (Voigt [6, 6], numpy): the Hessian of
     F(e) = energy_at_lattice((1 + sum e_a E_a) L0) over the volume, the
     volume's derivative term and the finite-prestress geometric term."""
+    refuse_distributed(basis, "clamped_orbital_tensor")
     model = basis.model
     vol = model.unit_cell_volume
     dev = basis.device
@@ -201,6 +204,7 @@ def elastic_tensor_response(scfres, cg_tol=1e-9, cg_maxiter=200, dyson_tol=1e-8,
     converged result (an SCFResult, or an `interop.SCFState`).  A strain
     perturbation does not have the crystal symmetry: the result is unfolded
     onto the full k-point set first."""
+    refuse_distributed(scfres.basis, "elastic_tensor_response")
     from .stresses import refuse_unstrained_terms
     from .unfold import unfold_bz
     refuse_unstrained_terms((scfres.basis).model, "elastic_tensor_response")

@@ -30,6 +30,7 @@ import torch
 from ..models.elements import ElementPsp
 from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
 from ..ops.terms import AtomicLocal, projector_form_factors
+from ..parallel.mesh import ksum, local_rows
 
 # complex entries of one atom chunk's phase or projector tensor (256 MB)
 CHUNK_ELEMS = 2 ** 24
@@ -121,24 +122,29 @@ def kinetic_density_of(basis, psi, occupation):
     """The symmetrized kinetic-energy density of a state, float64 on the
     basis' device (a meta-GGA result without its own tau)."""
     from ..ops.density import compute_kinetic_energy_density, make_symmetrizer
-    bd = basis.data._replace(Gpk_cart=f64(basis, basis.Gpk_cart_np),
-                             mask=f64(basis, basis.mask_np),
-                             kweights=f64(basis, basis.kweights))
+    bd = basis.data._replace(Gpk_cart=f64(basis, local_rows(basis, basis.Gpk_cart_np)),
+                             mask=f64(basis, local_rows(basis, basis.mask_np)),
+                             kweights=f64(basis, local_rows(basis, basis.kweights)))
     return compute_kinetic_energy_density(
         bd, psi, occupation, basis.fft_size, basis.model.unit_cell_volume,
-        basis.model.n_spin_components, 64, symmetrizer=make_symmetrizer(basis))
+        basis.model.n_spin_components, 64, symmetrizer=make_symmetrizer(basis),
+        comm=basis.comm)
 
 
-def _positions_energy(basis, psi, occupation, rho, positions, tau=None):
+def _positions_energy(basis, psi, occupation, rho, positions, tau=None, parts="all"):
     """The explicitly position-dependent energy terms as a torch function of
     positions [n_atoms, 3] (fractional, float64); tau is needed for
-    meta-GGA models with a core kinetic-energy density."""
+    meta-GGA models with a core kinetic-energy density.  parts: "all",
+    "kpoints" (the nonlocal term, a sum over the k rows of psi) or "grid"
+    (the others)."""
     model = basis.model
     terms = basis.terms
     sqrt_vol = math.sqrt(model.unit_cell_volume)
     N = int(np.prod(basis.fft_size))
     E = torch.zeros((), dtype=torch.float64, device=basis.device)
 
+    if parts == "kpoints":
+        return _nonlocal_energy(basis, psi, occupation, positions, sqrt_vol)
     # AtomicLocal: E = sum_G conj(rho_G) Vloc_G
     if has_local(model):
         rho_G = (torch.fft.fftn(rho.sum(0)) * (sqrt_vol / N)).reshape(-1)
@@ -150,14 +156,8 @@ def _positions_energy(basis, psi, occupation, rho, positions, tau=None):
             vloc_G = vloc_G + ff * structure_factor(Gred, positions[group]) / sqrt_vol
         E = E + torch.sum(rho_G.real * vloc_G.real + rho_G.imag * vloc_G.imag)
 
-    # AtomicNonlocal
-    if terms.data.P.shape[-1] > 0:
-        wocc = f64(basis, basis.kweights)[:, None] * occupation
-        Gred_pk = f64(basis, basis.Gred_np + basis.kcoords_spin[:, None, :])
-        for group in psp_groups(model):
-            ff, D = _projector_form_factors(basis, model.atoms[group[0]].psp)
-            E = E + nonlocal_group_energy(ff, D, psi, wocc, Gred_pk,
-                                          positions[group], sqrt_vol)
+    if parts == "all":
+        E = E + _nonlocal_energy(basis, psi, occupation, positions, sqrt_vol)
 
     # Ewald
     charges = np.array([at.charge_ionic() for at in model.atoms], dtype=float)
@@ -187,6 +187,22 @@ def _positions_energy(basis, psi, occupation, rho, positions, tau=None):
     return E
 
 
+def _nonlocal_energy(basis, psi, occupation, positions, sqrt_vol):
+    """AtomicNonlocal of the k rows of psi (this rank's on a distributed
+    basis)."""
+    model = basis.model
+    E = torch.zeros((), dtype=torch.float64, device=basis.device)
+    if basis.terms.data.P.shape[-1] == 0:
+        return E
+    wocc = f64(basis, local_rows(basis, basis.kweights))[:, None] * occupation
+    Gred_pk = f64(basis, local_rows(basis, basis.Gred_np + basis.kcoords_spin[:, None, :]))
+    for group in psp_groups(model):
+        ff, D = _projector_form_factors(basis, model.atoms[group[0]].psp)
+        E = E + nonlocal_group_energy(local_rows(basis, ff), D, psi, wocc, Gred_pk,
+                                      positions[group], sqrt_vol)
+    return E
+
+
 def _projector_form_factors(basis, psp):
     """`ops/terms.py::projector_form_factors` at the basis' own k+G, with D
     as a tensor.
@@ -205,7 +221,9 @@ def _projector_form_factors(basis, psp):
 def compute_forces(scfres, basis=None):
     """Forces in reduced coordinates, a float64 tensor [n_atoms, 3] on the
     basis' device.  scfres: an SCFResult, or anything with psi, occupation
-    and rho."""
+    and rho.  On a distributed basis psi and occupation are this rank's k
+    rows: the nonlocal forces are all-reduced over "kpts", the others
+    (from the replicated density) computed on every rank."""
     basis = basis or scfres.basis
     check_supported(basis, scfres, "forces")
     dev = basis.device
@@ -219,8 +237,11 @@ def compute_forces(scfres, basis=None):
                else torch.as_tensor(tau, device=dev).to(torch.float64))
     with torch.enable_grad():
         positions = f64(basis, np.stack(basis.model.positions)).requires_grad_(True)
-        E = _positions_energy(basis, psi, occ, rho, positions, tau)
-        (grad,) = torch.autograd.grad(E, positions)
+        grad = torch.zeros_like(positions)
+        for part, reduce in (("grid", None), ("kpoints", basis.comm)):
+            E = _positions_energy(basis, psi, occ, rho, positions, tau, part)
+            if E.requires_grad:
+                grad = grad + ksum(torch.autograd.grad(E, positions)[0], reduce)
     F = -grad
     if basis.terms.pairwise_forces is not None:
         F = F + f64(basis, basis.terms.pairwise_forces)

@@ -31,6 +31,7 @@ from ..ops.density import compute_density, compute_density_derivative, make_symm
 from ..ops.eigen.lobpcg import ortho_qr
 from ..response.chi0 import _project_out
 from ..transfer import transfer_blochwave
+from ..parallel.mesh import refuse_distributed
 
 
 class RefinementResult:
@@ -52,6 +53,7 @@ def refine_scfres(scfres, Ecut_fine, tpa_shift=1.0, cg_tol=1e-8, cg_maxiter=200)
     refine.jl:43-85; 1.0 = the reference metric).  The fine basis is built
     on the coarse one's device and dtype.
     """
+    refuse_distributed(scfres.basis, "refine_scfres")
     from ..response.hessian import make_omega_plus_k, solve_omega_plus_k
     from ..scf.driver import constant_energies
     basis = scfres.basis

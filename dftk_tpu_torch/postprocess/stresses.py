@@ -51,6 +51,7 @@ from ..ops.hamiltonian import xc_energy
 from ..ops.terms import Hartree, projector_form_factors, refuse_terms
 from .forces import (check_supported, core_atoms, core_on_grid, f64, has_local,
                      nonlocal_group_energy, psp_groups, structure_factor)
+from ..parallel.mesh import refuse_distributed
 
 DENSITY_BAND_CHUNK = 64     # bands per batch of full-grid cubes in the density
 
@@ -74,35 +75,72 @@ def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
     model = basis.model
     refuse_unstrained_terms(model, "energy_at_lattice")
     terms = basis.terms
-    bd = basis.data
+    vol0 = model.unit_cell_volume
+    occupation = torch.as_tensor(occupation, device=basis.device).to(torch.float64)
+    wocc = f64(basis, basis.kweights)[:, None] * occupation
+    if positions is None:
+        positions = np.stack(model.positions)
+    pos = f64(basis, positions)
+    E = lattice_energy(basis, psi, wocc, lattice, pos, make_symmetrizer(basis))
+
+    charges = np.array([at.charge_ionic() for at in model.atoms], dtype=float)
+    if len(charges) > 0 and terms.E_ewald != 0.0:
+        eta = default_eta(model.lattice)
+        Gbox, Rbox = ewald_sum_bounds(model.lattice, np.stack(model.positions), eta)
+        E = E + energy_ewald(lattice, charges, pos, eta=eta, device=basis.device,
+                             Gbox=Gbox, Rbox=Rbox)
+    # PspCorrection: corr * n_electrons / Omega
+    return E + terms.E_psp_correction * vol0 / torch.abs(torch.linalg.det(lattice))
+
+
+def lattice_energy(basis, psi, wocc, lattice, pos, symmetrizer, include="all"):
+    """The orbital and density terms of `energy_at_lattice` (no Ewald,
+    PspCorrection or Entropy) at fixed psi [nk, nb, nG] and weighted
+    occupations wocc = w_k f_kn [nk, nb]: include "all", "psi" (kinetic and
+    nonlocal) or "density" (local, Hartree, XC).  pos: the fractional
+    positions, a float64 tensor; symmetrizer: applied to the rebuilt
+    density (None: none)."""
+    refuse_distributed(basis, "lattice_energy")
+    model = basis.model
+    terms = basis.terms
     fft_size = basis.fft_size
     N = int(np.prod(fft_size))
     vol0 = model.unit_cell_volume
     psi = torch.as_tensor(psi, device=basis.device).to(torch.complex128)
-    occupation = torch.as_tensor(occupation, device=basis.device).to(torch.float64)
-    if positions is None:
-        positions = np.stack(model.positions)
-    pos = f64(basis, positions)
+    wocc = torch.as_tensor(wocc, device=basis.device).to(torch.float64)
+    with_psi = include in ("all", "psi")
+    with_density = include in ("all", "density")
 
     B = 2 * math.pi * torch.linalg.inv(lattice.T)
     vol = torch.abs(torch.linalg.det(lattice))
     sqrt_vol = torch.sqrt(vol)
-    wocc = f64(basis, basis.kweights)[:, None] * occupation
     mask = f64(basis, basis.mask_np)
+    E = torch.zeros((), dtype=torch.float64, device=basis.device)
 
     # kinetic, through |B (k+G)|^2
     Gred_pk = f64(basis, basis.Gred_np + basis.kcoords_spin[:, None, :])
     Gpk_cart = torch.einsum("ab,knb->kna", B, Gred_pk)
-    kin = 0.5 * torch.sum(Gpk_cart * Gpk_cart, -1) * mask
-    abs2 = psi.real ** 2 + psi.imag ** 2
-    E = torch.sum(wocc[:, :, None] * kin[:, None, :] * abs2) * terms.data.kinetic_scale
+    if with_psi:
+        kin = 0.5 * torch.sum(Gpk_cart * Gpk_cart, -1) * mask
+        abs2 = psi.real ** 2 + psi.imag ** 2
+        E = E + torch.sum(wocc[:, :, None] * kin[:, None, :] * abs2) * terms.data.kinetic_scale
 
-    # density from psi at L0, rescaled by the volume in the graph
-    bd64 = bd._replace(mask=mask, kweights=f64(basis, basis.kweights))
+    # AtomicNonlocal: projectors traced through the metric
+    if with_psi and terms.data.P.shape[-1] > 0:
+        for group in psp_groups(model):
+            ff, D = projector_form_factors(model.atoms[group[0]].psp, Gpk_cart, mask)
+            E = E + nonlocal_group_energy(ff, f64(basis, D), psi, wocc, Gred_pk,
+                                          pos[group], sqrt_vol)
+    if not with_density:
+        return E
+
+    # density from psi at L0, rescaled by the volume in the graph (the
+    # weights ride in wocc: unit k weights)
+    bd64 = basis.data._replace(mask=mask, kweights=torch.ones_like(wocc[:, 0]))
     with torch.no_grad():
-        rho0 = compute_density(bd64, psi, occupation, fft_size, vol0,
+        rho0 = compute_density(bd64, psi, wocc, fft_size, vol0,
                                model.n_spin_components, DENSITY_BAND_CHUNK,
-                               symmetrizer=make_symmetrizer(basis))
+                               symmetrizer=symmetrizer)
     rho = rho0 * (vol0 / vol)
     rho_G = torch.fft.fftn(rho.sum(0)) * (sqrt_vol / N)
 
@@ -128,7 +166,7 @@ def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
             rho_xc = rho + _traced_core(basis, "rho", Gsq, pos, vol)[None] / nspin
         if terms.needs_tau:
             with torch.no_grad():
-                T = _tau_metric_parts(basis, bd64, psi, occupation)
+                T = _tau_metric_parts(basis, bd64, psi, wocc, symmetrizer)
             tau_xc = 0.5 * (vol0 / vol) * torch.einsum("bc,bcsxyz->sxyz", B.T @ B, T)
             if terms.tau_core_np is not None:
                 tau_xc = tau_xc + _traced_core(basis, "tau", Gsq, pos, vol)[None] / nspin
@@ -143,22 +181,6 @@ def energy_at_lattice(basis, psi, occupation, lattice, positions=None):
             ff = model.atoms[group[0]].local_potential_fourier_sq(Gsq)
             vloc_G = vloc_G + ff * structure_factor(Gred_cube, pos[group])
         E = E + torch.sum(rho_Gf.real * vloc_G.real + rho_Gf.imag * vloc_G.imag) / sqrt_vol
-
-    # AtomicNonlocal: projectors traced through the metric
-    if terms.data.P.shape[-1] > 0:
-        for group in psp_groups(model):
-            ff, D = projector_form_factors(model.atoms[group[0]].psp, Gpk_cart, mask)
-            E = E + nonlocal_group_energy(ff, f64(basis, D), psi, wocc, Gred_pk,
-                                          pos[group], sqrt_vol)
-
-    charges = np.array([at.charge_ionic() for at in model.atoms], dtype=float)
-    if len(charges) > 0 and terms.E_ewald != 0.0:
-        eta = default_eta(model.lattice)
-        Gbox, Rbox = ewald_sum_bounds(model.lattice, np.stack(model.positions), eta)
-        E = E + energy_ewald(lattice, charges, pos, eta=eta, device=basis.device,
-                             Gbox=Gbox, Rbox=Rbox)
-    # PspCorrection: corr * n_electrons / Omega
-    E = E + terms.E_psp_correction * vol0 / vol
     return E
 
 
@@ -176,13 +198,12 @@ def _traced_core(basis, kind, Gsq, pos, vol):
     return core_on_grid(basis, ffs, pos, vol)
 
 
-def _tau_metric_parts(basis, bd64, psi, occupation):
+def _tau_metric_parts(basis, bd64, psi, occupation, symmetrizer):
     """T [3, 3, nspin, n1, n2, n3] of the module docstring at L0 (float64,
     symmetrized like the SCF's tau)."""
     fft_size, vol0 = basis.fft_size, basis.model.unit_cell_volume
     nspin = basis.model.n_spin_components
     q = f64(basis, basis.Gred_np + basis.kcoords_spin[:, None, :])     # [nk, nG, 3]
-    symmetrizer = make_symmetrizer(basis)
 
     def dens(w):
         return compute_density(bd64, w[:, None, :] * psi, occupation, fft_size, vol0,
@@ -204,6 +225,7 @@ def compute_stresses_cart(scfres, basis=None):
     """Cartesian stress tensor (Ha/bohr^3), a symmetrized float64 tensor
     [3, 3] on the basis' device: sigma = (1/Omega) dE[(I + eps) L] / d eps
     at eps = 0.  scfres: an SCFResult, or anything with psi and occupation."""
+    refuse_distributed(basis or scfres.basis, "compute_stresses_cart")
     basis = basis or scfres.basis
     check_supported(basis, scfres, "stresses")
     L0 = f64(basis, basis.model.lattice)

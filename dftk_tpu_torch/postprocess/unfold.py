@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..symmetry import SYMMETRY_TOLERANCE
+from ..parallel.mesh import refuse_distributed
 
 
 def _canon(k, tol=SYMMETRY_TOLERANCE):
@@ -52,6 +53,7 @@ def unfold_bz(scfres):
     (numpy where the result's are, else tensors); the density and the other
     fields are the result's.  A result already on the full grid is
     returned as it is."""
+    refuse_distributed(scfres.basis, "unfold_bz")
     from ..basis import PlaneWaveBasis
 
     basis = scfres.basis

@@ -34,6 +34,7 @@ from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, compute_density_derivative
 from ..ops.pruned import compact_to_sphere, sphere_to_compact
 from ..ops.terms import refuse_anyonic
+from ..parallel.mesh import refuse_distributed
 
 
 class CGCounts:
@@ -184,6 +185,7 @@ def make_chi0_context(scfres, basis=None):
     occupation, eigenvalues and epsF, numpy or tensors): H at its density,
     its orbitals, occupations, eigenvalues and Fermi level on the basis'
     device."""
+    refuse_distributed(basis or scfres.basis, "make_chi0_context")
     basis = basis or scfres.basis
     refuse_anyonic(basis.model, "the response")
 
@@ -232,6 +234,7 @@ def apply_chi0(ctx: Chi0Context, basis, delta_V, tol=1e-9, occupation_threshold=
     takes the computed unoccupied bands as an exact Schur complement in
     the Sternheimer solve; density_tol switches to per-band balanced
     tolerances aiming at that density accuracy."""
+    refuse_distributed(basis, "apply_chi0")
     dVpsi = apply_dV(ctx.ham, ctx.psi, delta_V, basis.data.kspin)
     return apply_chi0_generic(ctx, basis, dVpsi, tol=tol,
                               occupation_threshold=occupation_threshold,
@@ -243,6 +246,7 @@ def apply_chi0_generic(ctx: Chi0Context, basis, dVpsi, tol=1e-9, occupation_thre
     """chi0 response to a general Hermitian perturbation given as dVpsi =
     dH psi [nk, nb, nG].  Returns drho; with_detail=True returns (drho,
     dpsi, df, depsF) (the second derivatives of metals need them)."""
+    refuse_distributed(basis, "apply_chi0_generic")
     model = basis.model
     bd = basis.data
     fft_size = basis.fft_size

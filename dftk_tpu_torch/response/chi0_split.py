@@ -26,6 +26,7 @@ from ..ops.engine_split import _complex, _realified
 from ..scf.energy_eval import split_state_to_complex
 from .chi0 import Chi0Context, apply_chi0_generic, apply_dV, sternheimer_solver
 from .hessian import apply_kernel, gmres
+from ..parallel.mesh import refuse_distributed
 
 
 def sternheimer_split(apply_H, U_occ, eps_occ, rhs, kin2, mask2, tol=1e-6, maxiter=200):
@@ -72,6 +73,7 @@ def make_chi0_split_context(basis, sd, split_res):
     (or any dict with U, occupation, eigenvalues, rho and optionally epsF,
     numpy or tensors) in the csplit band representation: one U row [x; y]
     per complex band."""
+    refuse_distributed(basis, "make_chi0_split_context")
     rho = _real(basis, split_res["rho"])
     V, _, _ = hamops.total_potential(basis.terms, rho, basis.model.unit_cell_volume)
     psi, occ = split_state_to_complex(basis, split_res["U"], split_res["occupation"])
@@ -97,6 +99,7 @@ def apply_chi0_split_ctx(basis, ctx: SplitChi0Context, delta_V=None, tol=1e-6,
     pairs.  with_detail=True returns (drho, dpsi [nk, nb, 2nG] realified,
     df, depsF).  band_chunk is taken for the reference's signature: the
     complex apply takes every band at once."""
+    refuse_distributed(basis, "apply_chi0_split_ctx")
     if rhs is None:
         nspin = basis.model.n_spin_components
         dV = _real(basis, delta_V).expand((nspin,) + tuple(basis.fft_size))
@@ -124,6 +127,7 @@ def solve_dyson_split(basis, ctx: SplitChi0Context, dV_ext, rho0, tol=1e-6, maxi
     chi0 K) drho = chi0 dV_ext by GMRES (`response/hessian.py::gmres`)
     over `apply_chi0_split_ctx` and `apply_kernel_split`.  Returns (drho,
     dV_tot)."""
+    refuse_distributed(basis, "solve_dyson_split")
     dV_ext = _real(basis, dV_ext)
 
     def chi0(dv):

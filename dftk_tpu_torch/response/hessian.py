@@ -30,6 +30,7 @@ from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, compute_density_derivative
 from ..ops.terms import refuse_anyonic
 from .chi0 import _project_out, apply_chi0, apply_dV, counts, make_chi0_context
+from ..parallel.mesh import refuse_distributed
 
 
 def apply_kernel(basis, rho0, drho):
@@ -52,6 +53,7 @@ def solve_dyson(scfres, dV_ext, basis=None, tol=1e-7, maxiter=60, sternheimer_to
     """The self-consistent drho for an external potential perturbation
     dV_ext [nspin, n1, n2, n3].  Returns (drho, dV_total).  inexact=True
     relaxes the Sternheimer tolerance per GMRES iteration (`gmres`)."""
+    refuse_distributed(basis or scfres.basis, "solve_dyson")
     basis = basis or scfres.basis
     ctx = make_chi0_context(scfres, basis)
     rho0 = torch.as_tensor(scfres.rho, dtype=basis.rdtype, device=basis.device)
@@ -139,6 +141,7 @@ def compute_polarizability(scfres, direction=2, basis=None, **kwargs):
     the self-consistent response to dV_ext = -E . r (a decoupled molecule
     in a large cell, measured from the cell's centre), alpha = integral of
     r drho / E along `direction`."""
+    refuse_distributed(basis or scfres.basis, "compute_polarizability")
     basis = basis or scfres.basis
     model = basis.model
     axes = [np.arange(n) / n for n in basis.fft_size]
@@ -156,6 +159,7 @@ def make_omega_plus_k(basis, psi, occupation, rho=None, include_K=True):
     n_occ, nG], the projector onto the occupied space's complement and the
     TPA preconditioner (reference hessian.jl apply_Omega, apply_K);
     include_K=False gives the bare Omega = P_c (H - eps_n) P_c."""
+    refuse_distributed(basis, "make_omega_plus_k")
     model = basis.model
     refuse_anyonic(model, "the SCF Hessian")
     psi = torch.as_tensor(psi, device=basis.device, dtype=basis.dtype)
@@ -215,6 +219,7 @@ def eigen_omega_plus_k(basis, psi, occupation, n_eigs=3, tol=1e-7, maxiter=200,
 
     Returns (eigenvalues [n_eigs] numpy, eigenvectors: a list of n_eigs
     tensors [nk, n_occ, nG])."""
+    refuse_distributed(basis, "eigen_omega_plus_k")
     A, Pc, M = make_omega_plus_k(basis, psi, occupation, rho=rho, include_K=include_K)
     generator = torch.Generator(device=basis.device).manual_seed(seed)
     m = n_eigs
@@ -260,6 +265,7 @@ def solve_omega_plus_k(basis, psi, occupation, rhs, rho=None, cg_tol=1e-9, cg_ma
     occupied orbitals of a converged insulator, rhs [nk, n_occ, nG] a
     perturbation applied to them (dH psi).  Returns dpsi orthogonal to the
     occupied space.  The CG reads its residual norm back once a step."""
+    refuse_distributed(basis, "solve_omega_plus_k")
     OmegaK, Pc, M = make_omega_plus_k(basis, psi, occupation, rho=rho, include_K=True)
     return Pc(preconditioned_cg(OmegaK, M, -Pc(torch.as_tensor(rhs, device=basis.device,
                                                                dtype=basis.dtype)),

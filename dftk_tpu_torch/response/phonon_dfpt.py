@@ -35,6 +35,7 @@ from ..models.elements import ElementPsp
 from ..ops.terms import refuse_terms
 from .chi0 import apply_chi0, apply_chi0_generic, apply_dV, make_chi0_context
 from .hessian import apply_kernel, gmres
+from ..parallel.mesh import refuse_distributed
 
 
 def _dVloc_grids(basis):
@@ -120,6 +121,7 @@ def clamped_ion_hessian(scfres, basis=None):
     fixed psi, occupations and rho: the Hessian of the forces' position
     energy (`postprocess/forces.py::_positions_energy`) by double backward,
     float64 on the basis' device."""
+    refuse_distributed(basis or scfres.basis, "clamped_ion_hessian")
     from ..postprocess.forces import _positions_energy
     basis = basis or scfres.basis
     dev = basis.device
@@ -187,6 +189,7 @@ def dynmat_dfpt_gamma(scfres, tol=1e-7, sternheimer_tol=1e-10, acoustic_sum_rule
     `postprocess.phonon.phonon_modes_from_dynmat`."""
     # a single-atom displacement does not have the crystal symmetry: the
     # response is evaluated on the full k-point set
+    refuse_distributed(scfres.basis, "dynmat_dfpt_gamma")
     from ..postprocess.unfold import unfold_bz
     refuse_pairwise(scfres.basis.model, "dynmat_dfpt_gamma")
     scfres = unfold_bz(scfres)

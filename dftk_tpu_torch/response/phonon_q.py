@@ -41,6 +41,7 @@ from ..ops.ewald import default_eta, energy_ewald, ewald_sum_bounds
 from ..ops.terms import Hartree, refuse_terms
 from .chi0 import apply_dV_q, make_chi0_context, sternheimer_solver
 from .phonon_dfpt import _atom_of_projector_column, _nonlocal_derivative, clamped_ion_hessian
+from ..parallel.mesh import refuse_distributed
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +136,7 @@ def kpq_maps(basis, q, tol=1e-8):
     shift with k + q = k_perm + G0 (numpy).  Requires a q-commensurate
     unfolded grid.  Under collinear spin the first matching row is taken,
     a spin-up one, as in the reference."""
+    refuse_distributed(basis, "kpq_maps")
     kcoords = np.asarray(basis.kcoords_spin, dtype=float)
     q = np.asarray(q, dtype=float)
     nk = len(kcoords)
@@ -394,6 +396,7 @@ def dynmat_dfpt_q(scfres, q, tol=1e-7, sternheimer_tol=1e-10, maxiter=40, verbos
     the e^{iqR} gauge) at reduced q by DFPT.  q = 0 at T > 0 takes the
     Gamma code (its occupation and Fermi-level terms); psps with an NLCC
     core density raise NotImplementedError, as in the reference."""
+    refuse_distributed(scfres.basis, "dynmat_dfpt_q")
     from ..postprocess.unfold import unfold_bz
     from .hessian import gmres
     from .phonon_dfpt import dynmat_dfpt_gamma, refuse_pairwise

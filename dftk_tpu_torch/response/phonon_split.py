@@ -25,6 +25,7 @@ from ..interop import SCFState
 from ..scf.energy_eval import split_state_to_complex
 from .chi0_split import _real
 from .phonon_dfpt import dynmat_dfpt_gamma
+from ..parallel.mesh import refuse_distributed
 
 
 def dynmat_dfpt_gamma_split(basis, sd, split_res, tol=1e-6, sternheimer_tol=None,
@@ -35,6 +36,7 @@ def dynmat_dfpt_gamma_split(basis, sd, split_res, tol=1e-6, sternheimer_tol=None
     full (unfolded) k-set.  sternheimer_tol defaults to 1e-10 in float64
     and 1e-5 in float32, as the reference's; sd and band_chunk are taken
     for its signature."""
+    refuse_distributed(basis, "dynmat_dfpt_gamma_split")
     if basis.terms.rho_core_np is not None:
         raise NotImplementedError("split DFPT with NLCC psps is not implemented (nor in "
                                   "the reference)")

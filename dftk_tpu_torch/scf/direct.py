@@ -35,6 +35,7 @@ from ..ops.density import compute_density, guess_density, make_symmetrizer
 from ..ops.eigen.lobpcg import lobpcg, ortho_qr
 from ..ops.terms import refuse_terms
 from .driver import SCFResult, random_orbitals
+from ..parallel.mesh import refuse_distributed
 
 
 def _anyonic_energy(basis, psi, occupation, rho):
@@ -50,6 +51,7 @@ def energy_from_orbitals(basis, psi, occupation, symmetrizer=None):
     """(E, rho): the total energy without entropy of orthonormal psi [nk, nb,
     nG] at fixed occupations, differentiable in psi (the XC energy of the
     live density, `ops/hamiltonian.py::density_energies`), and its density."""
+    refuse_distributed(basis, "energy_from_orbitals")
     model = basis.model
     terms = basis.terms
     bd, td = basis.data, terms.data
@@ -69,6 +71,7 @@ def direct_minimization(basis, tol=1e-8, maxiter=300, psi=None, n_bands: Optiona
                         step: float = 1.0, momentum: float = 0.7, seed: int = 42,
                         callback=None) -> SCFResult:
     """Minimize E[psi] at fixed integer occupations (insulators only)."""
+    refuse_distributed(basis, "direct_minimization")
     t0 = time.time()
     model = basis.model
     terms = basis.terms

@@ -29,6 +29,15 @@ With `use_ace` (default) the Fock operator of those orbitals is compressed
 once per step (`ops/exx_ace.py`) and LOBPCG applies two GEMMs for it; the
 exchange energy is evaluated with the bare operator of the new orbitals.
 
+On a basis distributed over a k-point (x band) mesh (`parallel/mesh.py`)
+each rank iterates its own k rows: the random start is drawn for every
+k-point and sliced, so the run equals the single-process one at the same
+seed; the sums over k all-reduce and LOBPCG's stopping rules take the
+maximum over "kpts" (a "bands" axis splits every H apply).  The result's
+eigenvalues are all-gathered (every k-point, on every rank); its psi and
+occupation are this rank's rows (`parallel/multihost.py::fetch` gathers
+them).
+
 A run that ends unconverged, or with a non-finite energy, dumps its final
 density, eigenvalues and occupations where DFTK_TPU_DEBUG_DUMP names a
 directory (`utils/debugdump.py`), as the JAX package's does.
@@ -49,6 +58,7 @@ from ..ops.exx_ace import apply_ace, build_ace
 from ..ops.hubbard import HubbardSetup
 from ..ops.occupation import compute_occupation, entropy_energy
 from ..ops.terms import refuse_anyonic
+from ..parallel.mesh import kgather, local_rows, refuse_distributed
 from ..response.chi0 import Chi0Context
 from ..utils.debugdump import debug_dump
 from .anderson import AndersonAcceleration
@@ -82,12 +92,13 @@ class SCFResult:
 def random_orbitals(basis, n_bands, seed=42, generator=None):
     """Orthonormalised random orbitals [nk, n_bands, nG] on the basis' device,
     drawn from `generator` (a torch.Generator on that device) or from a new
-    one seeded with `seed`."""
+    one seeded with `seed`: at every k-point, then sliced to this rank's
+    rows on a distributed basis (the same orbitals in every layout)."""
     if generator is None:
         generator = torch.Generator(device=basis.device).manual_seed(seed)
     shape = (basis.n_kpoints, n_bands, basis.nG_max)
-    X = torch.randn(shape, dtype=basis.dtype, device=basis.device,
-                    generator=generator)
+    X = local_rows(basis, torch.randn(shape, dtype=basis.dtype, device=basis.device,
+                                      generator=generator))
     return ortho_qr(X * basis.data.mask[:, None, :])
 
 
@@ -98,7 +109,8 @@ def aufbau_occupation(basis, n_bands):
     model = basis.model
     filled = model.filled_occupation
     n_occ = int(round(model.n_electrons / filled))
-    occ = torch.zeros((basis.n_kpoints, n_bands), dtype=basis.rdtype, device=basis.device)
+    occ = torch.zeros((basis.data.mask.shape[0], n_bands), dtype=basis.rdtype,
+                      device=basis.device)
     occ[:, :n_occ] = filled
     return occ
 
@@ -111,6 +123,70 @@ def constant_energies(terms):
     if terms.E_pairwise:
         E["PairwisePotential"] = terms.E_pairwise
     return E
+
+
+class ScfConvergenceEnergy:
+    """Converged when |E_n - E_{n-1}| < tol (scf_callbacks.jl:138-166)."""
+
+    def __init__(self, tol):
+        self.tol = tol
+        self._prev = None
+
+    def __call__(self, info):
+        E = info["E"]
+        done = self._prev is not None and abs(E - self._prev) < self.tol
+        self._prev = E
+        return done
+
+
+class ScfConvergenceDensity:
+    """Converged when ||rho_out - rho_in|| sqrt(dvol) < tol."""
+
+    def __init__(self, tol):
+        self.tol = tol
+
+    def __call__(self, info):
+        return info["drho"] < self.tol
+
+
+class ScfConvergenceForce:
+    """Converged when the forces change by less than tol between iterations
+    (scf_callbacks.jl:158-166); evaluates the forces of the iterate
+    (info["partial_scfres"]) at every iteration."""
+
+    def __init__(self, tol):
+        self.tol = tol
+        self._prev = None
+
+    def __call__(self, info):
+        scfres_like = info.get("partial_scfres")
+        if scfres_like is None:
+            return False
+        from ..postprocess.forces import compute_forces
+        F = compute_forces(scfres_like).cpu().numpy()
+        done = self._prev is not None and float(np.abs(F - self._prev).max()) < self.tol
+        self._prev = F
+        return done
+
+
+class ScfDefaultCallback:
+    """Iteration table printer (reference scf_callbacks.jl:30-136)."""
+
+    def __init__(self, show_time=True):
+        self.t0 = None
+        self.show_time = show_time
+
+    def __call__(self, info):
+        if "E" not in info:          # the split loop's band-growth and stall notes
+            return
+        if self.t0 is None:
+            self.t0 = time.time()
+            print(f"{'n':>3s}  {'energy':>16s}  {'log10(drho)':>11s}"
+                  f"  {'eig_it':>6s}  {'t/s':>6s}")
+        drho = info.get("drho", float("nan"))
+        print(f"{info['n_iter']:3d}  {info['E']:16.10f}  "
+              f"{np.log10(max(drho, 1e-300)):11.2f}  "
+              f"{info.get('eig_iters', 0):6d}  {time.time() - self.t0:6.1f}")
 
 
 def default_mixing(model):
@@ -132,7 +208,8 @@ def ldos_at(basis, psi, eigenvalues, epsF):
         x = ((eigenvalues - epsF) / T).detach().requires_grad_(True)
         (docc,) = torch.autograd.grad(occupation(x).sum(), x)
     w = -model.filled_occupation / T * docc
-    return compute_density(basis.data, psi, w, basis.fft_size, model.unit_cell_volume, 1)
+    return compute_density(basis.data, psi, w, basis.fft_size, model.unit_cell_volume, 1,
+                           comm=basis.comm)
 
 
 @torch.no_grad()
@@ -166,6 +243,9 @@ def self_consistent_field(
     if mixing is None:
         mixing = default_mixing(model)
     needs_state = getattr(mixing, "needs_state", False)
+    if needs_state:
+        refuse_distributed(basis, "Chi0Mixing (the response)")
+    comm = basis.comm
     needs_ldos = getattr(mixing, "needs_ldos", False)
     if nbandsalg is not None:
         n_bands, nb_total = nbandsalg.bands(model)
@@ -180,7 +260,11 @@ def self_consistent_field(
     if generator is None:
         generator = torch.Generator(device=basis.device).manual_seed(seed)
     if psi is None:
+        if comm is not None:        # an even split of the block over "bands"
+            n_extra_bands = comm.round_bands(n_bands + n_extra_bands) - n_bands
         psi = random_orbitals(basis, n_bands + n_extra_bands, generator=generator)
+    elif comm is not None and psi.shape[0] == basis.n_kpoints != basis.data.mask.shape[0]:
+        psi = comm.rows(psi)              # every k-point given: this rank's rows
     if diagtol_min is None:
         diagtol_min = max(tol / 100, 100 * torch.finfo(basis.rdtype).eps)
 
@@ -200,7 +284,7 @@ def self_consistent_field(
 
     def scf_step(rho_in, psi_in, diagtol, tau_in, occ_in):
         V, Vtau, _ = hamops.total_potential(terms, rho_in, volume, tau=tau_in)
-        exx = (hamops.make_exchange(bd, td, psi_in, occ_in, filled, volume)
+        exx = (hamops.make_exchange(bd, td, psi_in, occ_in, filled, volume, comm)
                if has_exx else None)
         ham = hamops.build_ham(bd, td, V, basis.pruned, Vtau=Vtau,
                                exx=None if use_ace else exx)
@@ -220,30 +304,31 @@ def self_consistent_field(
             return out
 
         res = lobpcg(applyH, psi_in, ham.kin, bd.mask,
-                     tol=diagtol, maxiter=eigensolver_maxiter, n_conv=n_bands)
+                     tol=diagtol, maxiter=eigensolver_maxiter, n_conv=n_bands, comm=comm)
         occ, epsF = compute_occupation(res.eigenvalues, bd.kweights,
                                        model.n_electrons, model.filled_occupation,
-                                       model.temperature, model.smearing)
+                                       model.temperature, model.smearing, comm)
         rho_out = compute_density(bd, res.X, occ, basis.fft_size, volume, nspin,
-                                  symmetrizer=symmetrizer)
+                                  symmetrizer=symmetrizer, comm=comm)
         # energies at rho_out (consistent at convergence); the kinetic and
         # nonlocal parts of H do not depend on V, so `ham` serves for both
         tau_out = None
         if needs_tau:
             tau_out = compute_kinetic_energy_density(bd, res.X, occ, basis.fft_size, volume,
-                                                     nspin, symmetrizer=symmetrizer)
+                                                     nspin, symmetrizer=symmetrizer,
+                                                     comm=comm)
         V_out, _, energies = hamops.total_potential(terms, rho_out, volume, tau=tau_out)
-        energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights))
+        energies.update(hamops.psi_energies(ham, res.X, occ, bd.kweights, comm))
         if has_exx:
             energies["ExactExchange"] = hamops.exchange_energy(
-                hamops.make_exchange(bd, td, res.X, occ, filled, volume), res.X, occ,
-                bd.kweights)
+                hamops.make_exchange(bd, td, res.X, occ, filled, volume, comm), res.X, occ,
+                bd.kweights, comm)
         if hub is not None:
             energies["Hubbard"] = hub.energy(res.X, occ)
         if terms.has_entropy:
             energies["Entropy"] = entropy_energy(
                 res.eigenvalues, bd.kweights, epsF, model.temperature,
-                model.smearing, model.filled_occupation)
+                model.smearing, model.filled_occupation, comm)
         return rho_out, res, occ, epsF, energies, V_out, tau_out
 
     anderson = AndersonAcceleration(m=anderson_depth)
@@ -274,7 +359,14 @@ def self_consistent_field(
                           eig_iters=res.n_iter))
 
         if callable(is_converged):
-            converged = bool(is_converged(dict(E=E_total, drho=drho, n_iter=it + 1)))
+            # the iterate for criteria that evaluate it (ScfConvergenceForce)
+            partial = SCFResult(
+                basis=basis, energies=energies_h, eigenvalues=None, occupation=occ,
+                psi=res.X, rho=rho_out, epsF=float(epsF), converged=False, n_iter=it + 1,
+                n_bands_converge=n_bands, history_Etot=history_E, history_Drho=history_drho,
+                n_matvec=n_matvec_total, runtime_s=time.time() - t0, tau=tau_out)
+            converged = bool(is_converged(dict(E=E_total, drho=drho, n_iter=it + 1,
+                                               partial_scfres=partial)))
         elif is_converged == "density":
             converged = drho < tol
         else:
@@ -285,9 +377,11 @@ def self_consistent_field(
         # band growth (AdaptiveBands): random orthonormalised bands join the
         # block while the top computed bands are occupied
         if nbandsalg is not None and not converged:
-            grown = nbandsalg.update(occ, None)
+            grown = nbandsalg.update(kgather(occ, comm), None)
             if grown is not None:
                 n_bands, nb_total_new = grown
+                if comm is not None:    # an even split of the block over "bands"
+                    nb_total_new = comm.round_bands(nb_total_new)
                 extra = nb_total_new - psi.shape[1]
                 if extra > 0:
                     pad = random_orbitals(basis, extra, generator=generator)
@@ -325,7 +419,7 @@ def self_consistent_field(
             print(f"SCF debug state dumped to {path}")
     return SCFResult(
         basis=basis, energies=energies_out,
-        eigenvalues=res.eigenvalues.cpu().numpy(),
+        eigenvalues=kgather(res.eigenvalues, comm).cpu().numpy(),
         occupation=occ.cpu().numpy(),
         psi=psi, rho=rho_out, epsF=float(epsF), converged=bool(converged),
         n_iter=it + 1, n_bands_converge=n_bands,

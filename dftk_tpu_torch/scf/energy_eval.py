@@ -16,6 +16,7 @@ from ..ops import hamiltonian as hamops
 from ..ops.density import compute_density, make_symmetrizer
 from ..ops.occupation import entropy_energy
 from ..ops.terms import refuse_anyonic, refuse_terms
+from ..parallel.mesh import refuse_distributed
 
 
 def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
@@ -28,6 +29,7 @@ def evaluate_total_energy(basis, psi, occupation, eigenvalues=None, epsF=None,
     eigenvalues [nk, nb] and epsF feed the Entropy term of finite-temperature
     models, which is left out where either is None (as in the JAX
     package)."""
+    refuse_distributed(basis, "evaluate_total_energy")
     model = basis.model
     terms = basis.terms
     refuse_anyonic(model, "evaluate_total_energy")

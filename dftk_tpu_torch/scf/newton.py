@@ -24,12 +24,14 @@ from ..ops.eigen.lobpcg import ortho_qr
 from ..response.hessian import omega_plus_k_operators, preconditioned_cg
 from ..ops.terms import refuse_anyonic, refuse_terms
 from .driver import SCFResult, self_consistent_field
+from ..parallel.mesh import refuse_distributed
 
 
 @torch.no_grad()
 def newton(basis, tol=1e-10, maxiter=20, cg_tol_ratio=1e-3, cg_maxiter=100, psi=None,
            scf_start_iters=2, callback=None, seed=42) -> SCFResult:
     """Newton iteration on the orbitals for insulating systems."""
+    refuse_distributed(basis, "newton")
     t0 = time.time()
     model = basis.model
     terms = basis.terms

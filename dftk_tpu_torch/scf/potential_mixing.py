@@ -23,6 +23,7 @@ from ..ops.occupation import compute_occupation, entropy_energy
 from .anderson import AndersonAcceleration
 from ..ops.terms import refuse_anyonic, refuse_terms
 from .driver import SCFResult, random_orbitals
+from ..parallel.mesh import refuse_distributed
 
 
 @torch.no_grad()
@@ -30,6 +31,7 @@ def scf_potential_mixing(basis, tol=1e-6, maxiter=100, damping=0.8, anderson_dep
                          n_bands=None, n_extra_bands=None, eigensolver_maxiter=100,
                          callback=None, seed=42) -> SCFResult:
     """The eigensolver tolerance is min(5e-3, dV / 10), at least tol / 100."""
+    refuse_distributed(basis, "scf_potential_mixing")
     t0 = time.time()
     model = basis.model
     terms = basis.terms

@@ -7,6 +7,7 @@ equivalent Gamma-point supercell (each k of the grid becomes a Gamma
 G-vector of the supercell).
 """
 import numpy as np
+from .parallel.mesh import refuse_distributed
 
 
 def create_supercell(lattice, atoms, positions, supercell_size):
@@ -35,6 +36,7 @@ def cell_to_supercell(scfres):
     (exact when the k-grid is an unshifted MP grid); the coefficients and
     eigenvalues are numpy arrays.
     """
+    refuse_distributed(scfres.basis, "cell_to_supercell")
     basis = scfres.basis
     model = basis.model
     kcoords = basis.kcoords_spin

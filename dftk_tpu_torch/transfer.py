@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .ops import fft as fftops
+from .parallel.mesh import refuse_distributed
 
 
 def _keys(G, span):
@@ -44,6 +45,7 @@ def transfer_mapping(basis_in, basis_out):
     missing), valid [nk, nG_out] float 1/0).  Requires identical k-point
     lists.
     """
+    refuse_distributed(basis_in, "transfer_mapping")
     assert basis_in.n_kpoints == basis_out.n_kpoints
     nk = basis_in.n_kpoints
     nG_in = basis_in.nG_max
@@ -59,6 +61,7 @@ def transfer_mapping(basis_in, basis_out):
 def transfer_blochwave(psi, basis_in, basis_out):
     """psi [nk, nb, nG_in] -> [nk, nb, nG_out] (zero-padded / truncated),
     on basis_out's device."""
+    refuse_distributed(basis_in, "transfer_blochwave")
     idx, valid = transfer_mapping(basis_in, basis_out)
     psi = torch.as_tensor(psi, device=basis_out.device)
     nk, nb = psi.shape[:2]

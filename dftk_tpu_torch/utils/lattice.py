@@ -52,3 +52,37 @@ def estimate_integer_lattice_bounds(M, delta, shift=None):
         xlims = xlims + np.asarray(shift, dtype=float)
     tol = np.sqrt(np.finfo(float).eps)
     return [0 if x == 0 else int(np.ceil(x - tol)) for x in xlims]
+
+
+def compute_inverse_lattice(lattice):
+    return np.linalg.inv(np.asarray(lattice, dtype=float))
+
+
+def diameter(lattice):
+    """Diameter of the unit cell (longest vertex-to-vertex distance)."""
+    lattice = np.asarray(lattice, dtype=float)
+    return max(float(np.linalg.norm(lattice @ (np.array(c) - 1)))
+               for c in np.ndindex(3, 3, 3))
+
+
+# Reduced <-> Cartesian transforms (DFTK Model.jl:395-437 semantics)
+
+def vector_red_to_cart(lattice, r_red):
+    return np.asarray(lattice, dtype=float) @ r_red
+
+
+def vector_cart_to_red(lattice, r_cart):
+    return compute_inverse_lattice(lattice) @ r_cart
+
+
+def covector_red_to_cart(lattice, f_red):
+    # covectors transform with inv(lattice)^T
+    return compute_inverse_lattice(lattice).T @ f_red
+
+
+def covector_cart_to_red(lattice, f_cart):
+    return np.asarray(lattice, dtype=float).T @ f_cart
+
+
+def recip_vector_red_to_cart(lattice, G_red):
+    return compute_recip_lattice(lattice) @ G_red

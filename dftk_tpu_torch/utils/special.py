@@ -51,3 +51,15 @@ def solid_harmonics_real(rvec, lmax):
             math.sqrt(35 / (32 * pi)) * (x**2 - 3 * y**2) * x,
         ]
     return stack(out, -1)
+
+
+def ylm_real(l, m, rvec):
+    """Single real spherical harmonic Y_l^m at a unit (or general) vector
+    (numpy; 0 at the origin for l > 0)."""
+    rvec = np.asarray(rvec, dtype=float)
+    r = np.linalg.norm(rvec)
+    if l == 0:
+        return math.sqrt(1 / (4 * math.pi))
+    if r < 10 * np.finfo(float).eps:
+        return 0.0
+    return float(solid_harmonics_real(rvec / r, l)[..., LM_INDEX[(l, m)]])

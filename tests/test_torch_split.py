@@ -241,11 +241,15 @@ def test_split_scf_warm_restart(si):
 @pytest.mark.parametrize("what", ["temperature", "symmetric", "paired", "mesh",
                                   "bf16_filter"])
 def test_split_scf_refusals(si, what):
-    """What the split SCF refuses: the realified band representation and the
-    k-point mesh (item 13).  Finite temperature and symmetric runs with
-    magnetic moments, refused before item 8a, and the all-bf16 filter,
-    refused before item 8b, now run; those cases check one iteration of
-    each (the all-bf16 one filters with the bf16 plain versions only)."""
+    """What the split SCF refuses: the realified band representation, and
+    on a k-point mesh (item 13, which the split SCF itself now runs,
+    tests/test_torch_parallel.py) the split engine's entry points without
+    k-point reductions (item 13b), here on a basis sharded over a stand-in
+    (1, 2) ("kpts", "bands") mesh that runs no collective.  Finite
+    temperature and symmetric runs with magnetic moments, refused before
+    item 8a, and the all-bf16 filter, refused before item 8b, now run;
+    those cases check one iteration of each (the all-bf16 one filters with
+    the bf16 plain versions only)."""
     tb = si[1]
     if what == "bf16_filter":
         from dftk_tpu_torch.kernels import local_apply as la
@@ -267,11 +271,33 @@ def test_split_scf_refusals(si, what):
         assert ("Entropy" in res["energies"]) == (what == "temperature")
         assert res["rho"].shape[0] == (2 if what == "symmetric" else 1)
         return
+    if what == "mesh":
+        from dftk_tpu_torch.parallel.mesh import shard_basis
+        from dftk_tpu_torch.response.chi0_split import make_chi0_split_context
+        from dftk_tpu_torch.scf.energy_eval import refine_split_energy
+
+        class TwoBandRanks:
+            """Rank 0's view of a (1, 2) ("kpts", "bands") mesh."""
+            mesh_dim_names = ("kpts", "bands")
+
+            def size(self, i):
+                return (1, 2)[i]
+
+            def get_coordinate(self):
+                return (0, 0)
+
+            def get_group(self, name):
+                return None
+
+        b = shard_basis(make.si2_gamma_basis(dt, device="cpu"), TwoBandRanks())
+        state = dict(U=np.zeros((1, 4, 2 * b.nG_max)), occupation=np.zeros((1, 4)))
+        for call in (lambda: make_chi0_split_context(b, None, state),
+                     lambda: refine_split_energy(b, state)):
+            with pytest.raises(NotImplementedError, match="item 13b"):
+                call()
+        return
     with pytest.raises(NotImplementedError):
-        if what == "paired":
-            dt.self_consistent_field_split(tb, maxiter=1, band_repr="paired")
-        else:
-            dt.self_consistent_field_split(tb, maxiter=1, mesh=object())
+        dt.self_consistent_field_split(tb, maxiter=1, band_repr="paired")
 
 
 def test_basis_defaults_to_the_card():
